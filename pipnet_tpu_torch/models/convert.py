@@ -14,14 +14,17 @@ port's ``state_dict``:
   (P,2), ``multiplier``, and ``cls_bias`` when present, as they are
 
 Any leaf it cannot map, and any leaf a module needs but lacks, raises.
-``random_jax_params`` makes seeded weights in that same layout, from numpy
-alone, for runs that need a model without a trained checkpoint.
+``opt_state_from_jax`` maps the JAX package's Adam state (moments laid out
+as the parameters, one step count per leaf) onto the port's names, so a run
+can continue in the port mid-way.  ``random_jax_params`` makes seeded
+weights in that same layout, from numpy alone, for runs that need a model
+without a trained checkpoint.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping
+from typing import Callable, Dict, Mapping
 
 import numpy as np
 import torch
@@ -57,8 +60,15 @@ def _backbone_rules(module: str):
     return None
 
 
+def _tensor(value, fn) -> torch.Tensor:
+    arr = np.asarray(value, np.float32)
+    if fn is not None:
+        arr = fn(arr)
+    return torch.from_numpy(np.ascontiguousarray(arr))
+
+
 def _map_module(prefix: str, leaves: Mapping, required: Dict, optional: Dict,
-                out: Dict[str, torch.Tensor]) -> None:
+                out: Dict, leaf: Callable) -> None:
     if not isinstance(leaves, Mapping):
         raise ValueError(f"{prefix}: expected a dict of parameters")
     unknown = sorted(set(leaves) - set(required) - set(optional))
@@ -67,18 +77,15 @@ def _map_module(prefix: str, leaves: Mapping, required: Dict, optional: Dict,
     missing = sorted(set(required) - set(leaves))
     if missing:
         raise KeyError(f"missing parameters {[f'{prefix}/{k}' for k in missing]}")
-    for leaf, value in leaves.items():
-        name, fn = {**required, **optional}[leaf]
-        arr = np.asarray(value, np.float32)
-        if fn is not None:
-            arr = fn(arr)
-        out[f"{prefix.replace('/', '.')}.{name}"] = torch.from_numpy(
-            np.ascontiguousarray(arr))
+    for key, value in leaves.items():
+        name, fn = {**required, **optional}[key]
+        out[f"{prefix.replace('/', '.')}.{name}"] = leaf(value, fn)
 
 
-def params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+def params_from_jax(params: Mapping, leaf: Callable = _tensor) -> Dict[str, torch.Tensor]:
     """flax ``PIPNet`` params (nested dicts of arrays) -> the port's
-    ``state_dict`` (float32 tensors on the CPU)."""
+    ``state_dict`` (float32 tensors on the CPU).  ``leaf(value, layout_fn)``
+    makes each entry."""
     unknown = sorted(set(params) - {"backbone", "head"})
     if unknown or "backbone" not in params or "head" not in params:
         raise KeyError(f"expected top-level 'backbone' and 'head', got {sorted(params)}")
@@ -87,12 +94,21 @@ def params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
         rules = _backbone_rules(module)
         if rules is None:
             raise KeyError(f"unmapped backbone module backbone/{module}")
-        _map_module(f"backbone/{module}", leaves, *rules, out)
+        _map_module(f"backbone/{module}", leaves, *rules, out, leaf)
     for needed in ("stem_conv", "stem_norm"):
         if needed not in params["backbone"]:
             raise KeyError(f"missing backbone module backbone/{needed}")
-    _map_module("head", params["head"], _HEAD, _HEAD_OPTIONAL, out)
+    _map_module("head", params["head"], _HEAD, _HEAD_OPTIONAL, out, leaf)
     return out
+
+
+def opt_state_from_jax(opt):
+    """The JAX package's ``AdamState`` (``mu``, ``nu`` laid out as the params,
+    ``count`` one int per leaf) -> the port's ``train.optimizer.AdamState``
+    (CPU tensors under the port's parameter names, counts as ints)."""
+    from ..train.optimizer import AdamState
+    return AdamState(mu=params_from_jax(opt.mu), nu=params_from_jax(opt.nu),
+                     count=params_from_jax(opt.count, lambda v, fn: int(np.asarray(v))))
 
 
 def random_jax_params(cfg: ModelConfig, tree: TreeArrays, seed: int = 0,

@@ -1,5 +1,4 @@
-"""ConvNeXt-Tiny backbone in PyTorch, with the PIP-Net stride surgery
-(inference only).
+"""ConvNeXt-Tiny backbone in PyTorch, with the PIP-Net stride surgery.
 
 Counterpart of the JAX package's ``models/convnext.py`` and of the
 reference backbone (``features/convnext_features.py:7-42``): torchvision's
@@ -13,14 +12,15 @@ whose input channel count exceeds a threshold is re-strided to 1:
 Inputs and outputs are channels-last ``(B, H, W, C)`` as in the JAX package;
 the convolutions see a channels-last-strided NCHW view, so no copy is made.
 Parameters stay float32 and are cast to the compute dtype inside ``forward``,
-as the JAX package does.  Stochastic depth is a no-op at inference; the
-Gaussian multiplier and row-mode stochastic depth come with the training
-slice.
+as the JAX package does.  Training applies row-mode stochastic depth (a
+block's whole residual branch dropped per sample, with a probability that
+ramps linearly over the blocks) from an explicit ``torch.Generator``; the
+Gaussian multiplier and the fused block kernel (K4) are not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Dict, Iterable, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -61,9 +61,9 @@ class CNBlock(nn.Module):
     """ConvNeXt block: dw7x7 -> LN -> MLP(4x, GELU) -> layer-scale -> +residual.
     The block LN is computed in f32 and cast back (JAX ``convnext.py:107-111``)."""
 
-    def __init__(self, dim: int, fast_gelu: bool = False):
+    def __init__(self, dim: int, fast_gelu: bool = False, sd_prob: float = 0.0):
         super().__init__()
-        self.fast_gelu = fast_gelu
+        self.fast_gelu, self.sd_prob = fast_gelu, sd_prob
         self.dwconv = nn.Conv2d(dim, dim, 7, padding=3, groups=dim)
         self.norm_scale = nn.Parameter(torch.ones(dim))
         self.norm_bias = nn.Parameter(torch.zeros(dim))
@@ -71,7 +71,8 @@ class CNBlock(nn.Module):
         self.mlp_out = nn.Linear(4 * dim, dim)
         self.layer_scale = nn.Parameter(torch.full((dim,), 1e-6))
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype: torch.dtype, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         residual = x
         h = _nhwc(F.conv2d(_nchw(x.to(dtype)), self.dwconv.weight.to(dtype),
                            padding=3, groups=x.shape[-1]))
@@ -84,7 +85,13 @@ class CNBlock(nn.Module):
         h = F.linear(h, self.mlp_in.weight.to(dtype), self.mlp_in.bias.to(dtype))
         h = F.gelu(h, approximate="tanh" if self.fast_gelu else "none")
         h = F.linear(h, self.mlp_out.weight.to(dtype), self.mlp_out.bias.to(dtype))
-        return residual + h * self.layer_scale.to(dtype)
+        h = h * self.layer_scale.to(dtype)
+        if train and self.sd_prob > 0.0:
+            keep = 1.0 - self.sd_prob
+            mask = torch.rand((x.shape[0], 1, 1, 1), generator=generator,
+                              device=x.device) < keep
+            h = torch.where(mask, h / keep, torch.zeros_like(h))
+        return residual + h
 
 
 class ConvNeXtTiny(nn.Module):
@@ -101,12 +108,14 @@ class ConvNeXtTiny(nn.Module):
     def __init__(self, stride_threshold: Optional[int] = 100,
                  depths: Sequence[int] = CONVNEXT_TINY_DEPTHS,
                  dims: Sequence[int] = CONVNEXT_TINY_DIMS,
-                 fast_gelu: bool = False, dtype: torch.dtype = torch.float32):
+                 fast_gelu: bool = False, dtype: torch.dtype = torch.float32,
+                 stochastic_depth_prob: float = 0.1):
         super().__init__()
         self.depths, self.dims, self.dtype = tuple(depths), tuple(dims), dtype
         self.stem_conv = nn.Conv2d(3, dims[0], 4, stride=4)
         self.stem_norm = ChannelLayerNorm(dims[0])
         self.strides = [0]
+        total_blocks, block_id = sum(depths), 0
         for stage, (depth, dim) in enumerate(zip(depths, dims)):
             if stage > 0:
                 in_ch = dims[stage - 1]
@@ -118,14 +127,18 @@ class ConvNeXtTiny(nn.Module):
                 self.add_module(f"down{stage}_conv",
                                 nn.Conv2d(in_ch, dim, 2, stride=stride))
             for blk in range(depth):
-                self.add_module(f"stage{stage}_block{blk}", CNBlock(dim, fast_gelu))
+                sd = stochastic_depth_prob * block_id / max(total_blocks - 1, 1)
+                self.add_module(f"stage{stage}_block{blk}", CNBlock(dim, fast_gelu, sd))
+                block_id += 1
 
     @property
     def out_channels(self) -> int:
         return self.dims[-1]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x (B, H, W, 3) -> features (B, H', W', C) in the compute dtype."""
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """x (B, H, W, 3) -> features (B, H', W', C) in the compute dtype.
+        With ``train``, stochastic depth draws from ``generator``."""
         dt = self.dtype
         x = _nhwc(F.conv2d(_nchw(x.to(dt)), self.stem_conv.weight.to(dt),
                            self.stem_conv.bias.to(dt), stride=4))
@@ -137,7 +150,7 @@ class ConvNeXtTiny(nn.Module):
                 x = _nhwc(F.conv2d(_nchw(x), conv.weight.to(dt), conv.bias.to(dt),
                                    stride=self.strides[stage]))
             for blk in range(depth):
-                x = getattr(self, f"stage{stage}_block{blk}")(x, dt)
+                x = getattr(self, f"stage{stage}_block{blk}")(x, dt, train, generator)
         return x.contiguous()
 
 
@@ -151,3 +164,22 @@ def convnext_tiny_13(dtype=torch.float32, **kw) -> ConvNeXtTiny:
 
 def convnext_tiny_7(dtype=torch.float32, **kw) -> ConvNeXtTiny:
     return ConvNeXtTiny(stride_threshold=None, dtype=dtype, **kw)
+
+
+def convnext_param_groups(modules: Iterable[str]) -> Dict[str, str]:
+    """Optimizer group of each top-level backbone module (the reference's
+    partition, ``util/args.py:500-515``): the last block of stage 4 ->
+    'train'; the rest of stages 3/4 (torchvision features.6/7) -> 'freeze';
+    stage 2's blocks and its downsampling (features.4/5) -> 'backbone';
+    everything earlier -> 'frozen'."""
+    groups = {}
+    for name in modules:
+        if name == "stage3_block2":                       # torchvision features.7.2
+            groups[name] = "train"
+        elif name.startswith("stage3") or name in ("down3_conv", "down3_norm"):
+            groups[name] = "freeze"                       # features.7 / features.6
+        elif name.startswith("stage2") or name in ("down2_conv", "down2_norm"):
+            groups[name] = "backbone"                     # features.5 / features.4
+        else:
+            groups[name] = "frozen"                       # stem, stages 1-2 (features.0-3)
+    return groups

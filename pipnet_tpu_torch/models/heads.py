@@ -1,13 +1,16 @@
-"""The stacked prototype head (inference), over the fused head kernel K1.
+"""The stacked prototype head, over the fused head kernels K1 and K2.
 
   features (B,H,W,D) --K1: matmul, per-node softmax, max-pool--> pf (B,H,W,P),
   pooled (B,P) --threshold--> --block-masked non-neg linear--> logits (B,C)
 
 Counterpart of the JAX package's ``PrototypeHead`` on its fused path
-(``models/heads.py:164-206``).  The port has one head path: K1 through
+(``models/heads.py:155-206``).  The port has one head path: K1 through
 ``ops/fused_head.py`` (the CUDA kernel on the card, its plain version on the
-CPU), which computes the per-node temperature softmax that both of the JAX
-package's head paths compute.  The other add-on types, the spatial, Gumbel
+CPU; differentiable, with K1b as its backward), which computes the per-node
+temperature softmax that both of the JAX package's head paths compute.
+With ``fuse_align_pf`` a two-view training batch goes through K2 instead
+(``ops/fused_head_nopf.py``): pooled and align_pf's per-node log-reduction,
+with pf never materialised.  The other add-on types, the spatial, Gumbel
 and cosine-multiplied softmax variants, focal pooling and the
 overspecificity mask come with later slices and raise here.
 """
@@ -20,7 +23,9 @@ import torch
 from torch import nn
 
 from ..config import HeadConfig
+from ..losses.catalog import ALIGN_EPS
 from ..ops.fused_head import fused_head
+from ..ops.fused_head_nopf import fused_head_nopf
 from ..tree.compile import TreeArrays
 
 
@@ -69,7 +74,11 @@ class PrototypeHead(nn.Module):
         return w * self.cls_mask
 
     def forward(self, features: torch.Tensor, *, inference: bool = False,
-                apply_overspecificity_mask: bool = False) -> Dict[str, torch.Tensor]:
+                apply_overspecificity_mask: bool = False,
+                fuse_align_pf: bool = False) -> Dict[str, torch.Tensor]:
+        """features (B, H, W, D) -> {'proto_features', 'pooled', 'logits'};
+        with ``fuse_align_pf`` (B = two stacked views) -> {'pooled',
+        'logits', 'align_pf_logsum' (B/2, N)}, pf never materialised."""
         if apply_overspecificity_mask:
             raise NotImplementedError(
                 "the overspecificity mask is not ported yet (it comes with "
@@ -77,8 +86,13 @@ class PrototypeHead(nn.Module):
         cfg = self.cfg
         if cfg.sg_before_protos:
             features = features.detach()
-        pf, pooled = fused_head(features, self.add_on_kernel.to(features.dtype),
-                                self.tree, tau=cfg.softmax_tau)
+        kernel = self.add_on_kernel.to(features.dtype)
+        if fuse_align_pf:
+            pooled, logsum = fused_head_nopf(features, kernel, self.tree,
+                                             tau=cfg.softmax_tau, eps=ALIGN_EPS)
+            pooled, logits = self.classify(pooled.to(features.dtype), inference=inference)
+            return {"pooled": pooled, "logits": logits, "align_pf_logsum": logsum}
+        pf, pooled = fused_head(features, kernel, self.tree, tau=cfg.softmax_tau)
         # cast before the threshold, as the JAX head does (heads.py:199-201)
         pooled, logits = self.classify(pooled.to(features.dtype), inference=inference)
         return {"proto_features": pf, "pooled": pooled, "logits": logits}

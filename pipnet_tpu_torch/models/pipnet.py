@@ -1,14 +1,15 @@
 """PIPNet: backbone + stacked prototype head, and the joint leaf decode.
 
 Counterpart of the JAX package's ``models/pipnet.py`` (itself the reference
-``PIPNet``, ``pipnet/pipnet.py:54-185``) for the serving slice: the ConvNeXt
-backbones, the conv add-on head over K1, and the vectorized joint
-distribution over leaves.
+``PIPNet``, ``pipnet/pipnet.py:54-185``) for the serving and training
+slices: the ConvNeXt backbones, the conv add-on head over K1 (or K2 for a
+training step that fuses align_pf), and the vectorized joint distribution
+over leaves.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -41,31 +42,38 @@ def _unported(cfg: ModelConfig) -> list:
 
 
 class PIPNet(nn.Module):
-    """Hierarchical prototype network over a compiled tree (inference)."""
+    """Hierarchical prototype network over a compiled tree."""
 
     def __init__(self, tree: TreeArrays, cfg: ModelConfig):
         super().__init__()
         missing = _unported(cfg)
         if missing:
             raise NotImplementedError(
-                f"model options {missing} are not ported yet; the serving "
-                f"slice runs {sorted(BACKBONES)} with the conv prototype head")
+                f"model options {missing} are not ported yet; the port runs "
+                f"{sorted(BACKBONES)} with the conv prototype head")
         self.tree, self.cfg = tree, cfg
         self.dtype = _DTYPES[cfg.compute_dtype]
         ctor, channels = BACKBONES[cfg.backbone]
         self.backbone = ctor(dtype=self.dtype, fast_gelu=cfg.fast_gelu)
         self.head = PrototypeHead(tree, cfg.head, channels)
 
-    def features(self, xs: torch.Tensor) -> torch.Tensor:
-        return self.backbone(xs)
+    def features(self, xs: torch.Tensor, *, train: bool = False,
+                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self.backbone(xs, train=train, generator=generator)
 
-    def forward(self, xs: torch.Tensor, *, inference: bool = False,
-                apply_overspecificity_mask: bool = False) -> Dict[str, torch.Tensor]:
+    def forward(self, xs: torch.Tensor, *, train: bool = False,
+                generator: Optional[torch.Generator] = None,
+                inference: bool = False, apply_overspecificity_mask: bool = False,
+                fuse_align_pf: bool = False) -> Dict[str, torch.Tensor]:
         """xs (B, S, S, 3) -> {'features', 'proto_features', 'pooled',
-        'logits'} with layouts (B,H,W,D), (B,H,W,P), (B,P), (B,C)."""
-        f = self.features(xs)
+        'logits'} with layouts (B,H,W,D), (B,H,W,P), (B,P), (B,C).  ``train``
+        turns stochastic depth on, drawing from ``generator``.
+        ``fuse_align_pf`` (two stacked views): 'align_pf_logsum' (B/2, N)
+        replaces 'proto_features' (K2; see ``PrototypeHead``)."""
+        f = self.features(xs, train=train, generator=generator)
         out = self.head(f, inference=inference,
-                        apply_overspecificity_mask=apply_overspecificity_mask)
+                        apply_overspecificity_mask=apply_overspecificity_mask,
+                        fuse_align_pf=fuse_align_pf)
         out["features"] = f
         return out
 

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface.  It is compiled with
 ``nvcc`` for ``sm_90a`` into ``build/kernels/lib<name>-<hash>.so`` under the
 repository root (listed in ``.gitignore``) at first use, and loaded with
-``ctypes``.  The hash covers the source and the flags, so an edited source
-builds anew and a stale library is never loaded.
+``ctypes``.  The hash covers the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header builds anew
+and a stale library is never loaded.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Callable, Dict, Iterable, Sequence, Tuple
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -39,7 +40,8 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    src = b"".join(p.read_bytes() for p in
+                   [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
@@ -80,6 +82,19 @@ def load_library(name: str) -> ctypes.CDLL:
     lib.pipnet_cuda_error_string.argtypes = [ctypes.c_int]
     lib.pipnet_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def kernel_entry(name: str, symbol: str,
+                 argtypes: Sequence) -> Tuple[ctypes.CDLL, Callable]:
+    """The built library ``name`` and its C entry ``symbol``, with
+    ``argtypes`` declared (``c_void_p`` for every pointer and the stream, so
+    no pointer is cut to 32 bits) and the returned ``cudaError_t`` as an
+    int."""
+    lib = load_library(name)
+    fn = getattr(lib, symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return lib, fn
 
 
 def check_cuda(lib: ctypes.CDLL, code: int, what: str) -> None:

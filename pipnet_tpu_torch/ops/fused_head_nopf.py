@@ -1,0 +1,147 @@
+"""K2: the no-pf fused prototype head, as a hand-written CUDA kernel for
+Hopper.
+
+Replaces ``pipnet_tpu/ops/pallas_head.py::_head_nopf_kernel`` (reached from
+``fused_head_nopf_forward``); the kernel is ``csrc/fused_head_nopf.cu``,
+built for ``sm_90a`` at first use (``ops/build.py``) and bound with
+``ctypes``.  For features holding two views stacked, (2B, H, W, D), it gives
+both views' pooled maxima and align_pf's per-node patch reduction
+
+    logsum[b, n] = sum_hw log(sum_{p in n} pf[b, hw, p] * pf[B + b, hw, p] + eps)
+
+without writing the (2B, H, W, P) softmaxed maps to device memory.
+
+What bounds it on an H100 at the flagship train step (64 image pairs, 26x26
+patches, D=768, 3780 real prototype columns, bf16): the two views'
+products, 502 GFLOP, 0.51 ms at the 989 TFLOP/s bf16 dense peak; the bytes
+(F 133 MB, K 5.9 MB, outputs 2 MB) take 0.04 ms.  The design is K1's block
+plan over image pairs; see the source.
+
+``fused_head_nopf`` runs the kernel for CUDA tensors and the plain PyTorch
+version ``fused_head_nopf_reference`` for CPU tensors, with no fallback
+between them; ``fused_head_nopf.launches`` counts kernel launches.  When
+autograd records it goes through ``FusedHeadNoPF``, whose backward
+recomputes both views' pf with one K1 launch, builds pf's cotangent from
+logsum's (each view gets half of the inner product's, the symmetrised
+stop-gradient of align_pf), and runs K1b and the two projection products.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from ..tree.compile import TreeArrays
+from .build import check_cuda, kernel_entry
+from .fused_head import (_DTYPE_CODES, _forward, check_head_inputs, column_groups,
+                         head_backward, projection_grads)
+from .segment import _node_onehot, segment_softmax, segment_sum_to_nodes, tree_tensor
+
+
+def fused_head_nopf_reference(features: torch.Tensor, kernel: torch.Tensor,
+                              tree: TreeArrays, tau: float = 1.0, eps: float = 1e-12
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K2, in f32 throughout: features (2B, H, W, D),
+    kernel (D, P) -> (pooled (2B, P) f32, logsum (B, N) f32)."""
+    B = features.shape[0] // 2
+    p = segment_softmax(features.float() @ kernel.float(), tree, tau=tau)
+    ip = segment_sum_to_nodes(p[:B] * p[B:], tree)
+    return p.amax(dim=(1, 2)), torch.log(ip + eps).sum(dim=(1, 2))
+
+
+def _check(features: torch.Tensor, kernel: torch.Tensor, tree: TreeArrays) -> None:
+    check_head_inputs(features, kernel, tree, "no-pf head")
+    if features.shape[0] % 2:
+        raise ValueError(f"features {tuple(features.shape)} do not hold two stacked "
+                         f"views (an even batch)")
+
+
+def _launch(features, kernel, tree, tau, eps):
+    B2, H, W, D = features.shape
+    P, N = tree.num_protos_padded, tree.num_nodes
+    dev = features.device
+    groups = tree_tensor(tree, "fused_head_groups", column_groups(tree), dev, torch.int32)
+    valid = tree_tensor(tree, "proto_valid_u8", tree.proto_valid, dev, torch.uint8)
+    proto_node = tree_tensor(tree, "proto_node_i32", tree.proto_node, dev, torch.int32)
+    pooled = torch.empty((B2, P), dtype=torch.float32, device=dev)
+    logsum = torch.empty((B2 // 2, N), dtype=torch.float32, device=dev)
+    lib, fn = kernel_entry("fused_head_nopf", "pipnet_fused_head_nopf_forward",
+                           [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+                           + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = fn(features.data_ptr(), kernel.data_ptr(), valid.data_ptr(),
+                  groups.data_ptr(), proto_node.data_ptr(), pooled.data_ptr(),
+                  logsum.data_ptr(), B2 // 2, H * W, D, P, N, groups.shape[0],
+                  float(tau), float(eps), _DTYPE_CODES[features.dtype], stream)
+    check_cuda(lib, code, "no-pf head launch")
+    fused_head_nopf.launches += 1
+    return pooled, logsum
+
+
+def _nopf_forward(features, kernel, tree, tau, eps):
+    _check(features, kernel, tree)
+    if features.device.type == "cpu":
+        return fused_head_nopf_reference(features, kernel, tree, tau, eps)
+    if features.device.type != "cuda":
+        raise ValueError(f"no-pf head runs on cuda or cpu, not {features.device}")
+    return _launch(features, kernel, tree, tau, eps)
+
+
+def fused_head_nopf(features: torch.Tensor, kernel: torch.Tensor, tree: TreeArrays,
+                    tau: float = 1.0, eps: float = 1e-12
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Both views' pooled maxima and align_pf's per-node log-reduction (the
+    contract of the JAX package's ``fused_head_nopf_forward``; differentiable,
+    as its ``make_fused_head_nopf``).
+
+    features (2B, H, W, D), kernel (D, P) -> (pooled (2B, P) f32, logsum
+    (B, N) f32).  CUDA tensors go through the kernel (or raise); CPU tensors
+    through ``fused_head_nopf_reference``."""
+    if torch.is_grad_enabled() and (features.requires_grad or kernel.requires_grad):
+        return FusedHeadNoPF.apply(features, kernel, tree, tau, eps)
+    return _nopf_forward(features, kernel, tree, tau, eps)
+
+
+fused_head_nopf.launches = 0
+
+
+class FusedHeadNoPF(torch.autograd.Function):
+    """``(features, kernel) -> (pooled, logsum)`` through K2.  Its backward
+    recomputes pf for both views with one K1 launch (the forward stored
+    nothing but its inputs), forms pf's cotangent from logsum's, and runs
+    K1b and the projection products (``make_fused_head_nopf``'s VJP,
+    ``pallas_head.py:350-383``)."""
+
+    @staticmethod
+    def forward(ctx, features, kernel, tree, tau, eps):
+        pooled, logsum = _nopf_forward(features, kernel, tree, tau, eps)
+        ctx.save_for_backward(features, kernel)
+        ctx.tree, ctx.tau, ctx.eps = tree, tau, eps
+        ctx.set_materialize_grads(False)
+        return pooled, logsum
+
+    @staticmethod
+    def backward(ctx, g_pooled, g_logsum):
+        features, kernel = ctx.saved_tensors
+        tree = ctx.tree
+        pf, _ = _forward(features, kernel, tree, ctx.tau)
+        g_pf = None
+        if g_logsum is not None:
+            # d/dpf of sum log(ip + eps) under align_pf's symmetrised
+            # stop-gradient 0.5 * (pf1 sg(pf2) + sg(pf1) pf2): each view
+            # gets half of the inner product's cotangent times the other view
+            B = pf.shape[0] // 2
+            p = pf.float()
+            onehot = tree_tensor(tree, "node_onehot", _node_onehot(tree), p.device,
+                                 torch.float32)
+            ip = segment_sum_to_nodes(p[:B] * p[B:], tree)
+            gseg = (g_logsum.float()[:, None, None, :] / (ip + ctx.eps)) @ onehot.T
+            g_pf = (0.5 * gseg.repeat(2, 1, 1, 1) * torch.cat([p[B:], p[:B]])).to(pf.dtype)
+        if g_pooled is None:
+            g_pooled = torch.zeros(pf.shape[0], pf.shape[-1], device=pf.device)
+        dz = head_backward(pf, g_pf, g_pooled.float().contiguous(), tree, ctx.tau)
+        return (*projection_grads(features, kernel, dz, ctx.needs_input_grad[:2]),
+                None, None, None)

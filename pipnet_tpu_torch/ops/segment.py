@@ -9,6 +9,8 @@ prototype axis minor-most.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -99,3 +101,25 @@ def segment_softmax(x: torch.Tensor, tree: TreeArrays,
     denom = (e @ onehot) @ onehot.T
     p = e / torch.clamp(denom, min=1e-18)
     return p.to(x.dtype)
+
+
+def segment_sum_to_nodes(x: torch.Tensor, tree: TreeArrays) -> torch.Tensor:
+    """Sum ``x[..., P]`` within each node's segment -> ``(..., N)``, in
+    compiled node order (the buckets hold consecutive nodes)."""
+    return torch.cat([view.sum(dim=-1) for _, view in _bucket_views(x, tree)], dim=-1)
+
+
+def soft_gumbel(logits2: torch.Tensor, generator: Optional[torch.Generator],
+                tau: float = 0.5, noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Soft Gumbel-softmax over the last axis (ref pipnet/train.py:978).
+
+    The Gumbel sample ``-log(-log(u))`` draws ``u`` from ``generator`` (on
+    ``logits2``'s device), or is ``noise`` when given: ``torch.Generator``
+    and ``jax.random`` give different streams, so a test hands both packages
+    the same sample."""
+    if noise is None:
+        tiny = torch.finfo(logits2.dtype).tiny
+        u = torch.rand(logits2.shape, generator=generator, device=logits2.device,
+                       dtype=logits2.dtype)
+        noise = -torch.log(-torch.log(u.clamp(min=tiny)))
+    return torch.softmax((logits2 + noise) / tau, dim=-1)

@@ -1,0 +1,205 @@
+"""The train step.
+
+Counterpart of the JAX package's ``train/step.py`` (itself the reference's
+hot loop, ``pipnet/train.py:202-369``): forward on the concatenated two-view
+batch, the loss catalog, gradients, clipping and the masked AdamW update of
+both optimizers' groups.  PyTorch runs it eagerly; parameters and Adam
+state are updated in place.
+
+What the JAX step expresses with ``stop_gradient`` on the groups that do
+not train in a phase becomes ``requires_grad_(False)`` on those parameters,
+so autograd builds no backward for them (with the stem and stages 0-1
+frozen, the backward stops at ``down2``).  Metrics stay on the card: they
+add into the caller's ``acc`` dict without a host sync.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+
+from ..config import RunConfig
+from ..losses import LossWeights, compute_total_loss, make_tree_consts
+from ..losses.catalog import label_rows
+from ..models.pipnet import PIPNet, joint_leaf_log_distribution
+from ..tree.compile import TreeArrays
+from .optimizer import (AdamState, Phase, adam_init, adam_update, clip_gradients,
+                        cosine_annealing, cosine_warm_restarts, group_trainable,
+                        label_params, masks_and_lrs)
+
+Metrics = Dict[str, torch.Tensor]
+
+
+@dataclass
+class TrainState:
+    """The model's parameters (the module's own tensors, updated in place),
+    the Adam state, and the generator that stochastic depth and the presence
+    Gumbel noise draw from."""
+    params: Dict[str, torch.nn.Parameter]
+    opt: AdamState
+    generator: torch.Generator = field(repr=False)
+
+
+@dataclass(frozen=True)
+class StepStatics:
+    """Configuration of one phase's step that does not change from step to
+    step (the JAX package's compile-time statics)."""
+    phase: Phase
+    mask_prune_active: bool = False
+    has_ood: bool = False
+    eta_min_net: float = 0.0
+    t0_cls: float = 5.0
+    weight_reactivation: bool = False
+    # OptimConfig.unfreeze_warmup_epochs on the net_t step axis: the
+    # backbone group's lr ramps from 0 at backbone_warmup_t0 to the schedule
+    # over backbone_warmup_steps steps; 0 steps = off
+    backbone_warmup_t0: float = 0.0
+    backbone_warmup_steps: float = 0.0
+
+
+@dataclass(frozen=True)
+class Scalars:
+    """Per-step scalars, plain Python floats."""
+    net_t: float              # net scheduler step
+    net_T: float              # net scheduler horizon
+    epoch_frac: float         # classifier fractional epoch (warm restarts)
+    align_pf_weight: float    # pretrain ramp epoch/nr_epochs, or 5.0
+    tanh_weight: float
+
+
+def init_train_state(model: PIPNet, seed: int = 0) -> TrainState:
+    """Adam state for the model's parameters (as they stand: load them
+    first) and a generator on the model's device seeded with ``seed``."""
+    params = dict(model.named_parameters())
+    device = next(iter(params.values())).device
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return TrainState(params=params, opt=adam_init(params), generator=gen)
+
+
+def reinit_optimizer(state: TrainState) -> TrainState:
+    """Fresh Adam state at the phase-1 -> phase-2 boundary (main.py:501)."""
+    return dataclasses.replace(state, opt=adam_init(state.params))
+
+
+def make_train_step(model: PIPNet, tree: TreeArrays, cfg: RunConfig,
+                    statics: StepStatics, *, fuse_align_pf: bool = False) -> Callable:
+    """The step function of one phase:
+    ``step(state, xs1, xs2, ys, scalars, acc=None, presence_noise=None)
+    -> (state, metrics)``.
+
+    ``xs1``/``xs2`` are the two views (B, S, S, 3) float, ``ys`` (B,) the
+    fine labels.  ``fuse_align_pf`` runs the head through K2 (align_pf
+    reduced in-kernel, pf never materialised); it needs align_pf on, the
+    reference ``align_eps`` (None) and a phase that is not a finetune phase,
+    and raises otherwise.  ``presence_noise`` (P, 2), when given, replaces
+    the step's draw of the presence Gumbel noise (tests hand both packages
+    the same sample)."""
+    lcfg, ocfg, ph = cfg.train.loss, cfg.train.optim, statics.phase
+    if statics.has_ood:
+        raise NotImplementedError("the OOD losses are not ported yet")
+    if lcfg.byol:
+        raise NotImplementedError("BYOL is not ported yet")
+    if fuse_align_pf:
+        why = [reason for reason, bad in (
+            ("align_pf is off", not lcfg.align_pf),
+            (f"align_eps={lcfg.align_eps} is set (K2 takes the reference 1e-12)",
+             lcfg.align_eps is not None),
+            (f"phase {ph.name!r} computes no align_pf", ph.finetune)) if bad]
+        if why:
+            raise ValueError(f"fuse_align_pf=True cannot apply: {'; '.join(why)}")
+
+    head = model.head
+    device = head.add_on_kernel.device
+    tc = make_tree_consts(tree, device)
+    names = [n for n, _ in model.named_parameters()]
+    labels = label_params(names, cfg.model.backbone)
+    trainable = {n: group_trainable(labels[n], ph) for n in names}
+    eff_lcfg = dataclasses.replace(lcfg, mask_prune_overspecific=statics.mask_prune_active,
+                                   mask_prune_start_epoch=0)
+    weights_cl = 0.0 if ph.pretrain else lcfg.cl_weight
+
+    def step(state: TrainState, xs1: torch.Tensor, xs2: torch.Tensor, ys: torch.Tensor,
+             scalars: Scalars, acc: Optional[Metrics] = None,
+             presence_noise: Optional[torch.Tensor] = None) -> Tuple[TrainState, Metrics]:
+        if xs1.dtype == torch.uint8:
+            raise NotImplementedError(
+                "device-side augmentation (uint8 input) is not ported yet; pass "
+                "two float views")
+        xs = torch.cat([xs1, xs2], dim=0)
+        ys2 = torch.cat([ys, ys], dim=0)
+        for n, p in state.params.items():
+            p.requires_grad_(trainable[n])
+            p.grad = None
+
+        out = model(xs, train=True, generator=state.generator, fuse_align_pf=fuse_align_pf)
+        weights = LossWeights(align_pf=scalars.align_pf_weight,
+                              byol=0.5 if ph.pretrain else 2.0,
+                              tanh=scalars.tanh_weight, cl=weights_cl,
+                              ood=0.0 if ph.pretrain else 0.2)
+        loss, aux = compute_total_loss(
+            tc, out, ys2, head.effective_cls_weight(),
+            add_on_kernel=head.add_on_kernel, proto_presence=head.proto_presence,
+            multiplier=head.multiplier[0].detach(), cfg=eff_lcfg, weights=weights,
+            tree=tree, pretrain=ph.pretrain, finetune=ph.finetune,
+            generator=state.generator, presence_noise=presence_noise)
+        loss.backward()       # .grad stays set (unclipped) until the next step
+        grads = {n: p.grad for n, p in state.params.items()}
+
+        grad_norm = None
+        if ocfg.clip_grad > 0.0:
+            grads, grad_norm = clip_gradients(grads, labels, ocfg.clip_grad,
+                                              per_group=ocfg.clip_grad_per_group)
+
+        def net_lr(base):
+            return cosine_annealing(base, statics.eta_min_net, scalars.net_t, scalars.net_T)
+
+        def cls_lr(base):
+            return cosine_warm_restarts(base, 1e-3, scalars.epoch_frac, statics.t0_cls)
+
+        backbone_lr = None
+        if statics.backbone_warmup_steps > 0:
+            ramp = min(max((scalars.net_t - statics.backbone_warmup_t0)
+                           / statics.backbone_warmup_steps, 0.0), 1.0)
+            backbone_lr = lambda base: net_lr(base) * ramp  # noqa: E731
+        masks, lrs = masks_and_lrs(labels, ph, ocfg, net_lr, cls_lr, backbone_lr)
+        adam_update(state.params, grads, state.opt, lrs, masks,
+                    weight_decay=ocfg.weight_decay)
+
+        with torch.no_grad():
+            if statics.weight_reactivation and not ph.pretrain:
+                # the intended +0.01 to classifier weights <= 1e-3; a no-op in
+                # the reference through its name-matching bug (train.py:67-71)
+                w = head.cls_weight
+                w.copy_(torch.where(w <= 1e-3, w + 0.01, w))
+            metrics = _metrics(tc, tree, out["logits"].detach(), ys2)
+            metrics["loss"] = loss.detach()
+            if grad_norm is not None:
+                metrics["grad_norm"] = grad_norm           # pre-clip
+            for k, v in aux.items():
+                metrics[f"loss/{k}" if v.dim() == 0 else f"per_node/{k}"] = v.detach()
+            if acc is not None:
+                metrics = {k: acc[k] + m.to(acc[k].dtype) for k, m in metrics.items()}
+        return state, metrics
+
+    return step
+
+
+def _metrics(tc, tree: TreeArrays, logits: torch.Tensor, ys: torch.Tensor) -> Metrics:
+    """Fine accuracy through the joint leaf distribution
+    (pipnet/train.py:363-369) and per-node accuracy (1186-1194)."""
+    pred = joint_leaf_log_distribution(logits, tree).argmax(dim=-1)
+    valid = ys >= 0
+    B = logits.shape[0]
+    node_logits = logits[:, tc.node_cols.reshape(-1)].reshape(B, *tc.node_cols.shape)
+    node_logits = torch.where(tc.node_cols_valid[None], node_logits,
+                              torch.full_like(node_logits, float("-inf")))
+    node_pred = node_logits.argmax(dim=-1)                            # (B, N)
+    slot = tc.leaf_slot[label_rows(ys, tc.num_leaves)]
+    under = slot >= 0
+    return {"fine_correct": ((pred == ys) & valid).sum(), "n_fine": valid.sum(),
+            "node_correct": ((node_pred == slot) & under).sum(dim=0),
+            "node_examples": under.sum(dim=0)}

@@ -76,3 +76,38 @@ def test_latent_shape_and_constructors(name, size, hw):
         m = getattr(convnext, name)()
         out = m(torch.empty(1, size, size, 3))
     assert tuple(out.shape) == (1, hw, hw, 768)
+
+
+def test_stochastic_depth_drops_whole_rows_with_the_jax_ramp():
+    """Training drops a block's whole residual branch per sample (kept rows
+    scaled by 1/keep), drawing from the generator given; the probability
+    ramps linearly over the blocks as in the JAX package."""
+    from pipnet_tpu_torch.models.convnext import CNBlock, ConvNeXtTiny
+    m = ConvNeXtTiny(stride_threshold=10, depths=SMALL_DEPTHS, dims=SMALL_DIMS)
+    n = sum(SMALL_DEPTHS)
+    probs = [m.get_submodule(f"stage{s}_block{b}").sd_prob
+             for s, d in enumerate(SMALL_DEPTHS) for b in range(d)]
+    np.testing.assert_allclose(probs, [0.1 * i / (n - 1) for i in range(n)])
+    block = CNBlock(8, sd_prob=0.5)
+    with torch.no_grad():
+        block.layer_scale.fill_(0.5)
+        x = torch.randn(64, 5, 5, 8)
+        branch = block(x, torch.float32) - x
+        gen = torch.Generator().manual_seed(3)
+        out = block(x, torch.float32, train=True, generator=gen)
+        again = block(x, torch.float32, train=True,
+                      generator=torch.Generator().manual_seed(3))
+    dropped = (out == x).flatten(1).all(1)
+    kept = torch.isclose(out, x + branch / 0.5, atol=1e-6).flatten(1).all(1)
+    assert (dropped ^ kept).all() and 10 < int(dropped.sum()) < 54
+    assert torch.equal(out, again)
+
+
+def test_param_groups_match_jax():
+    from pipnet_tpu.models.convnext import convnext_param_groups as jax_groups
+    from pipnet_tpu_torch.models.convnext import ConvNeXtTiny, convnext_param_groups
+    with torch.device("meta"):
+        names = [n for n, _ in ConvNeXtTiny().named_children()]
+    assert convnext_param_groups(names) == jax_groups({n: None for n in names})
+    assert set(convnext_param_groups(names).values()) == {"train", "freeze", "backbone",
+                                                          "frozen"}

@@ -77,7 +77,8 @@ def compiled_pair(newick, per_child=10, per_desc=0, protopool=False,
 def small_backbones():
     """Both packages' ``BACKBONES`` tables point at narrow ConvNeXts
     (SMALL_DEPTHS / SMALL_DIMS) with the same stride surgery as the
-    full-width names, for the duration of the block."""
+    full-width names, for the duration of the block.  Stochastic depth is
+    off: the two packages' random streams differ."""
     import pipnet_tpu.models.pipnet as jp
     import pipnet_tpu_torch.models.pipnet as tp
     from pipnet_tpu.models.convnext import ConvNeXtTiny as JaxConvNeXt
@@ -88,8 +89,29 @@ def small_backbones():
                                 (tp.BACKBONES, TorchConvNeXt)):
                 mp.setitem(table, name, (functools.partial(
                     ctor, stride_threshold=thr, depths=SMALL_DEPTHS,
-                    dims=SMALL_DIMS), SMALL_DIMS[-1]))
+                    dims=SMALL_DIMS, stochastic_depth_prob=0.0), SMALL_DIMS[-1]))
         yield
+
+
+def flagship_configs(image_size=48, batch_size=4, **loss_overrides):
+    """(JAX-package RunConfig, port RunConfig) of the flagship run
+    (``artifacts/lou_190_s2``) in f32 at a small image size and batch, with
+    ``loss_overrides`` applied to both.  The JAX side runs its XLA head
+    composition (``use_pallas_head=False``), so it needs no interpret-mode
+    kernel."""
+    import dataclasses
+    from pipnet_tpu.run_io import load_run_config as jax_load
+    from pipnet_tpu_torch.run_io import load_run_config as torch_load
+    out = []
+    for load in (jax_load, torch_load):
+        cfg = load(os.path.dirname(FLAGSHIP_META))
+        model = dataclasses.replace(cfg.model, image_size=image_size,
+                                    compute_dtype="float32", use_pallas_head=False)
+        train = dataclasses.replace(
+            cfg.train, batch_size=batch_size,
+            loss=dataclasses.replace(cfg.train.loss, **loss_overrides))
+        out.append(dataclasses.replace(cfg, model=model, train=train))
+    return tuple(out)
 
 
 def to_jax(tree):
