@@ -13,26 +13,38 @@ Phases, each of which fails the run loudly:
    features: K1 at the serving batch of 8 and the training batch of 128, its
    adjoint K1b at 128, the no-pf head K2 at 64 view pairs; in f32 with TF32
    off and in bf16) and on a small tree with several bucket widths and a
-   padded tail; with the kernel's time, its plain version's, one PyTorch
-   library call's where one computes the same function, and the card's
-   bound;
-4. serving: a run directory holding the flagship configuration and tree
+   padded tail; the depthwise conv K3 and the fused block K4 at the four
+   ConvNeXt-tiny-26 stage maps at B=128 (and K4 at the serving B=8), in f32
+   and bf16, on small ragged shapes, and K3's gradient against cuDNN's; with
+   the kernel's time, its plain version's, one PyTorch library call's where
+   one computes the same function, and the card's bound;
+4. K3's own path: ``dwconv7x7`` forward and backward at the four stage
+   maps (no model of either package runs K3), with its exact launches;
+5. serving: a run directory holding the flagship configuration and tree
    (``artifacts/lou_190_s2/metadata``) and seeded random weights, served by
    ``Predictor`` + ``serve_http`` at full width (ConvNeXt-tiny-26, 224^2,
    bf16); GET /healthz, three POST /predict and one POST /predict_batch;
    the kernel launch counts of those requests; the served answers held
    against the plain head on the same features; ``Predictor.bench()``;
-5. training, path A: the flagship run config's train step (epoch 20: joint
+   then the same for a second run directory with the fused-backbone
+   configuration (``use_pallas_backbone``: every block's branch through K4),
+   held against the plain composition (K4's and K1's plain versions);
+6. training, path A: the flagship run config's train step (epoch 20: joint
    phase, backbone unfrozen, mask-prune on) at full width on 64 images in
    two views, through ``make_train_step``: warm-up steps, then timed steps
    with their exact kernel launches (K1 1, K1b 1 per step), step time,
    images/s, the profiler's kernel time and busy share, peak memory, and
    where the step's time goes;
-6. training, path B: the same with ``align_eps`` unset and
+7. training, path B: the same with ``align_eps`` unset and
    ``fuse_align_pf=True`` (K2 1, K1 1 for the backward's recompute, K1b 1
    per step); before it, the two paths' first-step losses from the same
    parameters and batch, and the head gradients through the kernels
-   against autograd through the plain composition on the step's features.
+   against autograd through the plain composition on the step's features;
+8. training, path C: path A's step in the fused-backbone configuration
+   (K4 18, K1 1, K1b 1 per step); before it, path A's and path C's
+   first-step losses from the same parameters and batch, and one stage-3
+   block's gradients through ``FusedCNBlock`` against autograd through the
+   unfused composition.
 
 The last two lines of standard output are the ``{"kernels": [...]}``
 record and ``{"ok": true, "device": {...}}``.  Without a CUDA card, or
@@ -42,6 +54,7 @@ printing either.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import io
 import json
@@ -55,11 +68,13 @@ import urllib.request
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 FLAGSHIP_META = os.path.join(REPO, "artifacts", "lou_190_s2", "metadata")
 RUN_DIR = os.path.join(REPO, "build", "smoke_run")
-KERNEL_SOURCES = ["fused_head", "head_backward", "fused_head_nopf"]
+FUSED_RUN_DIR = os.path.join(REPO, "build", "smoke_run_fused")
+KERNEL_SOURCES = ["fused_head", "head_backward", "fused_head_nopf", "dwconv", "cnblock"]
 
 # H100 SXM published peaks (dense): the bound of a kernel is the larger of
 # its bytes over the memory rate and its operations over the peak for their type
@@ -86,6 +101,24 @@ TOL = {torch.float32: {"pf": 1e-5, "pooled": 1e-5},
 # patches of logs, to 1e-5 relative
 DZ_REL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
 LOGSUM_REL = 1e-5
+# K3 and K4, relative to the output's largest value: f32 (TF32 off) differs
+# from the plain version only by summation order (K3: the same 49 taps, fused
+# multiply-adds against a multiply and an add; K4 also its products' order
+# and the device's tanhf/erff/rsqrtf), so within 1e-5 (K3) and 2e-5 (K4);
+# a bf16 output is one rounding of f32 values that differ that way, so within
+# one bf16 ulp of the largest output (2^-7), and a z or h1 element of K4 that
+# rounds the other way moves the output far less
+DW_REL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+BLOCK_REL = {torch.float32: 2e-5, torch.bfloat16: 2.0 ** -7}
+# fused-backbone serving against the plain composition: the two backbones
+# round each of the 18 block outputs to bf16 from f32 values that differ by
+# summation order, so features drift apart by bf16 ulps over the blocks; pooled
+# softmax values (at most 1) within 2^-6, logits within 2^-4 of the largest
+FUSED_SERVING_TOL = {"pooled": 2.0 ** -6, "logits_rel": 2.0 ** -4}
+# the ConvNeXt-tiny-26 stage maps at 224^2: (H, W, C) of each stage's blocks
+STAGES = ((56, 56, 96), (28, 28, 192), (27, 27, 384), (26, 26, 768))
+# the blocks' batch in a train step (64 images in two views) and in serving
+STEP_IMAGES, SERVE_IMAGES = 128, 8
 # the flagship train step (bench.py:114-130, the flagship run config)
 TRAIN_BATCH, WARMUP_STEPS, TIMED_STEPS = 64, 3, 10
 
@@ -111,6 +144,10 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _dtype_name(dtype) -> str:
+    return str(dtype).replace("torch.", "")
 
 
 def card_line() -> str:
@@ -160,7 +197,7 @@ def check_fused_head(tree, B, H, W, D, dtype, seed, timed=False):
     pf_err = (pf.float() - pf_r.float()).abs().max().item()
     pooled_err = (pooled - pooled_r).abs().max().item()
     tail = pf[..., ~torch.from_numpy(tree.proto_valid).cuda()]
-    rec = {"shape": [B, H, W, D, P], "dtype": str(dtype).replace("torch.", ""),
+    rec = {"shape": [B, H, W, D, P], "dtype": _dtype_name(dtype),
            "buckets": [[b.num_nodes, b.width] for b in tree.buckets],
            "pf_max_abs_err": pf_err, "pooled_max_abs_err": pooled_err,
            "padded_slots_zero": bool((tail == 0).all().item())}
@@ -180,13 +217,15 @@ def check_fused_head(tree, B, H, W, D, dtype, seed, timed=False):
     return rec
 
 
-def bound(nbytes: float, ops: float, dtype) -> dict:
+def bound(nbytes: float, ops: float, dtype, f32_ops: float = 0.0) -> dict:
     """The least time the card could take: bytes over the memory rate or
-    operations over the peak for their type, whichever is larger."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS[dtype]
+    operations over the peak for their type (``ops`` in ``dtype``, plus
+    ``f32_ops`` on the f32 SIMT units), whichever is larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_FLOPS[dtype] + f32_ops / PEAK_FLOPS[torch.float32]
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes > t_ops else "operations",
-            "bytes": nbytes, "flops": ops}
+            "bytes": nbytes, "flops": ops + f32_ops}
 
 
 def _features_and_kernel(tree, B, H, W, D, dtype, seed):
@@ -215,7 +254,7 @@ def check_head_backward(tree, B, H, W, D, dtype, seed, timed=False):
         err = (dz.float() - ref.float()).abs()
         over = (err - DZ_REL[dtype] * ref.float().abs()
                 - 1e-6 * ref.float().abs().max()).max().item()
-        rec = {"shape": [B, H, W, pf.shape[-1]], "dtype": str(dtype).replace("torch.", ""),
+        rec = {"shape": [B, H, W, pf.shape[-1]], "dtype": _dtype_name(dtype),
                "dz_max_abs_err": err.max().item(), "dz_scale": ref.float().abs().max().item()}
         if over > 0 or not torch.isfinite(dz.float()).all():
             fail(f"head backward disagrees with its plain version: {rec}")
@@ -241,7 +280,7 @@ def check_nopf(tree, pairs, H, W, D, dtype, seed, timed=False):
         torch.cuda.synchronize()
         pooled_r, logsum_r = fused_head_nopf_reference(f, k, tree, eps=ALIGN_EPS)
     rec = {"shape": [2 * pairs, H, W, D, tree.num_protos_padded],
-           "dtype": str(dtype).replace("torch.", ""),
+           "dtype": _dtype_name(dtype),
            "pooled_max_abs_err": (pooled - pooled_r).abs().max().item(),
            "logsum_max_abs_err": (logsum - logsum_r).abs().max().item(),
            "logsum_scale": logsum_r.abs().max().item()}
@@ -300,18 +339,195 @@ def kernel_phase(card: str):
     return records, backward, nopf
 
 
-def write_run_dir(seed: int = 0) -> None:
+def _dw_inputs(shape, dtype, seed):
+    r = np.random.default_rng(seed)
+    x = torch.from_numpy(r.standard_normal(shape).astype(np.float32))
+    k = torch.from_numpy((r.standard_normal((7, 7, shape[-1])) / 7).astype(np.float32))
+    return x.to("cuda", dtype), k.to("cuda", dtype)
+
+
+def _rel_check(what: str, got, want, rel: float, rec: dict) -> None:
+    """Fill ``rec`` with the largest error and the output's scale, and fail
+    unless ``got`` is finite, of ``want``'s shape and dtype, and within
+    ``rel`` of the scale."""
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    rec.update({"max_abs_err": err, "scale": scale})
+    if got.shape != want.shape or got.dtype != want.dtype or \
+            not torch.isfinite(got.float()).all() or err > rel * scale:
+        fail(f"{what} disagrees with its plain version: {rec}, tolerance {rel} of the scale")
+
+
+def check_dwconv(shape, dtype, seed, timed=False):
+    """K3 against its plain version on the card; the library call is cuDNN's
+    depthwise convolution (``F.conv2d(groups=C)``) on the same input."""
+    from pipnet_tpu_torch.ops.dwconv import dwconv7x7, dwconv7x7_reference
+    x, k = _dw_inputs(shape, dtype, seed)
+    rec = {"shape": list(shape), "dtype": _dtype_name(dtype)}
+    with torch.inference_mode():
+        out = dwconv7x7(x, k)
+        torch.cuda.synchronize()
+        _rel_check("depthwise conv (K3)", out, dwconv7x7_reference(x, k), DW_REL[dtype], rec)
+        if timed:
+            C = shape[-1]
+            xc, kc = x.permute(0, 3, 1, 2), k.permute(2, 0, 1).unsqueeze(1).contiguous()
+            rec["ms"] = time_ms(lambda: dwconv7x7(x, k))
+            rec["plain_ms"] = time_ms(lambda: dwconv7x7_reference(x, k), iters=5)
+            rec["library_ms"] = time_ms(lambda: F.conv2d(xc, kc, padding=3, groups=C))
+            rec.update(bound((2 * x.numel() + k.numel()) * x.element_size(), 0.0, dtype,
+                             f32_ops=2.0 * 49 * x.numel()))
+    return rec
+
+
+def check_dwconv_grad(shape, seed):
+    """``DwConv7x7``'s dx (K3 on the flipped kernel) and dw (the plain 49-tap
+    reduction) against autograd through cuDNN's depthwise conv, f32 with
+    TF32 off: within 1e-4 of the largest gradient (sums of the same products
+    in another order)."""
+    from pipnet_tpu_torch.ops.dwconv import dwconv7x7
+    x, k = _dw_inputs(shape, torch.float32, seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    g = torch.randn(x.shape, generator=gen, device="cuda")
+    C = shape[-1]
+    grads = []
+    for conv in (dwconv7x7, lambda a, b: F.conv2d(
+            a.permute(0, 3, 1, 2), b.permute(2, 0, 1).unsqueeze(1), padding=3,
+            groups=C).permute(0, 2, 3, 1)):
+        xg, kg = x.clone().requires_grad_(), k.clone().requires_grad_()
+        (conv(xg, kg) * g).sum().backward()
+        grads.append((xg.grad, kg.grad))
+    rec = {"shape": list(shape), "dtype": "float32"}
+    for name, got, want in zip(("dx", "dw"), *grads):
+        rec[f"{name}_max_err_over_max"] = ((got - want).abs().max() / want.abs().max()).item()
+    if max(rec["dx_max_err_over_max"], rec["dw_max_err_over_max"]) > 1e-4:
+        fail(f"depthwise conv gradients disagree with cuDNN's: {rec}")
+    return rec
+
+
+def _block_inputs(shape, dtype, seed):
+    """x and the branch's nine parameters at the scales of
+    ``random_jax_params``, in the layout ``CNBlock`` passes them: the dense
+    kernels w1 (C, 4C) and w2 (4C, C) are views of nn.Linear's weights."""
+    r = np.random.default_rng(seed)
+    C = shape[-1]
+
+    def n(s, std):
+        return torch.from_numpy((r.standard_normal(s) * std).astype(np.float32))
+    ts = [n(shape, 1.0), n((7, 7, C), 49 ** -0.5), n((C,), 0.02), 1.0 + n((C,), 0.05),
+          n((C,), 0.02), n((4 * C, C), C ** -0.5), n((4 * C,), 0.02),
+          n((C, 4 * C), (4 * C) ** -0.5), n((C,), 0.02),
+          torch.from_numpy(r.uniform(0.05, 0.2, C).astype(np.float32))]
+    ts = [t.to("cuda", dtype) for t in ts]
+    ts[5], ts[7] = ts[5].t(), ts[7].t()
+    return ts
+
+
+def check_cnblock(shape, dtype, fast_gelu, seed, timed=False):
+    """K4 against its plain version (the Pallas kernel's rounding order) on
+    the card.  No PyTorch call computes the branch (``library_ms`` None);
+    ``unfused_ms`` is the eager composition K4 replaces."""
+    from pipnet_tpu_torch.ops.cnblock import (cnblock_branch, cnblock_branch_reference,
+                                              cnblock_branch_unfused)
+    args = _block_inputs(shape, dtype, seed)
+    rec = {"shape": list(shape), "dtype": _dtype_name(dtype),
+           "gelu": "tanh" if fast_gelu else "erf"}
+    with torch.inference_mode():
+        out = cnblock_branch(*args, fast_gelu=fast_gelu)
+        torch.cuda.synchronize()
+        _rel_check("fused block (K4)", out,
+                   cnblock_branch_reference(*args, fast_gelu=fast_gelu), BLOCK_REL[dtype], rec)
+        if timed:
+            rec["ms"] = time_ms(lambda: cnblock_branch(*args, fast_gelu=fast_gelu))
+            rec["plain_ms"] = time_ms(lambda: cnblock_branch_reference(
+                *args, fast_gelu=fast_gelu), iters=5)
+            rec["unfused_ms"] = time_ms(lambda: cnblock_branch_unfused(
+                *args, fast_gelu=fast_gelu))
+            rec["library_ms"] = None       # no single PyTorch call computes the branch
+            x = args[0]
+            npix, C = x.numel() // shape[-1], shape[-1]
+            nbytes = (2 * x.numel() + sum(a.numel() for a in args[1:])) * x.element_size()
+            # the two products on the tensor cores (bf16) or SIMT units (f32),
+            # the 49 depthwise taps in f32
+            rec.update(bound(nbytes, 16.0 * npix * C * C, dtype, f32_ops=2.0 * 49 * npix * C))
+    return rec
+
+
+def block_kernel_phase(card: str):
+    """K3 and K4 against their plain versions (TF32 off, as ``kernel_phase``
+    left it): the four stage maps at B=128 in bf16 (timed), f32 shapes,
+    small ragged shapes (odd H and W, C not a multiple of the channel tile,
+    a ragged last pixel tile), K4 at the serving B=8, and K3's gradient."""
+    last = STAGES[-1]
+    dw = {}
+    for i, hwc in enumerate(STAGES):
+        dw[f"stage{i}_bf16"] = check_dwconv((STEP_IMAGES, *hwc), torch.bfloat16, 30 + i,
+                                            timed=True)
+    dw["stage3_f32"] = check_dwconv((STEP_IMAGES, *last), torch.float32, 34, timed=True)
+    for dtype in (torch.float32, torch.bfloat16):
+        dw[f"ragged_{_dtype_name(dtype)}"] = check_dwconv((3, 9, 11, 40), dtype, 35)
+    for name, rec in dw.items():
+        say(f"kernel dwconv {name}: {json.dumps(rec)} [{card}]")
+    grad = check_dwconv_grad((SERVE_IMAGES, *last), seed=36)
+    say(f"kernel dwconv gradients: {json.dumps(grad)} [{card}]")
+    blocks = {}
+    for i, hwc in enumerate(STAGES):
+        blocks[f"stage{i}_bf16"] = check_cnblock((STEP_IMAGES, *hwc), torch.bfloat16, True,
+                                                 40 + i, timed=True)
+    blocks["stage3_b8_bf16"] = check_cnblock((SERVE_IMAGES, *last), torch.bfloat16, True, 44,
+                                             timed=True)
+    for fast_gelu in (True, False):
+        g = "tanh" if fast_gelu else "erf"
+        blocks[f"stage3_b8_f32_{g}"] = check_cnblock((SERVE_IMAGES, *last), torch.float32,
+                                                     fast_gelu, 45, timed=True)
+        for dtype in (torch.float32, torch.bfloat16):
+            blocks[f"ragged_{_dtype_name(dtype)}_{g}"] = check_cnblock(
+                (2, 9, 11, 40), dtype, fast_gelu, 46)
+    for name, rec in blocks.items():
+        say(f"kernel cnblock {name}: {json.dumps(rec)} [{card}]")
+    return dw, blocks
+
+
+def dwconv_op_path(card: str):
+    """K3's own path, as a caller of the op takes it (no model of either
+    package runs K3): ``dwconv7x7`` forward and backward at the four stage
+    maps at B=128 in bf16; each launches K3 twice (forward, and dx on the
+    flipped kernel), and nothing else."""
+    from pipnet_tpu_torch.ops.dwconv import dwconv7x7
+    inputs = [_dw_inputs((STEP_IMAGES, *hwc), torch.bfloat16, 50 + i)
+              for i, hwc in enumerate(STAGES)]
+    zero_counts()
+    for x, k in inputs:
+        xg, kg = x.requires_grad_(), k.requires_grad_()
+        out = dwconv7x7(xg, kg)
+        out.float().square().mean().backward()
+        if not (torch.isfinite(xg.grad.float()).all() and torch.isfinite(kg.grad.float()).all()):
+            fail("depthwise conv op path: non-finite gradients")
+    torch.cuda.synchronize()
+    launches = counts()
+    say(f"depthwise conv op path: launches {launches} [{card}]")
+    check_launches("depthwise conv op path", launches, {**NO_LAUNCHES, "dwconv": 2 * len(STAGES)})
+    return launches
+
+
+def write_run_dir(run_dir: str, fused: bool, seed: int = 0) -> None:
     """The flagship metadata beside seeded random weights in the JAX layout,
-    converted to the port's state_dict (``checkpoints/net_trained_last.pt``)."""
+    converted to the port's state_dict (``checkpoints/net_trained_last.pt``).
+    With ``fused`` the config says ``"use_pallas_backbone": true``; the
+    parameter tree is the same."""
     from pipnet_tpu_torch.models.convert import params_from_jax, random_jax_params
     tree, cfg = flagship_tree()
-    shutil.rmtree(RUN_DIR, ignore_errors=True)
-    os.makedirs(os.path.join(RUN_DIR, "metadata"))
-    os.makedirs(os.path.join(RUN_DIR, "checkpoints"))
-    for name in ("config.json", "classes.json", "tree.json"):
-        shutil.copy(os.path.join(FLAGSHIP_META, name), os.path.join(RUN_DIR, "metadata"))
+    shutil.rmtree(run_dir, ignore_errors=True)
+    os.makedirs(os.path.join(run_dir, "metadata"))
+    os.makedirs(os.path.join(run_dir, "checkpoints"))
+    for name in ("classes.json", "tree.json"):
+        shutil.copy(os.path.join(FLAGSHIP_META, name), os.path.join(run_dir, "metadata"))
+    with open(os.path.join(FLAGSHIP_META, "config.json")) as f:
+        config = json.load(f)
+    config["model"]["use_pallas_backbone"] = fused
+    with open(os.path.join(run_dir, "metadata", "config.json"), "w") as f:
+        json.dump(config, f, indent=2)
     torch.save(params_from_jax(random_jax_params(cfg.model, tree, seed=seed)),
-               os.path.join(RUN_DIR, "checkpoints", "net_trained_last.pt"))
+               os.path.join(run_dir, "checkpoints", "net_trained_last.pt"))
 
 
 def synthetic_images(n: int, size: int, seed: int):
@@ -339,16 +555,36 @@ def http(url: str, data: bytes = None):
         return r.status, json.loads(r.read())
 
 
-def serving_phase(card: str):
+@contextlib.contextmanager
+def plain_blocks():
+    """Every fused block's branch through K4's plain version
+    (``cnblock_branch_reference``) instead of the kernel."""
+    import pipnet_tpu_torch.models.convnext as convnext
+    from pipnet_tpu_torch.ops.cnblock import cnblock_branch_reference
+    kernel = convnext.cnblock_branch
+    convnext.cnblock_branch = cnblock_branch_reference
+    try:
+        yield
+    finally:
+        convnext.cnblock_branch = kernel
+
+
+def serving_phase(card: str, fused: bool):
+    """Serve a run directory over HTTP; ``fused`` takes the fused-backbone
+    configuration (every block's branch through K4)."""
     from PIL import Image
     from pipnet_tpu_torch.models.pipnet import joint_leaf_log_distribution
     from pipnet_tpu_torch.ops.fused_head import fused_head, fused_head_reference
     from pipnet_tpu_torch.serve import Predictor, serve_http
 
     t0 = time.perf_counter()
-    write_run_dir()
-    pred = Predictor(RUN_DIR, batch_size=8, device="cuda")
-    say(f"serving: run dir written and loaded in {time.perf_counter() - t0:.1f} s "
+    run_dir = FUSED_RUN_DIR if fused else RUN_DIR
+    label = "serving, fused backbone" if fused else "serving"
+    write_run_dir(run_dir, fused)
+    pred = Predictor(run_dir, batch_size=8, device="cuda")
+    if pred.bundle.cfg.model.use_pallas_backbone != fused:
+        fail(f"{label}: the run directory's config did not carry use_pallas_backbone")
+    say(f"{label}: run dir written and loaded in {time.perf_counter() - t0:.1f} s "
         f"({len(pred.classes)} classes, P={pred.tree.num_protos_padded}, "
         f"{pred.bundle.cfg.model.backbone}, {pred.bundle.cfg.model.compute_dtype})")
     S = pred.image_size
@@ -356,7 +592,7 @@ def serving_phase(card: str):
     batch = synthetic_images(8, 256, seed=2)
     paths = []
     for i, im in enumerate(batch):
-        paths.append(os.path.join(RUN_DIR, f"request_{i}.png"))
+        paths.append(os.path.join(run_dir, f"request_{i}.png"))
         Image.fromarray(im).save(paths[-1])
 
     srv = serve_http(pred, port=0)
@@ -380,35 +616,50 @@ def serving_phase(card: str):
             any(s != 200 for s, _ in served) or len(served_b) != len(batch):
         fail(f"HTTP answers: healthz {status} {health}, predict "
              f"{[s for s, _ in served]}, predict_batch {status_b}")
-    say(f"serving: /healthz {health}; /predict x3 and /predict_batch x{len(batch)} "
+    say(f"{label}: /healthz {health}; /predict x3 and /predict_batch x{len(batch)} "
         f"answered; kernel launches during the requests: {launches}")
-    # one K1 launch per served forward, and nothing of the training kernels
-    check_launches("serving", launches, {"fused_head": len(single) + 1,
-                                         "head_backward": 0, "fused_head_nopf": 0})
+    # per served forward: one K1 launch, and with the fused backbone one K4
+    # launch per block; nothing of the training kernels, no K3
+    forwards = len(single) + 1
+    blocks = sum(pred.model.backbone.depths) if fused else 0
+    check_launches(label, launches, {**NO_LAUNCHES, "fused_head": forwards,
+                                     "cnblock": blocks * forwards})
     answers = [body for _, body in served] + served_b
 
     # the same images through the backbone in the batches the server formed
-    # (each single image padded to 8), then the head twice on the same
-    # features: the kernel, and the plain version
+    # (each single image padded to 8), then the head on the features: the
+    # kernels, and the plain composition (the same features through the
+    # plain head; with the fused backbone, features from K4's plain version)
     from pipnet_tpu_torch.data.augment import EvalTransform
     xs = np.stack([EvalTransform(S)(Image.fromarray(im)) for im in single + batch])
     head, tree = pred.model.head, pred.tree
-    with torch.inference_mode():
+
+    def features():
         chunks = []
         for i in range(len(single)):
             x = np.zeros((8,) + xs.shape[1:], xs.dtype)
             x[0] = xs[i]
             chunks.append(pred.model.features(torch.from_numpy(x).cuda())[:1])
         chunks.append(pred.model.features(torch.from_numpy(xs[len(single):]).cuda()))
-        feats = torch.cat(chunks)
+        return torch.cat(chunks)
+
+    with torch.inference_mode():
+        feats = features()
+        if fused:
+            with plain_blocks():
+                feats_p = features()
+        else:
+            feats_p = feats
         k = head.add_on_kernel.to(feats.dtype)
         pf_k, pooled_k = fused_head(feats, k, tree, tau=head.cfg.softmax_tau)
-        pf_p, pooled_p = fused_head_reference(feats, k, tree, tau=head.cfg.softmax_tau)
+        pf_p, pooled_p = fused_head_reference(feats_p, k, tree, tau=head.cfg.softmax_tau)
         # a pooled value within a bf16 ulp of the 0.1 inference cut may round
-        # to either side of it; take the plain side there so the logits
-        # compare the kernel's values, not the cut
+        # to either side of it (with the fused backbone: within the pooled
+        # tolerance); take the plain side there so the logits compare the
+        # kernels' values, not the cut
         thr = head.cfg.inference_threshold
-        near = (pooled_p - thr).abs() < 2.0 ** -9
+        pooled_tol = FUSED_SERVING_TOL["pooled"] if fused else TOL[torch.bfloat16]["pooled"]
+        near = (pooled_p - thr).abs() < (pooled_tol if fused else 2.0 ** -9)
         pooled_k = torch.where(near, pooled_p, pooled_k)
         pk, logits_k = head.classify(pooled_k.to(feats.dtype), inference=True)
         pp, logits_p = head.classify(pooled_p.to(feats.dtype), inference=True)
@@ -420,7 +671,10 @@ def serving_phase(card: str):
     pooled_err = (pooled_k - pooled_p).abs().max().item()
     lk, lp = logits_k.float(), logits_p.float()
     logit_err = (lk - lp).abs().max().item()
-    logit_tol = 2.0 ** -6 * lp.abs() + 2.0 ** -7   # two bf16 ulps
+    if fused:
+        logit_tol = FUSED_SERVING_TOL["logits_rel"] * lp.abs().max() + 2.0 ** -7
+    else:
+        logit_tol = 2.0 ** -6 * lp.abs() + 2.0 ** -7   # two bf16 ulps
     top2 = torch.topk(logp_p, 2, dim=-1).values
     confident = (top2[:, 0] - top2[:, 1]) > 0.1
     plain_top1 = logp_p.argmax(-1)
@@ -433,20 +687,26 @@ def serving_phase(card: str):
            "top1_agree_kernel_vs_plain": int(agree_kernel.sum().item()),
            "top1_agree_served_vs_plain": int(agree_served.sum().item()),
            "active_prototypes_mean": float((pk > 0).sum(-1).float().mean().item())}
-    say(f"serving parity: {json.dumps(rec)} [{card}]")
-    if pooled_err > TOL[torch.bfloat16]["pooled"] or bool(((lk - lp).abs() > logit_tol).any()):
-        fail(f"served head disagrees with the plain head: {rec}")
+    if fused:
+        rec["features_rel_l2"] = ((feats.float() - feats_p.float()).norm()
+                                  / feats_p.float().norm()).item()
+        rec["features_max_abs_err"] = (feats.float() - feats_p.float()).abs().max().item()
+    say(f"{label} parity: {json.dumps(rec)} [{card}]")
+    if pooled_err > pooled_tol or bool(((lk - lp).abs() > logit_tol).any()):
+        fail(f"{label}: served head disagrees with the plain composition: {rec}")
     if rec["confident_images"] == 0 or not bool(agree_kernel.all()) or \
             not bool(agree_served.all()):
-        fail(f"served top-1 disagrees with the plain head: {rec}")
+        fail(f"{label}: served top-1 disagrees with the plain composition: {rec}")
 
     bench = pred.bench(iters=30)
-    say(f"serving bench: {json.dumps(bench)} [{card}]")
-    breakdown(pred, card)
+    say(f"{label} bench: {json.dumps(bench)} [{card}]")
+    breakdown(pred, card, label)
+    del pred
+    torch.cuda.empty_cache()
     return launches
 
 
-def breakdown(pred, card: str) -> None:
+def breakdown(pred, card: str, label: str) -> None:
     """Where the serving forward's time goes at B=8: device time of each
     stage by CUDA events (back to back, so host gaps count), and the kernel
     time the profiler records for whole forwards (busy share = kernel time
@@ -479,30 +739,39 @@ def breakdown(pred, card: str) -> None:
         rec["kernels_per_forward"] = sum(e.count for e in kernels) / n
         top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
         rec["top_kernels_ms"] = {e.key[:60]: e.self_device_time_total / 1e3 / n for e in top}
-    say(f"serving breakdown B={pred.batch_size}: {json.dumps(rec)} [{card}]")
+    say(f"{label} breakdown B={pred.batch_size}: {json.dumps(rec)} [{card}]")
+
+
+def _wrappers() -> dict:
+    from pipnet_tpu_torch.ops.cnblock import cnblock_branch
+    from pipnet_tpu_torch.ops.dwconv import dwconv7x7
+    from pipnet_tpu_torch.ops.fused_head import fused_head, head_backward
+    from pipnet_tpu_torch.ops.fused_head_nopf import fused_head_nopf
+    return {"fused_head": fused_head, "head_backward": head_backward,
+            "fused_head_nopf": fused_head_nopf, "dwconv": dwconv7x7, "cnblock": cnblock_branch}
 
 
 def counts() -> dict:
-    from pipnet_tpu_torch.ops.fused_head import fused_head, head_backward
-    from pipnet_tpu_torch.ops.fused_head_nopf import fused_head_nopf
-    return {"fused_head": fused_head.launches, "head_backward": head_backward.launches,
-            "fused_head_nopf": fused_head_nopf.launches}
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def zero_counts() -> None:
-    from pipnet_tpu_torch.ops.fused_head import fused_head, head_backward
-    from pipnet_tpu_torch.ops.fused_head_nopf import fused_head_nopf
-    fused_head.launches = head_backward.launches = fused_head_nopf.launches = 0
+    for fn in _wrappers().values():
+        fn.launches = 0
 
 
-def flagship_run_config(align_eps_unset: bool):
+def flagship_run_config(align_eps_unset: bool, fused_backbone: bool = False):
     """The flagship run config; with ``align_eps_unset`` the reference
-    align_pf epsilon, as bench.py's training config leaves it."""
+    align_pf epsilon, as bench.py's training config leaves it; with
+    ``fused_backbone`` the fused-backbone configuration."""
     from pipnet_tpu_torch.run_io import load_run_config
     cfg = load_run_config(os.path.dirname(FLAGSHIP_META))
     if align_eps_unset:
         loss = dataclasses.replace(cfg.train.loss, align_eps=None)
         cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, loss=loss))
+    if fused_backbone:
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model,
+                                                                 use_pallas_backbone=True))
     return cfg
 
 
@@ -547,13 +816,14 @@ WATCHED = ("head.add_on_kernel", "head.cls_weight", "head.proto_presence",
            "backbone.stage3_block2.mlp_in.weight", "backbone.down2_conv.weight")
 
 
-def training_phase(card: str, fuse: bool):
+def training_phase(card: str, fuse: bool, fused_backbone: bool = False):
     """One training path at full width: warm-up steps, then timed steps with
     the kernels' launch counts, then the profiler and a breakdown."""
     from pipnet_tpu_torch.train import init_train_state
-    name = "B (K2, fuse_align_pf)" if fuse else "A (K1, pf materialised)"
+    name = ("C (K4 backbone, K1, pf materialised)" if fused_backbone else
+            "B (K2, fuse_align_pf)" if fuse else "A (K1, pf materialised)")
     t0 = time.perf_counter()
-    cfg = flagship_run_config(align_eps_unset=fuse)
+    cfg = flagship_run_config(align_eps_unset=fuse, fused_backbone=fused_backbone)
     model, tree = flagship_model(cfg)
     xs1, xs2, ys = train_batch(cfg, tree)
     step, scalars = train_step(cfg, model, tree, fuse)
@@ -708,9 +978,76 @@ def cross_checks(card: str):
     rec["grads"] = {}
     for dtype in (torch.bfloat16, torch.float32):
         for fuse in (False, True):
-            key = f"{'nopf' if fuse else 'fused'}_{str(dtype).replace('torch.', '')}"
+            key = f"{'nopf' if fuse else 'fused'}_{_dtype_name(dtype)}"
             rec["grads"][key] = head_grad_check(feats.to(dtype), kernel.to(dtype), tree, fuse)
     say(f"cross-checks: {json.dumps(rec)} [{card}]")
+    del model
+    torch.cuda.empty_cache()
+    return rec
+
+
+def fused_backbone_checks(card: str):
+    """From the same parameters and batch: path A's and path C's first-step
+    losses; then one stage-3 block's gradients (its input and nine
+    parameters) through ``FusedCNBlock`` (K4 forward, the unfused
+    composition's VJP by recompute) against autograd through
+    ``cnblock_branch_unfused``, on the block's input from the batch."""
+    from pipnet_tpu_torch.ops.cnblock import cnblock_branch, cnblock_branch_unfused
+    from pipnet_tpu_torch.train import init_train_state
+    batch, loss = None, {}
+    for fused in (False, True):
+        cfg = flagship_run_config(align_eps_unset=False, fused_backbone=fused)
+        model, tree = flagship_model(cfg)
+        if batch is None:
+            batch = train_batch(cfg, tree)
+        step, scalars = train_step(cfg, model, tree, fuse=False)
+        _, m = step(init_train_state(model, seed=0), *batch, scalars)
+        loss["C" if fused else "A"] = float(m["loss"])
+        if not fused:
+            del model, step
+    rel = abs(loss["A"] - loss["C"]) / abs(loss["A"])
+    rec = {"step1_loss_path_a": loss["A"], "step1_loss_path_c": loss["C"], "rel_diff": rel}
+    # the two backbones round apart in bf16 (K4 keeps the depthwise output,
+    # the LayerNorm's scale and bias and the products' epilogues in f32), so
+    # the features move by bf16 ulps; the loss, a mean over 128 images of
+    # smooth terms, moves far less than 1%
+    if not rel < 0.01:
+        fail(f"path A and path C disagree on the first step's loss: {rec}")
+    block = model.backbone.stage3_block0
+    seen = {}
+
+    def keep_input(module, args):
+        seen["x"] = args[0].detach()
+
+    hook = block.register_forward_pre_hook(keep_input)
+    with torch.no_grad():
+        model.features(batch[0][:16])
+    hook.remove()
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    r = torch.randn(seen["x"].shape, generator=gen, device="cuda")
+    names = ("x", "dw_kernel", "dw_bias", "ln_scale", "ln_bias", "w1", "b1", "w2", "b2",
+             "layer_scale")
+    rec["block_grads"] = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        inputs = [seen["x"].to(dtype)] + [p.detach() for p in block.branch_params(dtype)]
+        grads = []
+        for fn in (cnblock_branch, cnblock_branch_unfused):
+            ins = [t.clone().requires_grad_() for t in inputs]
+            (fn(*ins, fast_gelu=block.fast_gelu).float() * r).sum().backward()
+            grads.append([t.grad.float() for t in ins])
+        per = {}
+        for name, got, want in zip(names, *grads):
+            per[name] = {"rel_l2": ((got - want).norm() / want.norm().clamp(min=1e-30)).item(),
+                         "mass_ratio": (got.abs().sum() / want.abs().sum()).item(),
+                         "max_err_over_max": ((got - want).abs().max()
+                                              / want.abs().max()).item()}
+            ok = (per[name]["max_err_over_max"] <= 1e-4 if dtype == torch.float32 else
+                  per[name]["rel_l2"] < 0.2 and abs(per[name]["mass_ratio"] - 1) < 0.05)
+            if not ok:
+                fail(f"block gradients through FusedCNBlock disagree with the unfused "
+                     f"composition ({dtype}, {name}): {per[name]}")
+        rec["block_grads"][_dtype_name(dtype)] = per
+    say(f"fused-backbone cross-checks: {json.dumps(rec)} [{card}]")
     del model
     torch.cuda.empty_cache()
     return rec
@@ -766,6 +1103,10 @@ def head_grad_check(f, k, tree, fuse):
     return rec
 
 
+NO_LAUNCHES = {"fused_head": 0, "head_backward": 0, "fused_head_nopf": 0, "dwconv": 0,
+               "cnblock": 0}
+
+
 def check_launches(path: str, got: dict, want: dict) -> None:
     if got != want:
         fail(f"{path}: kernel launches {got}, expected exactly {want}")
@@ -775,6 +1116,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
         return 1
+    from pipnet_tpu_torch.models.convnext import CONVNEXT_TINY_DEPTHS
     from pipnet_tpu_torch.ops.build import BUILD_DIR, build, library_path
 
     name = torch.cuda.get_device_name(0)
@@ -792,19 +1134,29 @@ def main() -> int:
                 say(f"ptxas {src}: {line.strip()}")
 
     records, backward, nopf = kernel_phase(card)
+    dw, blocks = block_kernel_phase(card)
 
-    serving = serving_phase(card)
+    paths = {"depthwise conv op": dwconv_op_path(card),
+             "serving": serving_phase(card, fused=False),
+             "serving, fused backbone": serving_phase(card, fused=True)}
     train_a = training_phase(card, fuse=False)
     check_launches("training path A", train_a["launches"], {
-        "fused_head": TIMED_STEPS, "head_backward": TIMED_STEPS, "fused_head_nopf": 0})
+        **NO_LAUNCHES, "fused_head": TIMED_STEPS, "head_backward": TIMED_STEPS})
     cross_checks(card)
     train_b = training_phase(card, fuse=True)
     check_launches("training path B", train_b["launches"], {
-        "fused_head": TIMED_STEPS, "head_backward": TIMED_STEPS,
+        **NO_LAUNCHES, "fused_head": TIMED_STEPS, "head_backward": TIMED_STEPS,
         "fused_head_nopf": TIMED_STEPS})
-    total = {k: serving[k] + train_a["launches"][k] + train_b["launches"][k] for k in serving}
-    say(f"launches by path: serving {serving}, training A {train_a['launches']}, "
-        f"training B {train_b['launches']}")
+    fused_backbone_checks(card)
+    train_c = training_phase(card, fuse=False, fused_backbone=True)
+    n_blocks = sum(CONVNEXT_TINY_DEPTHS)
+    check_launches("training path C", train_c["launches"], {
+        **NO_LAUNCHES, "fused_head": TIMED_STEPS, "head_backward": TIMED_STEPS,
+        "cnblock": n_blocks * TIMED_STEPS})
+    paths.update({"training A": train_a["launches"], "training B": train_b["launches"],
+                  "training C": train_c["launches"]})
+    total = {k: sum(p[k] for p in paths.values()) for k in NO_LAUNCHES}
+    say(f"launches by path: {json.dumps(paths)}")
 
     def entry(name, source, replaces, recs, main, errs):
         return {"name": name, "route": "cuda", "source": f"pipnet_tpu_torch/ops/csrc/{source}",
@@ -820,6 +1172,10 @@ def main() -> int:
               backward, "flagship_train_bf16", ("dz_max_abs_err",)),
         entry("fused_head_nopf", "fused_head_nopf.cu", "pipnet_tpu/ops/pallas_head.py:203",
               nopf, "flagship_train_bf16", ("pooled_max_abs_err", "logsum_max_abs_err")),
+        entry("dwconv", "dwconv.cu", "pipnet_tpu/ops/pallas_dwconv.py:54", dw, "stage3_bf16",
+              ("max_abs_err",)),
+        entry("cnblock", "cnblock.cu", "pipnet_tpu/ops/pallas_convnext.py:54", blocks,
+              "stage3_bf16", ("max_abs_err",)),
     ]
     say(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -14,8 +14,10 @@ the convolutions see a channels-last-strided NCHW view, so no copy is made.
 Parameters stay float32 and are cast to the compute dtype inside ``forward``,
 as the JAX package does.  Training applies row-mode stochastic depth (a
 block's whole residual branch dropped per sample, with a probability that
-ramps linearly over the blocks) from an explicit ``torch.Generator``; the
-Gaussian multiplier and the fused block kernel (K4) are not ported yet.
+ramps linearly over the blocks) from an explicit ``torch.Generator``.
+``fused`` (the configuration's ``use_pallas_backbone``) runs each block's
+branch through K4 (``ops/cnblock.py``); the Gaussian multiplier is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ from typing import Dict, Iterable, Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops.cnblock import cnblock_branch, cnblock_branch_unfused
 
 CONVNEXT_TINY_DEPTHS = (3, 3, 9, 3)
 CONVNEXT_TINY_DIMS = (96, 192, 384, 768)
@@ -59,11 +63,15 @@ class ChannelLayerNorm(nn.Module):
 
 class CNBlock(nn.Module):
     """ConvNeXt block: dw7x7 -> LN -> MLP(4x, GELU) -> layer-scale -> +residual.
-    The block LN is computed in f32 and cast back (JAX ``convnext.py:107-111``)."""
+    The block LN is computed in f32 and cast back (JAX ``convnext.py:107-111``).
+    With ``fused`` the branch is K4 (``cnblock_branch``), in its own rounding
+    order.  Parameters are cast to the compute dtype before the branch, so
+    autograd carries their gradients back to the f32 parameters."""
 
-    def __init__(self, dim: int, fast_gelu: bool = False, sd_prob: float = 0.0):
+    def __init__(self, dim: int, fast_gelu: bool = False, sd_prob: float = 0.0,
+                 fused: bool = False):
         super().__init__()
-        self.fast_gelu, self.sd_prob = fast_gelu, sd_prob
+        self.fast_gelu, self.sd_prob, self.fused = fast_gelu, sd_prob, fused
         self.dwconv = nn.Conv2d(dim, dim, 7, padding=3, groups=dim)
         self.norm_scale = nn.Parameter(torch.ones(dim))
         self.norm_bias = nn.Parameter(torch.zeros(dim))
@@ -71,21 +79,22 @@ class CNBlock(nn.Module):
         self.mlp_out = nn.Linear(4 * dim, dim)
         self.layer_scale = nn.Parameter(torch.full((dim,), 1e-6))
 
+    def branch_params(self, dtype: torch.dtype) -> tuple:
+        """The branch's nine parameters cast to ``dtype``, in the JAX layout
+        (dw kernel (7, 7, C), dense kernels (in, out)) as views."""
+        C = self.norm_scale.shape[0]
+        cast = lambda p: p.to(dtype)  # noqa: E731
+        return (cast(self.dwconv.weight).reshape(C, 7, 7).permute(1, 2, 0),
+                cast(self.dwconv.bias), cast(self.norm_scale), cast(self.norm_bias),
+                cast(self.mlp_in.weight).t(), cast(self.mlp_in.bias),
+                cast(self.mlp_out.weight).t(), cast(self.mlp_out.bias), cast(self.layer_scale))
+
     def forward(self, x: torch.Tensor, dtype: torch.dtype, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         residual = x
-        h = _nhwc(F.conv2d(_nchw(x.to(dtype)), self.dwconv.weight.to(dtype),
-                           padding=3, groups=x.shape[-1]))
-        h = h + self.dwconv.bias.to(dtype)
-        h32 = h.float()
-        mu = h32.mean(-1, keepdim=True)
-        var = ((h32 - mu) ** 2).mean(-1, keepdim=True)
-        h = ((h32 - mu) * torch.rsqrt(var + 1e-6)).to(dtype)
-        h = h * self.norm_scale.to(dtype) + self.norm_bias.to(dtype)
-        h = F.linear(h, self.mlp_in.weight.to(dtype), self.mlp_in.bias.to(dtype))
-        h = F.gelu(h, approximate="tanh" if self.fast_gelu else "none")
-        h = F.linear(h, self.mlp_out.weight.to(dtype), self.mlp_out.bias.to(dtype))
-        h = h * self.layer_scale.to(dtype)
+        branch = cnblock_branch if self.fused else cnblock_branch_unfused
+        h = branch(x.to(dtype).contiguous(), *self.branch_params(dtype),
+                   fast_gelu=self.fast_gelu)
         if train and self.sd_prob > 0.0:
             keep = 1.0 - self.sd_prob
             mask = torch.rand((x.shape[0], 1, 1, 1), generator=generator,
@@ -102,14 +111,15 @@ class ConvNeXtTiny(nn.Module):
     shrinks the map by 1 pixel — this is what produces 26x26 from 224^2).
     Submodule names follow the JAX parameter tree (``stem_conv``,
     ``down{i}_norm``, ``stage{s}_block{b}``, ...) so ``models/convert.py``
-    maps checkpoints one to one.
+    maps checkpoints one to one.  ``fused`` runs every block's branch
+    through K4.
     """
 
     def __init__(self, stride_threshold: Optional[int] = 100,
                  depths: Sequence[int] = CONVNEXT_TINY_DEPTHS,
                  dims: Sequence[int] = CONVNEXT_TINY_DIMS,
                  fast_gelu: bool = False, dtype: torch.dtype = torch.float32,
-                 stochastic_depth_prob: float = 0.1):
+                 stochastic_depth_prob: float = 0.1, fused: bool = False):
         super().__init__()
         self.depths, self.dims, self.dtype = tuple(depths), tuple(dims), dtype
         self.stem_conv = nn.Conv2d(3, dims[0], 4, stride=4)
@@ -128,7 +138,7 @@ class ConvNeXtTiny(nn.Module):
                                 nn.Conv2d(in_ch, dim, 2, stride=stride))
             for blk in range(depth):
                 sd = stochastic_depth_prob * block_id / max(total_blocks - 1, 1)
-                self.add_module(f"stage{stage}_block{blk}", CNBlock(dim, fast_gelu, sd))
+                self.add_module(f"stage{stage}_block{blk}", CNBlock(dim, fast_gelu, sd, fused))
                 block_id += 1
 
     @property

@@ -2,7 +2,8 @@
 
 Counterpart of the JAX package's ``models/pipnet.py`` (itself the reference
 ``PIPNet``, ``pipnet/pipnet.py:54-185``) for the serving and training
-slices: the ConvNeXt backbones, the conv add-on head over K1 (or K2 for a
+slices: the ConvNeXt backbones (each block's branch through K4 under
+``use_pallas_backbone``), the conv add-on head over K1 (or K2 for a
 training step that fuses align_pf), and the vectorized joint distribution
 over leaves.
 """
@@ -37,8 +38,7 @@ def _unported(cfg: ModelConfig) -> list:
         (f"backbone={cfg.backbone!r}", cfg.backbone not in BACKBONES),
         ("gaussian_stages", bool(cfg.gaussian_stages)),
         ("stage4_reducer", bool(cfg.stage4_reducer)),
-        ("use_byol", cfg.use_byol),
-        ("use_pallas_backbone (K4)", cfg.use_pallas_backbone)) if on]
+        ("use_byol", cfg.use_byol)) if on]
 
 
 class PIPNet(nn.Module):
@@ -54,7 +54,8 @@ class PIPNet(nn.Module):
         self.tree, self.cfg = tree, cfg
         self.dtype = _DTYPES[cfg.compute_dtype]
         ctor, channels = BACKBONES[cfg.backbone]
-        self.backbone = ctor(dtype=self.dtype, fast_gelu=cfg.fast_gelu)
+        self.backbone = ctor(dtype=self.dtype, fast_gelu=cfg.fast_gelu,
+                             fused=cfg.use_pallas_backbone)
         self.head = PrototypeHead(tree, cfg.head, channels)
 
     def features(self, xs: torch.Tensor, *, train: bool = False,

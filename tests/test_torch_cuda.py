@@ -1,7 +1,8 @@
 """Tests of the port that need a CUDA card: the hand-written kernels (K1,
-its adjoint K1b, the no-pf head K2) against their plain versions on the
-card, the wrappers' launch counts and input checks, and a small model on
-the card against the same model on the CPU.
+its adjoint K1b, the no-pf head K2, the depthwise conv K3, the fused block
+K4) against their plain versions on the card, the wrappers' launch counts
+and input checks, and a small model on the card against the same model on
+the CPU.
 
 They skip without a card.  The card's host has no JAX, so this file imports
 none and uses no fixture of ``conftest.py``; run it there with
@@ -253,3 +254,129 @@ def test_small_pipnet_on_card_matches_cpu(card, compute_dtype):
     else:
         fc, fg = out["cpu"]["features"], out["cuda"]["features"]
         assert (fg - fc).abs().max() <= 0.03 * fc.abs().max()
+
+
+# ---------------------------------------------------------------------------
+# K3 (depthwise 7x7) and K4 (fused ConvNeXt block branch)
+# ---------------------------------------------------------------------------
+
+def _dw_inputs(shape, seed, dtype):
+    r = np.random.default_rng(seed)
+    x = torch.from_numpy(r.standard_normal(shape).astype(np.float32))
+    k = torch.from_numpy((r.standard_normal((7, 7, shape[-1])) / 7).astype(np.float32))
+    return x.to("cuda", dtype), k.to("cuda", dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [
+    (2, 9, 11, 40),       # odd H and W, C not a multiple of the 32-channel slice
+    (1, 5, 3, 12),        # map smaller than a tile, C not a multiple of 8
+    (2, 26, 26, 64),      # the stage-3 map
+])
+def test_dwconv_kernel_matches_plain(card, dtype, shape):
+    """K3 and its flipped-kernel form against the plain version: f32 to
+    1e-5 of the scale (the same 49 taps in the same order, fused or not);
+    bf16 within one bf16 ulp of the scale (2^-7: one rounding of f32 values
+    that differ that way)."""
+    from pipnet_tpu_torch.ops.dwconv import _forward, dwconv7x7, dwconv7x7_reference
+    dt = getattr(torch, dtype)
+    x, k = _dw_inputs(shape, seed=sum(shape), dtype=dt)
+    with torch.inference_mode():
+        for got, want in ((dwconv7x7(x, k), dwconv7x7_reference(x, k)),
+                          (_forward(x, k, flip=True),
+                           dwconv7x7_reference(x, k.flip(0, 1).contiguous()))):
+            torch.cuda.synchronize()
+            assert got.dtype == dt and got.shape == x.shape
+            scale = want.float().abs().max()
+            bar = (1e-5 if dtype == "float32" else 2.0 ** -7) * scale
+            assert (got.float() - want.float()).abs().max() <= bar
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("fast_gelu", [True, False])
+@pytest.mark.parametrize("shape", [
+    (2, 9, 11, 40),       # 198 pixels: a ragged last tile, tiles across images
+    (1, 7, 5, 768),       # the widest stage, one partial tile
+    (2, 27, 27, 96),      # 729 pixels per image
+])
+def test_cnblock_kernel_matches_plain(card, dtype, fast_gelu, shape):
+    """K4 against its plain version (the Pallas rounding order): f32 within
+    2e-5 of the output scale (sums of up to 4C products in another order);
+    bf16 within one bf16 ulp of the scale (2^-7: the output is rounded once
+    from f32 values that differ that way, and a z or h1 element that rounds
+    the other way moves the output far less)."""
+    from pipnet_tpu_torch.ops.cnblock import cnblock_branch, cnblock_branch_reference
+    dt = getattr(torch, dtype)
+    args = _cnblock_inputs(shape, seed=sum(shape), dtype=dt)
+    with torch.inference_mode():
+        got = cnblock_branch(*args, fast_gelu=fast_gelu)
+        torch.cuda.synchronize()
+        want = cnblock_branch_reference(*args, fast_gelu=fast_gelu)
+    assert got.dtype == dt and got.shape == args[0].shape
+    scale = want.float().abs().max()
+    bar = (2e-5 if dtype == "float32" else 2.0 ** -7) * scale
+    assert (got.float() - want.float()).abs().max() <= bar
+
+
+def _cnblock_inputs(shape, seed, dtype):
+    """x and the ten branch inputs in the JAX layout (w1 (C, 4C), w2 (4C, C)),
+    at the scales of ``random_jax_params``."""
+    r = np.random.default_rng(seed)
+    C = shape[-1]
+
+    def n(s, std):
+        return torch.from_numpy((r.standard_normal(s) * std).astype(np.float32))
+    ts = [n(shape, 1.0), n((7, 7, C), 49 ** -0.5), n((C,), 0.02), 1.0 + n((C,), 0.05),
+          n((C,), 0.02), n((C, 4 * C), C ** -0.5), n((4 * C,), 0.02),
+          n((4 * C, C), (4 * C) ** -0.5), n((C,), 0.02),
+          torch.from_numpy(r.uniform(0.05, 0.2, C).astype(np.float32))]
+    return [t.to("cuda", dtype) for t in ts]
+
+
+@pytest.mark.cuda
+def test_dwconv_and_cnblock_count_launches_and_check_inputs(card):
+    """Autograd through K3 launches it once forward and once for dx; the
+    backward of ``FusedCNBlock`` recomputes the unfused composition and
+    launches no K4.  Bad inputs raise before any launch."""
+    from pipnet_tpu_torch.ops.cnblock import cnblock_branch
+    from pipnet_tpu_torch.ops.dwconv import dwconv7x7
+    counts = lambda: (dwconv7x7.launches, cnblock_branch.launches)  # noqa: E731
+    x, k = _dw_inputs((2, 6, 7, 16), seed=1, dtype=torch.float32)
+    before = counts()
+    xg, kg = x.clone().requires_grad_(), k.clone().requires_grad_()
+    dwconv7x7(xg, kg).square().sum().backward()
+    assert [a - b for a, b in zip(counts(), before)] == [2, 0]
+    xg = x.clone()
+    kg = k.clone().requires_grad_()
+    dwconv7x7(xg, kg).sum().backward()          # dw only: no dx launch
+    assert [a - b for a, b in zip(counts(), before)] == [3, 0]
+    args = _cnblock_inputs((2, 5, 6, 16), seed=2, dtype=torch.float32)
+    args[0].requires_grad_()
+    out = cnblock_branch(*args, fast_gelu=True)
+    assert [a - b for a, b in zip(counts(), before)] == [3, 1]
+    out.sum().backward()
+    assert [a - b for a, b in zip(counts(), before)] == [3, 1]
+    assert args[0].grad is not None and args[5].grad is None
+    before = counts()
+    plain = [a.detach() for a in args]
+    with torch.inference_mode():
+        with pytest.raises(TypeError):
+            dwconv7x7(x, k.bfloat16())                                  # dtype
+        with pytest.raises(ValueError):
+            dwconv7x7(x, k.cpu())                                       # device
+        with pytest.raises(ValueError):
+            dwconv7x7(x.transpose(1, 2), k)                             # contiguity
+        with pytest.raises(TypeError):
+            cnblock_branch(plain[0].bfloat16(), *plain[1:], fast_gelu=True)
+        with pytest.raises(TypeError):
+            cnblock_branch(*[a.half() for a in plain], fast_gelu=True)
+        with pytest.raises(ValueError):
+            cnblock_branch(plain[0], *plain[1:5], plain[5].cpu(), *plain[6:], fast_gelu=True)
+        with pytest.raises(ValueError):
+            cnblock_branch(plain[0].transpose(1, 2), *plain[1:], fast_gelu=True)
+        x12 = _cnblock_inputs((1, 4, 4, 12), seed=3, dtype=torch.float32)
+        with pytest.raises(ValueError):
+            cnblock_branch(*x12, fast_gelu=True)                        # C % 8 != 0
+    assert counts() == before

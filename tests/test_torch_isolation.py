@@ -24,8 +24,8 @@ def test_importing_the_port_loads_no_jax():
         "('jax', 'jaxlib', 'flax', 'pipnet_tpu'))\n"
         "assert not bad, bad\n"
         "assert len(names) >= 27, names\n"
-        "for m in ('ops.fused_head_nopf', 'losses.catalog', 'losses.aggregate', "
-        "'train.optimizer', 'train.step'):\n"
+        "for m in ('ops.fused_head_nopf', 'ops.dwconv', 'ops.cnblock', 'losses.catalog', "
+        "'losses.aggregate', 'train.optimizer', 'train.step'):\n"
         "    assert 'pipnet_tpu_torch.' + m in names, m\n"
         "print('ok', len(names))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

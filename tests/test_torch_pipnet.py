@@ -142,7 +142,7 @@ def test_unported_options_raise(tiny_newick):
     _, ct = _cfgs()
     for cfg in (dataclasses.replace(ct, head=dataclasses.replace(ct.head, focal=True)),
                 dataclasses.replace(ct, backbone="resnet50"),
-                dataclasses.replace(ct, use_pallas_backbone=True)):
+                dataclasses.replace(ct, gaussian_stages=(3,))):
         _, rt = roots_from_newick(tiny_newick)
         with pytest.raises(NotImplementedError, match="not ported"):
             build_pipnet(rt, cfg, device="cpu")
