@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``pipnet_tpu_torch``) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--baseline CHECKOUT]
 
 Phases, each of which fails the run loudly:
 
@@ -17,7 +17,11 @@ Phases, each of which fails the run loudly:
    ConvNeXt-tiny-26 stage maps at B=128 (and K4 at the serving B=8), in f32
    and bf16, on small ragged shapes, and K3's gradient against cuDNN's; with
    the kernel's time, its plain version's, one PyTorch library call's where
-   one computes the same function, and the card's bound;
+   one computes the same function, and the card's bound; K1 and K2 also at
+   the edges of their bf16 tiling (99 rows, D = 72, bucket widths that do
+   not divide the tile, one image, tau = 0.5); with ``--baseline CHECKOUT``
+   an older checkout's bf16 K1 and K2 are built and timed in turns with
+   these (baseline, this, this, baseline);
 4. K3's own path: ``dwconv7x7`` forward and backward at the four stage
    maps (no model of either package runs K3), with its exact launches;
 5. serving: a run directory holding the flagship configuration and tree
@@ -55,6 +59,7 @@ printing either.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import io
 import json
@@ -181,15 +186,17 @@ def multi_bucket_tree():
     return compile_tree(root, protopool=False)
 
 
-def check_fused_head(tree, B, H, W, D, dtype, seed, timed=False):
-    """K1 against its plain version on the card; returns a result record."""
+def check_fused_head(tree, B, H, W, D, dtype, seed, timed=False, tau=1.0, baseline=None):
+    """K1 against its plain version on the card; returns a result record.
+    With ``baseline`` (``baseline_kernels``) a timed record also holds an
+    older checkout's K1 timed in turns with this one."""
     from pipnet_tpu_torch.ops.fused_head import fused_head, fused_head_reference
     P = tree.num_protos_padded
     f, k = _features_and_kernel(tree, B, H, W, D, dtype, seed)
     with torch.inference_mode():
-        pf, pooled = fused_head(f, k, tree, tau=1.0)
+        pf, pooled = fused_head(f, k, tree, tau=tau)
         torch.cuda.synchronize()
-        pf_r, pooled_r = fused_head_reference(f, k, tree, tau=1.0)
+        pf_r, pooled_r = fused_head_reference(f, k, tree, tau=tau)
     if pf.shape != (B, H, W, P) or pooled.shape != (B, P) or pf.dtype != dtype:
         fail(f"fused head output shapes {tuple(pf.shape)} {tuple(pooled.shape)} {pf.dtype}")
     if not (torch.isfinite(pf.float()).all() and torch.isfinite(pooled).all()):
@@ -197,7 +204,7 @@ def check_fused_head(tree, B, H, W, D, dtype, seed, timed=False):
     pf_err = (pf.float() - pf_r.float()).abs().max().item()
     pooled_err = (pooled - pooled_r).abs().max().item()
     tail = pf[..., ~torch.from_numpy(tree.proto_valid).cuda()]
-    rec = {"shape": [B, H, W, D, P], "dtype": _dtype_name(dtype),
+    rec = {"shape": [B, H, W, D, P], "dtype": _dtype_name(dtype), "tau": tau,
            "buckets": [[b.num_nodes, b.width] for b in tree.buckets],
            "pf_max_abs_err": pf_err, "pooled_max_abs_err": pooled_err,
            "padded_slots_zero": bool((tail == 0).all().item())}
@@ -206,10 +213,12 @@ def check_fused_head(tree, B, H, W, D, dtype, seed, timed=False):
         fail(f"fused head disagrees with its plain version: {rec}, tolerance {tol}")
     if timed:
         with torch.inference_mode():
-            rec["ms"] = time_ms(lambda: fused_head(f, k, tree, tau=1.0))
-            rec["plain_ms"] = time_ms(lambda: fused_head_reference(f, k, tree, tau=1.0))
+            rec["ms"] = time_ms(lambda: fused_head(f, k, tree, tau=tau))
+            rec["plain_ms"] = time_ms(lambda: fused_head_reference(f, k, tree, tau=tau))
             f2 = f.reshape(-1, D)
             rec["library_ms"] = time_ms(lambda: torch.matmul(f2, k))
+            if baseline is not None:
+                rec.update(in_turns(lambda: fused_head(f, k, tree, tau=tau), baseline))
         covered = int(sum(b.num_nodes * b.width for b in tree.buckets))
         es = f.element_size()
         rec.update(bound((f.numel() + k.numel() + pf.numel()) * es + pooled.numel() * 4,
@@ -269,18 +278,19 @@ def check_head_backward(tree, B, H, W, D, dtype, seed, timed=False):
     return rec
 
 
-def check_nopf(tree, pairs, H, W, D, dtype, seed, timed=False):
-    """K2 against its plain version on the card; returns a result record."""
+def check_nopf(tree, pairs, H, W, D, dtype, seed, timed=False, tau=1.0, baseline=None):
+    """K2 against its plain version on the card; returns a result record
+    (with ``baseline``, as ``check_fused_head``)."""
     from pipnet_tpu_torch.ops.fused_head_nopf import (fused_head_nopf,
                                                       fused_head_nopf_reference)
     from pipnet_tpu_torch.losses.catalog import ALIGN_EPS
     f, k = _features_and_kernel(tree, 2 * pairs, H, W, D, dtype, seed)
     with torch.inference_mode():
-        pooled, logsum = fused_head_nopf(f, k, tree, eps=ALIGN_EPS)
+        pooled, logsum = fused_head_nopf(f, k, tree, tau=tau, eps=ALIGN_EPS)
         torch.cuda.synchronize()
-        pooled_r, logsum_r = fused_head_nopf_reference(f, k, tree, eps=ALIGN_EPS)
+        pooled_r, logsum_r = fused_head_nopf_reference(f, k, tree, tau=tau, eps=ALIGN_EPS)
     rec = {"shape": [2 * pairs, H, W, D, tree.num_protos_padded],
-           "dtype": _dtype_name(dtype),
+           "dtype": _dtype_name(dtype), "tau": tau,
            "pooled_max_abs_err": (pooled - pooled_r).abs().max().item(),
            "logsum_max_abs_err": (logsum - logsum_r).abs().max().item(),
            "logsum_scale": logsum_r.abs().max().item()}
@@ -290,11 +300,14 @@ def check_nopf(tree, pairs, H, W, D, dtype, seed, timed=False):
         fail(f"no-pf head disagrees with its plain version: {rec}")
     if timed:
         with torch.inference_mode():
-            rec["ms"] = time_ms(lambda: fused_head_nopf(f, k, tree, eps=ALIGN_EPS))
+            rec["ms"] = time_ms(lambda: fused_head_nopf(f, k, tree, tau=tau, eps=ALIGN_EPS))
             rec["plain_ms"] = time_ms(lambda: fused_head_nopf_reference(
-                f, k, tree, eps=ALIGN_EPS), iters=5)
+                f, k, tree, tau=tau, eps=ALIGN_EPS), iters=5)
             f2 = f.reshape(-1, D)
             rec["library_ms"] = time_ms(lambda: torch.matmul(f2, k))
+            if baseline is not None:
+                rec.update(in_turns(lambda: fused_head_nopf(f, k, tree, tau=tau, eps=ALIGN_EPS),
+                                    baseline))
         covered = int(sum(b.num_nodes * b.width for b in tree.buckets))
         es = f.element_size()
         rec.update(bound((f.numel() + k.numel()) * es + (pooled.numel() + logsum.numel()) * 4,
@@ -302,40 +315,114 @@ def check_nopf(tree, pairs, H, W, D, dtype, seed, timed=False):
     return rec
 
 
-def kernel_phase(card: str):
+def baseline_kernels(checkout: str) -> dict:
+    """K1's and K2's libraries built from an older checkout of this
+    repository (e.g. ``git archive`` of a parent commit unpacked under the
+    git-ignored ``build/``), with this checkout's flags, for timing in turns
+    with the kernels here.  They run on this checkout's column plan
+    (``kernel_groups``), so the older kernels must accept it: those of the
+    parent commits took any groups of whole nodes within 128 columns."""
+    from pipnet_tpu_torch.ops.build import NVCC_FLAGS, _nvcc
+    src = os.path.join(checkout, "pipnet_tpu_torch", "ops", "csrc")
+    out = os.path.join(REPO, "build", "baseline_kernels")
+    os.makedirs(out, exist_ok=True)
+    procs = {}
+    for name in ("fused_head", "fused_head_nopf"):
+        lib = os.path.join(out, f"lib{name}.so")
+        procs[name] = (lib, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", lib, os.path.join(src, f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (lib, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            fail(f"baseline {name}.cu did not build:\n{log}")
+        libs[name] = ctypes.CDLL(lib)
+        libs[name].pipnet_cuda_error_string.argtypes = [ctypes.c_int]
+        libs[name].pipnet_cuda_error_string.restype = ctypes.c_char_p
+    return libs
+
+
+@contextlib.contextmanager
+def baseline_launches(libs: dict):
+    """The wrappers launch the baseline libraries."""
+    import pipnet_tpu_torch.ops.fused_head as fh
+    import pipnet_tpu_torch.ops.fused_head_nopf as fn
+    saved = (fh.kernel_entry, fn.kernel_entry)
+
+    def entry(name, symbol, argtypes):
+        fn_ = getattr(libs[name], symbol)
+        fn_.argtypes, fn_.restype = list(argtypes), ctypes.c_int
+        return libs[name], fn_
+    fh.kernel_entry = fn.kernel_entry = entry
+    try:
+        yield
+    finally:
+        fh.kernel_entry, fn.kernel_entry = saved
+
+
+def in_turns(call, libs: dict) -> dict:
+    """``call`` through the baseline kernels and through this checkout's, in
+    the order baseline, this, this, baseline, each by ``time_ms``."""
+    out = {"baseline_ms": [], "turns_ms": []}
+    for who in ("baseline_ms", "turns_ms", "turns_ms", "baseline_ms"):
+        ctx = baseline_launches(libs) if who == "baseline_ms" else contextlib.nullcontext()
+        with ctx:
+            out[who].append(time_ms(call, iters=10))
+    return out
+
+
+def kernel_phase(card: str, baseline=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     say(f"tf32: matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
     flag, _ = flagship_tree()
     multi = multi_bucket_tree()
+    bf16, f32 = torch.bfloat16, torch.float32
+    # the edges of the bf16 kernels' tiling: 9x11 = 99 rows (not a multiple
+    # of the 128-row tile), D = 72 (not a multiple of the 64-deep stage),
+    # bucket widths 6, 9, 15, 30 (none divides the 128-column tile), groups
+    # narrower than the tile, starting off an 8-column boundary, a padded
+    # tail, one image (one pair), tau = 0.5
+    ragged = [(f"multi_bucket_b1_tau05_{_dtype_name(dt)}", multi, (1, 9, 11, 72), dt, 0.5)
+              for dt in (f32, bf16)] + [("flagship_b1_tau05_bf16", flag, (1, 26, 26, 768),
+                                         bf16, 0.5)]
     records = {}
     for name, tree, shape, dtype, timed in (
-            ("flagship_f32", flag, (8, 26, 26, 768), torch.float32, True),
-            ("flagship_bf16", flag, (8, 26, 26, 768), torch.bfloat16, True),
-            ("flagship_train_bf16", flag, (128, 26, 26, 768), torch.bfloat16, True),
-            ("multi_bucket_f32", multi, (3, 9, 11, 72), torch.float32, False),
-            ("multi_bucket_bf16", multi, (3, 9, 11, 72), torch.bfloat16, False)):
-        rec = check_fused_head(tree, *shape, dtype, seed=len(records), timed=timed)
-        records[name] = rec
+            ("flagship_f32", flag, (8, 26, 26, 768), f32, True),
+            ("flagship_bf16", flag, (8, 26, 26, 768), bf16, True),
+            ("flagship_train_bf16", flag, (128, 26, 26, 768), bf16, True),
+            ("multi_bucket_f32", multi, (3, 9, 11, 72), f32, False),
+            ("multi_bucket_bf16", multi, (3, 9, 11, 72), bf16, False)):
+        records[name] = check_fused_head(tree, *shape, dtype, seed=len(records), timed=timed,
+                                         baseline=baseline if dtype == bf16 else None)
+    for name, tree, shape, dtype, tau in ragged:
+        records[name] = check_fused_head(tree, *shape, dtype, seed=len(records), tau=tau)
+    for name, rec in records.items():
         say(f"kernel fused_head {name}: {json.dumps(rec)} [{card}]")
     backward = {}
     for name, tree, shape, dtype, timed in (
-            ("flagship_train_f32", flag, (128, 26, 26, 768), torch.float32, True),
-            ("flagship_train_bf16", flag, (128, 26, 26, 768), torch.bfloat16, True),
-            ("multi_bucket_f32", multi, (4, 9, 11, 72), torch.float32, False),
-            ("multi_bucket_bf16", multi, (4, 9, 11, 72), torch.bfloat16, False)):
+            ("flagship_train_f32", flag, (128, 26, 26, 768), f32, True),
+            ("flagship_train_bf16", flag, (128, 26, 26, 768), bf16, True),
+            ("multi_bucket_f32", multi, (4, 9, 11, 72), f32, False),
+            ("multi_bucket_bf16", multi, (4, 9, 11, 72), bf16, False)):
         backward[name] = check_head_backward(tree, *shape, dtype, seed=10 + len(backward),
                                              timed=timed)
         say(f"kernel head_backward {name}: {json.dumps(backward[name])} [{card}]")
     nopf = {}
     for name, tree, shape, dtype, timed in (
-            ("flagship_train_f32", flag, (64, 26, 26, 768), torch.float32, True),
-            ("flagship_train_bf16", flag, (64, 26, 26, 768), torch.bfloat16, True),
-            ("multi_bucket_f32", multi, (2, 9, 11, 72), torch.float32, False),
-            ("multi_bucket_bf16", multi, (2, 9, 11, 72), torch.bfloat16, False)):
-        nopf[name] = check_nopf(tree, *shape, dtype, seed=20 + len(nopf), timed=timed)
-        say(f"kernel fused_head_nopf {name}: {json.dumps(nopf[name])} [{card}]")
+            ("flagship_train_f32", flag, (64, 26, 26, 768), f32, True),
+            ("flagship_train_bf16", flag, (64, 26, 26, 768), bf16, True),
+            ("multi_bucket_f32", multi, (2, 9, 11, 72), f32, False),
+            ("multi_bucket_bf16", multi, (2, 9, 11, 72), bf16, False)):
+        nopf[name] = check_nopf(tree, *shape, dtype, seed=20 + len(nopf), timed=timed,
+                                baseline=baseline if dtype == bf16 else None)
+    for name, tree, shape, dtype, tau in ragged:
+        nopf[name.replace("_b1_", "_1pair_")] = check_nopf(tree, *shape, dtype,
+                                                           seed=20 + len(nopf), tau=tau)
+    for name, rec in nopf.items():
+        say(f"kernel fused_head_nopf {name}: {json.dumps(rec)} [{card}]")
     return records, backward, nopf
 
 
@@ -1112,7 +1199,13 @@ def check_launches(path: str, got: dict, want: dict) -> None:
         fail(f"{path}: kernel launches {got}, expected exactly {want}")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description="Smoke run of the port on one CUDA card.")
+    ap.add_argument("--baseline", metavar="CHECKOUT",
+                    help="an older checkout of this repository whose K1 and K2 are timed "
+                         "in turns with this one's in the kernel phase")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
         return 1
@@ -1133,7 +1226,8 @@ def main() -> int:
             if any(w in line for w in ("entry function", "registers", "spill", "rror")):
                 say(f"ptxas {src}: {line.strip()}")
 
-    records, backward, nopf = kernel_phase(card)
+    baseline = baseline_kernels(args.baseline) if args.baseline else None
+    records, backward, nopf = kernel_phase(card, baseline)
     dw, blocks = block_kernel_phase(card)
 
     paths = {"depthwise conv op": dwconv_op_path(card),

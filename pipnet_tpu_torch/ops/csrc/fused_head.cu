@@ -9,44 +9,57 @@
 //   pooled[b, p] = max over hw of pf (f32, before the cast to the input type)
 //
 // Padded slots inside a node and the padded tail beyond the last bucket
-// come out exactly 0.
+// come out exactly 0.  The softmax shifts by the true per-node max (not the
+// Pallas kernel's tile-row max, which underflows a node whose logits sit ~87
+// below another node's), clips the exponent to [-80, 60] and floors the
+// denominator at 1e-18.
 //
-// Design (right and simple first).  One block per (column group, image).  A
-// column group is a run of whole nodes of one bucket whose widths fit
-// TN = 128 columns (6 x 20 at the flagship), so a node's softmax never
-// crosses blocks; groups of width 0 are the padded tail and only write zeros.
-// The block loops over the HW rows in tiles of TM = 64 and keeps the running
-// column max in a register, so the pooled max needs no cross-block reduction
-// and no atomics: the loop takes the place of the TPU's sequential grid.
-// Each row tile is a shared-memory-tiled product with f32 accumulation:
-// SIMT FMA for f32 inputs (TF32 would miss the f32 tolerance) and
-// mma.sync.m16n8k16 bf16 tensor-core tiles for bf16 inputs.  The softmax
-// shifts by the true per-node max (not the Pallas kernel's tile-row max,
-// which underflows a node whose logits sit ~87 below another node's).
+// What bounds it.  The product: at the flagship training shape (B=128,
+// HW=676, D=768, 3780 real columns, bf16) 2*128*676*768*3780 = 502 GFLOP,
+// 0.51 ms at the 989 TFLOP/s bf16 dense peak, against 0.21 ms for its bytes
+// (F 133 MB, K 5.9 MB, pf 664 MB at 3.35 TB/s); at serving (B=8) 32 GFLOP,
+// 32 us.
 //
-// Bound at the flagship serving shape (B=8, HW=676, D=768, P=3840 bf16):
-// the product is 2*8*676*768*3840 = 32 GFLOP, 32 us at the 989 TFLOP/s bf16
-// dense peak; memory is ~56 MB (F 8.3 MB + K 5.9 MB + pf 41.5 MB), 17 us at
-// 3.35 TB/s, so the product bounds it.  What this simple design leaves on
-// the table: no wgmma/TMA, no cp.async pipeline (each K step waits on its
-// global loads), and every block re-reads its image's F and its K column
-// tile from L2 once per row tile.
+// bf16 design (head_tile.cuh, namespace hopper).  A persistent block per SM
+// walks items (two consecutive column groups of whole nodes, each <= 128
+// columns, of one image), image by image, so each image's F is read once per
+// 256 columns (16 times at the flagship) and each K slab serves 128 rows.  A
+// producer thread streams, per 128-row tile and 64-deep stage, the F tile
+// and the 64 x 256 K tile (two 128-column halves, each from its group's
+// 8-column aligned start) by TMA into a 3-stage ring; two consumer
+// warpgroups (64 rows each) run wgmma m64n256k16 from the ring into 128 f32
+// registers a thread, keeping one stage's group in flight, then per group
+// the per-node softmax on those registers (segmented scans over each
+// thread's columns, a shared-memory table to meet the row's other three
+// threads), the column max (shuffles, then a shared-memory max on the
+// float's bits: pf >= 0, so pooled needs no global atomics), and pf as
+// predicated bf16 pair stores.  Rows past HW (the last tile reads the next
+// image's rows or TMA's zeros) and columns outside the group are computed
+// but never stored.  The epilogue does not overlap the product: both
+// warpgroups finish a tile's depth loop together, so the tensor cores idle
+// while they run it (PERF.md).  mma.sync tiles fed by scalar loads that
+// every 32-deep step waited on, one block per (120 columns, image) and a
+// serial shared-memory softmax ran 27x this bound.
+//
+// f32 keeps the SIMT tile (head_tile namespace): one block per (column group
+// <= 128 columns, image), FMA products (TF32 would miss 1e-5), the softmax in
+// shared memory.
 
 #include "head_tile.cuh"
 
 namespace {
 
-using namespace head_tile;
+// K1's wgmma width: two column groups of up to 128 columns side by side
+using K1Plan = hopper::Plan<2 * hopper::HALF, 1>;
 
 // groups: G triples (col_start, ncols, width); width 0 marks the padded tail.
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-fused_head_kernel(const T* __restrict__ F, const T* __restrict__ K,
-                  const uint8_t* __restrict__ valid, const int* __restrict__ groups,
-                  T* __restrict__ pf, float* __restrict__ pooled,
-                  int HW, int D, int P, float tau) {
+__global__ void __launch_bounds__(head_tile::THREADS)
+fused_head_f32(const float* __restrict__ F, const float* __restrict__ K,
+               const uint8_t* __restrict__ valid, const int* __restrict__ groups,
+               float* __restrict__ pf, float* __restrict__ pooled, int HW, int D, int P,
+               float tau) {
+  using namespace head_tile;
   // the z tile aliases the product's staging tiles: they are dead by then
-  constexpr int STAGE_BYTES = stage_bytes<T>();
   __shared__ __align__(16) unsigned char smem[STAGE_BYTES > Z_BYTES ? STAGE_BYTES : Z_BYTES];
   __shared__ uint8_t valid_s[TN];
   float* Z = reinterpret_cast<float*>(smem);
@@ -55,23 +68,23 @@ fused_head_kernel(const T* __restrict__ F, const T* __restrict__ K,
   const int c0 = groups[3 * blockIdx.x], ncols = groups[3 * blockIdx.x + 1];
   const int width = groups[3 * blockIdx.x + 2];
   const int b = blockIdx.y;
-  T* pfb = pf + (size_t)b * HW * P;
+  float* pfb = pf + (size_t)b * HW * P;
 
   if (width == 0) {   // padded tail beyond the last bucket
     for (int idx = tid; idx < HW * ncols; idx += THREADS)
-      pfb[(size_t)(idx / ncols) * P + c0 + idx % ncols] = from_f32<T>(0.f);
+      pfb[(size_t)(idx / ncols) * P + c0 + idx % ncols] = 0.f;
     if (tid < ncols) pooled[(size_t)b * P + c0 + tid] = 0.f;
     return;
   }
 
   if (tid < TN) valid_s[tid] = tid < ncols ? valid[c0 + tid] : 0;
   const int nodes = ncols / width;
-  const T* Fb = F + (size_t)b * HW * D;
+  const float* Fb = F + (size_t)b * HW * D;
   float colmax = 0.f;   // pf >= 0, and every column sees at least one row
 
   for (int r0 = 0; r0 < HW; r0 += TM) {
     const int rows = min(TM, HW - r0);
-    z_tile<T>(Fb, K, r0, HW, D, P, c0, ncols, tau, smem, Z);
+    z_tile(Fb, K, r0, HW, D, P, c0, ncols, tau, smem, Z);
     __syncthreads();
 
     softmax_rows(Z, valid_s, rows, nodes, width);
@@ -79,7 +92,7 @@ fused_head_kernel(const T* __restrict__ F, const T* __restrict__ K,
 
     for (int idx = tid; idx < rows * ncols; idx += THREADS) {
       const int r = idx / ncols, c = idx % ncols;
-      pfb[(size_t)(r0 + r) * P + c0 + c] = from_f32<T>(Z[r * ZLD + c]);
+      pfb[(size_t)(r0 + r) * P + c0 + c] = Z[r * ZLD + c];
     }
     if (tid < ncols)
       for (int r = 0; r < rows; ++r) colmax = fmaxf(colmax, Z[r * ZLD + tid]);
@@ -88,30 +101,171 @@ fused_head_kernel(const T* __restrict__ F, const T* __restrict__ K,
   if (tid < ncols) pooled[(size_t)b * P + c0 + tid] = colmax;
 }
 
+// groups: G triples (col_start, ncols, width), each inside a 128-column
+// tile that starts on a multiple of 8 columns, at most NMAX nodes; an item
+// is two consecutive groups (the second may be missing) of one image.
+__global__ void __launch_bounds__(hopper::THREADS, 1)
+fused_head_bf16(const __grid_constant__ CUtensorMap tmF, const __grid_constant__ CUtensorMap tmK,
+                const uint8_t* __restrict__ valid, const int* __restrict__ groups,
+                __nv_bfloat16* __restrict__ pf, float* __restrict__ pooled, int B, int HW,
+                int P, int G, int KT, float inv_tau) {
+  using namespace hopper;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + K1Plan::BARS);
+  uint64_t* empty = full + STAGES;
+  uint32_t* colmax_s = reinterpret_cast<uint32_t*>(sm + K1Plan::COLMAX);   // [2][HALF]
+  uint8_t* valid_s = sm + K1Plan::VALID;                                   // [2][HALF]
+  uint8_t* touch_s = sm + K1Plan::TOUCH;                                   // [2][NMAX]
+
+  const int tid = threadIdx.x, wg = tid / 128;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);   // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int i = tid; i < COLRED; i += THREADS) colmax_s[i] = 0;
+  __syncthreads();
+
+  // group g's (start, ncols, width); past the last group an empty one
+  auto group = [&](int g, int k) { return g < G ? groups[3 * g + k] : 0; };
+  const int pairs = (G + 1) / 2, RT = (HW + BM - 1) / BM, items = pairs * B;
+  if (wg == 2) {   // producer
+    setmaxnreg_dec<24>();
+    if (tid == 2 * 128) {
+      Ring ring;
+      for (int it = blockIdx.x; it < items; it += gridDim.x) {
+        const int b = it / pairs, g = 2 * (it - b * pairs);
+        if (group(g, 2) == 0 && group(g + 1, 2) == 0) continue;
+        // TMA: each half of the K tile starts on a 16-byte aligned column
+        const int k0 = group(g, 0) & ~7, k1 = group(g + 1, 0) & ~7;
+        for (int rt = 0; rt < RT; ++rt)
+          for (int kt = 0; kt < KT; ++kt) {
+            mbar_wait(&empty[ring.stage], ring.phase ^ 1);
+            uint8_t* st = sm + ring.stage * K1Plan::STAGE;
+            mbar_expect_tx(&full[ring.stage], K1Plan::STAGE);
+            tma_load_2d(st, &tmF, &full[ring.stage], kt * BK, b * HW + rt * BM);
+#pragma unroll
+            for (int a = 0; a < K1Plan::NB; ++a)
+              tma_load_2d(st + A_BYTES + a * ATOM_BYTES, &tmK, &full[ring.stage],
+                          (a < 2 ? k0 : k1) + 64 * (a & 1), kt * BK);
+            ring.advance();
+          }
+      }
+    }
+  } else {         // consumers
+    setmaxnreg_inc<240>();
+    const int t = tid & 127, lane = t & 31, q = lane & 3;
+    const int rr0 = (t >> 5) * 16 + (lane >> 2);   // the warpgroup's row of h = 0
+    float* part = reinterpret_cast<float*>(sm + K1Plan::PART) + wg * 64 * PLD;
+    float* comb = reinterpret_cast<float*>(sm + K1Plan::COMB) + wg * 64 * CLD;
+    Ring ring;
+    float acc[2 * FR];   // the two groups' fragments: acc[0, FR) and acc[FR, 2 FR)
+    for (int it = blockIdx.x; it < items; it += gridDim.x) {
+      const int b = it / pairs, g = 2 * (it - b * pairs);
+      int c0[2], ncols[2], width[2];
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        c0[hf] = group(g + hf, 0);
+        ncols[hf] = group(g + hf, 1);
+        width[hf] = group(g + hf, 2);
+        if (width[hf] == 0) {   // the padded tail beyond the last bucket, or no group
+          __nv_bfloat16* z = pf + (size_t)b * HW * P + c0[hf];
+          for (int idx = tid; idx < HW * ncols[hf]; idx += CONSUMERS)
+            z[(size_t)(idx / ncols[hf]) * P + idx % ncols[hf]] = __float2bfloat16(0.f);
+          if (tid < ncols[hf]) pooled[(size_t)b * P + c0[hf] + tid] = 0.f;
+        }
+      }
+      if (width[0] == 0 && width[1] == 0) continue;
+      // the tile column of group column 0 is shift = c0 % 8
+      const int hf_t = tid >> 7, c_t = tid & 127, shift_t = c0[hf_t] & 7;
+      valid_s[tid] = width[hf_t] && c_t >= shift_t && c_t - shift_t < ncols[hf_t]
+                         ? valid[c0[hf_t] - shift_t + c_t] : 0;
+      if (c_t < NMAX && width[hf_t] && c_t < ncols[hf_t] / width[hf_t])
+        touch_s[hf_t * NMAX + c_t] = touch_mask(c_t, width[hf_t]);
+      named_bar(1, CONSUMERS);
+      Frag fr[2];
+      uint32_t magic[2];
+      int base[2];
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        magic[hf] = node_magic(width[hf] ? width[hf] : 1);
+        base[hf] = 2 * q - (c0[hf] & 7);
+        fr[hf] = make_frag(base[hf], c0[hf] & 7, width[hf] ? ncols[hf] : 0, magic[hf],
+                           valid_s + hf * HALF);
+      }
+
+      for (int rt = 0; rt < RT; ++rt) {
+        const int r_wg = rt * BM + wg * 64;   // the warpgroup's first row
+        consume_tile(ring, full, empty, sm, K1Plan::STAGE, KT, lane,
+                     [&](uint32_t st, int kt) {
+                       fence_regs(acc);
+#pragma unroll
+                       for (int k = 0; k < BK / 16; ++k)
+                         wgmma_m64n256k16(acc, desc_a(st + wg * (A_BYTES / 2), k),
+                                          desc_b(st + A_BYTES, k), (kt | k) != 0);
+                     });
+        if (r_wg >= HW) continue;   // the warpgroup's rows all lie past HW
+        fence_regs(acc);
+        const bool ok0 = r_wg + rr0 < HW, ok1 = r_wg + rr0 + 8 < HW;
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          if (width[hf] == 0) continue;
+          float(&ah)[FR] = *reinterpret_cast<float(*)[FR]>(acc + hf * FR);
+          softmax_frag(ah, fr[hf], q, base[hf], magic[hf], rr0, part, comb, touch_s + hf * NMAX,
+                       ncols[hf] / width[hf], t, 2 + wg, inv_tau);
+          colmax_rows(ah, fr[hf], ok0, ok1, base[hf], lane, colmax_s + hf * HALF);
+          // this thread's first column of each row (pairs are 4-byte aligned:
+          // the tile starts on an even column)
+          __nv_bfloat16* dst = pf + ((size_t)b * HW + r_wg + rr0) * P + c0[hf] + base[hf];
+          store_pf_row(ah, 0, ok0 ? fr[hf].in : 0u, dst);
+          store_pf_row(ah, 1, ok1 ? fr[hf].in : 0u, dst + (size_t)8 * P);
+        }
+      }
+      named_bar(1, CONSUMERS);
+      if (width[hf_t] && c_t < ncols[hf_t]) {
+        pooled[(size_t)b * P + c0[hf_t] + c_t] = __uint_as_float(colmax_s[tid]);
+        colmax_s[tid] = 0;
+      }
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  Launches on `stream`; returns
-// cudaGetLastError() so a refused launch is reported to the caller.
+// dtype: 0 = float32 (groups of <= 128 columns), 1 = bfloat16 (groups of
+// <= 16 nodes, each inside a 128-column tile that starts on a multiple of 8
+// columns; D and P multiples of 8, 16-byte aligned features and kernel, for
+// TMA).  Launches on `stream`; returns the CUDA
+// error code so a refused launch is reported to the caller.
 int pipnet_fused_head_forward(const void* features, const void* kernel, const void* valid,
                               const void* groups, void* pf, void* pooled, int B, int HW,
                               int D, int P, int G, float tau, int dtype, void* stream) {
-  const dim3 grid(G, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    fused_head_kernel<float><<<grid, THREADS, 0, s>>>(
+    fused_head_f32<<<dim3(G, B), head_tile::THREADS, 0, s>>>(
         static_cast<const float*>(features), static_cast<const float*>(kernel),
         static_cast<const uint8_t*>(valid), static_cast<const int*>(groups),
         static_cast<float*>(pf), static_cast<float*>(pooled), HW, D, P, tau);
-  } else if (dtype == 1) {
-    fused_head_kernel<__nv_bfloat16><<<grid, THREADS, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(features), static_cast<const __nv_bfloat16*>(kernel),
-        static_cast<const uint8_t*>(valid), static_cast<const int*>(groups),
-        static_cast<__nv_bfloat16*>(pf), static_cast<float*>(pooled), HW, D, P, tau);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(cudaGetLastError());
   }
+  if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tmF, tmK;
+  cudaError_t err = hopper::bf16_map(&tmF, features, D, (uint64_t)B * HW, hopper::BK,
+                                     hopper::BM);
+  if (err == cudaSuccess) err = hopper::bf16_map(&tmK, kernel, P, D, 64, hopper::BK);
+  int grid = 0;
+  if (err == cudaSuccess)
+    err = hopper::persistent_grid(fused_head_bf16, K1Plan::BYTES, (G + 1) / 2 * B, &grid);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fused_head_bf16<<<grid, hopper::THREADS, K1Plan::BYTES, s>>>(
+      tmF, tmK, static_cast<const uint8_t*>(valid), static_cast<const int*>(groups),
+      static_cast<__nv_bfloat16*>(pf), static_cast<float*>(pooled), B, HW, P, G,
+      (D + hopper::BK - 1) / hopper::BK, 1.0f / tau);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -16,41 +16,47 @@
 // Pallas kernel's tile-row max zeroes a node whose logits sit ~87 below
 // another node's).
 //
-// Design (right and simple first).  K1's block plan and tile product
-// (head_tile.cuh): one block per (column group of whole nodes, image pair)
-// loops over the HW rows in tiles of TM.  Per row tile it forms view 1's z
-// tile and softmax (kept in shared memory), then view 2's, updates both
-// running column maxima in registers, and adds each (row, node) log term
-// into a per-node register sum, so nothing crosses blocks and no atomics are
-// needed.  The two f32 z tiles and the product's staging take 66 KB of
-// dynamic shared memory (view 2's tile aliases the staging).
+// What bounds it.  The two views' products: at the flagship train step (64
+// pairs, HW=676, D=768, 3780 real columns, bf16) 2*128*676*768*3780 =
+// 502 GFLOP, 0.51 ms at the 989 TFLOP/s bf16 dense peak; the bytes (F
+// 133 MB, K 5.9 MB, outputs 2 MB) take 0.04 ms.
 //
-// Bound at the flagship train step (64 pairs, HW=676, D=768, 3780 real
-// columns, bf16): the products are 2*128*676*768*3780 = 502 GFLOP, 0.51 ms at
-// the 989 TFLOP/s bf16 dense peak; the bytes are F 132.9 MB + K 5.9 MB +
-// outputs 2 MB, 0.04 ms at 3.35 TB/s, so the operations bound it.  This
-// design leaves wgmma/TMA, a cp.async pipeline, and reuse of the F and K
-// tiles across row tiles to later work.
+// bf16 design: K1's Hopper core (head_tile.cuh, namespace hopper) over
+// items (one column group of whole nodes <= 128 columns, image pair).  Each
+// ring stage holds both views' 128-row F tiles and one 64 x 128 K tile, so
+// the two views share every K load; each consumer warpgroup runs two
+// wgmma m64n128k16 per 16-deep step (one per view, 64 f32 registers each),
+// then the per-node softmax of both on the registers and both column
+// maxima, and forms each (row, node) inner product by the same segmented
+// sums.  The log terms of a row tile go to a shared table and one thread per
+// node adds them in row order, so logsum is the same on every run (a float
+// atomicAdd would not be).  mma.sync tiles fed by scalar loads that every
+// 32-deep step waited on, with a serial shared-memory softmax and inner
+// product, ran 27x this bound.
+//
+// f32 keeps the SIMT tile of head_tile.cuh: one block per (column group
+// <= 128 columns, pair), both views' softmaxed tiles in 66 KB of dynamic
+// shared memory.
 
 #include "head_tile.cuh"
 
 namespace {
 
-using namespace head_tile;
+// K2's wgmma width: one column group of up to 128 columns, per view
+using K2Plan = hopper::Plan<hopper::HALF, 2>;
 
-template <typename T>
-constexpr int dyn_smem_bytes() {
-  return Z_BYTES + (stage_bytes<T>() > Z_BYTES ? stage_bytes<T>() : Z_BYTES);
-}
+constexpr int F32_SMEM = head_tile::Z_BYTES + (head_tile::STAGE_BYTES > head_tile::Z_BYTES
+                                                   ? head_tile::STAGE_BYTES
+                                                   : head_tile::Z_BYTES);
 
 // groups: G triples (col_start, ncols, width); width 0 marks the padded tail.
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-fused_head_nopf_kernel(const T* __restrict__ F, const T* __restrict__ K,
-                       const uint8_t* __restrict__ valid, const int* __restrict__ groups,
-                       const int* __restrict__ proto_node, float* __restrict__ pooled,
-                       float* __restrict__ logsum, int B, int HW, int D, int P, int N,
-                       float tau, float eps) {
+__global__ void __launch_bounds__(head_tile::THREADS)
+fused_head_nopf_f32(const float* __restrict__ F, const float* __restrict__ K,
+                    const uint8_t* __restrict__ valid, const int* __restrict__ groups,
+                    const int* __restrict__ proto_node, float* __restrict__ pooled,
+                    float* __restrict__ logsum, int B, int HW, int D, int P, int N, float tau,
+                    float eps) {
+  using namespace head_tile;
   extern __shared__ __align__(16) unsigned char dyn[];
   float* Z1 = reinterpret_cast<float*>(dyn);        // view 1's softmaxed tile
   unsigned char* stage = dyn + Z_BYTES;             // the product's staging tiles
@@ -71,17 +77,17 @@ fused_head_nopf_kernel(const T* __restrict__ F, const T* __restrict__ K,
 
   if (tid < TN) valid_s[tid] = tid < ncols ? valid[c0 + tid] : 0;
   const int nodes = ncols / width;
-  const T* F1 = F + (size_t)b * HW * D;
-  const T* F2 = F + (size_t)(B + b) * HW * D;
+  const float* F1 = F + (size_t)b * HW * D;
+  const float* F2 = F + (size_t)(B + b) * HW * D;
   float colmax1 = 0.f, colmax2 = 0.f;   // pf >= 0, every column sees a row
   float node_log = 0.f;                 // thread n < nodes: node n's sum
 
   for (int r0 = 0; r0 < HW; r0 += TM) {
     const int rows = min(TM, HW - r0);
-    z_tile<T>(F1, K, r0, HW, D, P, c0, ncols, tau, stage, Z1);
+    z_tile(F1, K, r0, HW, D, P, c0, ncols, tau, stage, Z1);
     __syncthreads();
     softmax_rows(Z1, valid_s, rows, nodes, width);
-    z_tile<T>(F2, K, r0, HW, D, P, c0, ncols, tau, stage, Z2);   // syncs inside
+    z_tile(F2, K, r0, HW, D, P, c0, ncols, tau, stage, Z2);   // syncs inside
     __syncthreads();
     softmax_rows(Z2, valid_s, rows, nodes, width);
     __syncthreads();
@@ -111,20 +117,154 @@ fused_head_nopf_kernel(const T* __restrict__ F, const T* __restrict__ K,
   if (tid < nodes) logsum[(size_t)b * N + proto_node[c0 + tid * width]] = node_log;
 }
 
-template <typename T>
-int launch(const void* features, const void* kernel, const void* valid, const void* groups,
-           const void* proto_node, void* pooled, void* logsum, int B, int HW, int D, int P,
-           int N, int G, float tau, float eps, cudaStream_t s) {
-  constexpr int bytes = dyn_smem_bytes<T>();
-  cudaError_t err = cudaFuncSetAttribute(fused_head_nopf_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  fused_head_nopf_kernel<T><<<dim3(G, B), THREADS, bytes, s>>>(
-      static_cast<const T*>(features), static_cast<const T*>(kernel),
-      static_cast<const uint8_t*>(valid), static_cast<const int*>(groups),
-      static_cast<const int*>(proto_node), static_cast<float*>(pooled),
-      static_cast<float*>(logsum), B, HW, D, P, N, tau, eps);
-  return static_cast<int>(cudaGetLastError());
+// groups: G triples (col_start, ncols, width), each inside a 128-column
+// tile that starts on a multiple of 8 columns, at most NMAX nodes.
+__global__ void __launch_bounds__(hopper::THREADS, 1)
+fused_head_nopf_bf16(const __grid_constant__ CUtensorMap tmF,
+                     const __grid_constant__ CUtensorMap tmK, const uint8_t* __restrict__ valid,
+                     const int* __restrict__ groups, const int* __restrict__ proto_node,
+                     float* __restrict__ pooled, float* __restrict__ logsum, int B, int HW,
+                     int P, int N, int G, int KT, float inv_tau, float eps) {
+  using namespace hopper;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + K2Plan::BARS);
+  uint64_t* empty = full + STAGES;
+  uint32_t* colmax_s = reinterpret_cast<uint32_t*>(sm + K2Plan::COLMAX);   // [2][128]
+  float* nodesum = reinterpret_cast<float*>(sm + K2Plan::NODESUM);        // [2][NMAX]
+  uint8_t* valid_s = sm + K2Plan::VALID;
+  uint8_t* touch_s = sm + K2Plan::TOUCH;
+
+  const int tid = threadIdx.x, wg = tid / 128;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);   // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int i = tid; i < COLRED; i += THREADS) colmax_s[i] = 0;
+  if (tid < 2 * NMAX) nodesum[tid] = 0.f;
+  __syncthreads();
+
+  const int RT = (HW + BM - 1) / BM, items = G * B;
+  if (wg == 2) {   // producer
+    setmaxnreg_dec<24>();
+    if (tid == 2 * 128) {
+      Ring ring;
+      for (int it = blockIdx.x; it < items; it += gridDim.x) {
+        const int b = it / G, g = it - b * G;
+        if (groups[3 * g + 2] == 0) continue;
+        const int c0 = groups[3 * g] & ~7;   // TMA: a 16-byte aligned start
+        for (int rt = 0; rt < RT; ++rt)
+          for (int kt = 0; kt < KT; ++kt) {
+            mbar_wait(&empty[ring.stage], ring.phase ^ 1);
+            uint8_t* st = sm + ring.stage * K2Plan::STAGE;
+            mbar_expect_tx(&full[ring.stage], K2Plan::STAGE);
+            tma_load_2d(st, &tmF, &full[ring.stage], kt * BK, b * HW + rt * BM);
+            tma_load_2d(st + A_BYTES, &tmF, &full[ring.stage], kt * BK, (B + b) * HW + rt * BM);
+#pragma unroll
+            for (int a = 0; a < K2Plan::NB; ++a)
+              tma_load_2d(st + 2 * A_BYTES + a * ATOM_BYTES, &tmK, &full[ring.stage],
+                          c0 + 64 * a, kt * BK);
+            ring.advance();
+          }
+      }
+    }
+  } else {         // consumers
+    setmaxnreg_inc<240>();
+    const int t = tid & 127, lane = t & 31, q = lane & 3;
+    const int rr0 = (t >> 5) * 16 + (lane >> 2);   // the warpgroup's row of h = 0
+    float* part = reinterpret_cast<float*>(sm + K2Plan::PART) + wg * 64 * PLD;
+    float* comb = reinterpret_cast<float*>(sm + K2Plan::COMB) + wg * 64 * CLD;
+    float* logs = reinterpret_cast<float*>(sm + K2Plan::LOGS) + wg * 64 * CLD;
+    Ring ring;
+    float acc1[FR], acc2[FR];
+    for (int it = blockIdx.x; it < items; it += gridDim.x) {
+      const int b = it / G, g = it - b * G;
+      const int c0 = groups[3 * g], ncols = groups[3 * g + 1], width = groups[3 * g + 2];
+      if (width == 0) {   // padded tail beyond the last bucket
+        if (tid < ncols) pooled[(size_t)b * P + c0 + tid] = 0.f;
+        else if (tid >= 128 && tid - 128 < ncols) pooled[(size_t)(B + b) * P + c0 + tid - 128] = 0.f;
+        continue;
+      }
+      const int nodes = ncols / width, shift = c0 & 7;
+      if (tid < K2Plan::NB * 64)
+        valid_s[tid] = tid >= shift && tid - shift < ncols ? valid[c0 - shift + tid] : 0;
+      if (tid < nodes) touch_s[tid] = touch_mask(tid, width);
+      named_bar(1, CONSUMERS);
+      const uint32_t magic = node_magic(width);
+      const int base = 2 * q - shift;
+      const Frag fr = make_frag(base, shift, ncols, magic, valid_s);
+
+      for (int rt = 0; rt < RT; ++rt) {
+        const int r_wg = rt * BM + wg * 64;   // the warpgroup's first row
+        consume_tile(ring, full, empty, sm, K2Plan::STAGE, KT, lane,
+                     [&](uint32_t st, int kt) {
+                       fence_regs(acc1);
+                       fence_regs(acc2);
+#pragma unroll
+                       for (int k = 0; k < BK / 16; ++k) {
+                         const uint64_t kb = desc_b(st + 2 * A_BYTES, k);
+                         wgmma_m64n128k16(acc1, desc_a(st + wg * (A_BYTES / 2), k), kb,
+                                          (kt | k) != 0);
+                         wgmma_m64n128k16(acc2, desc_a(st + A_BYTES + wg * (A_BYTES / 2), k),
+                                          kb, (kt | k) != 0);
+                       }
+                     });
+        if (r_wg >= HW) continue;   // the warpgroup's rows all lie past HW
+        fence_regs(acc1);
+        fence_regs(acc2);
+        softmax_frag(acc1, fr, q, base, magic, rr0, part, comb, touch_s, nodes, t, 2 + wg,
+                     inv_tau);
+        softmax_frag(acc2, fr, q, base, magic, rr0, part, comb, touch_s, nodes, t, 2 + wg,
+                     inv_tau);
+        const bool ok0 = r_wg + rr0 < HW, ok1 = r_wg + rr0 + 8 < HW;
+        colmax_rows(acc1, fr, ok0, ok1, base, lane, colmax_s);
+        colmax_rows(acc2, fr, ok0, ok1, base, lane, colmax_s + HALF);
+        // each (row, node)'s inner product of the two views, by segmented sums
+        const uint32_t part0 = smem_u32(part + rr0 * PLD + q);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float run = 0.f;
+#pragma unroll
+          for (int b2 = 0; b2 < 2 * FJ; ++b2)
+            seg_step<false>(run, acc1[frag_idx(b2, h)] * acc2[frag_idx(b2, h)], fr, 1u << b2,
+                            base, col_off(b2), magic, part0 + 8 * h * PLD * 4);
+        }
+        named_bar(2 + wg, 128);
+        // each (row, node)'s log term; rows past HW add nothing
+        for (int idx = t; idx < 64 * nodes; idx += 128) {
+          const int r = idx / nodes, n = idx - r * nodes;
+          const float* p = part + r * PLD + n * 4;
+          const uint32_t tm = touch_s[n];
+          float ip = 0.f;
+#pragma unroll
+          for (int qq = 0; qq < 4; ++qq)
+            if ((tm >> qq) & 1) ip += p[qq];
+          logs[r * CLD + n] = r_wg + r < HW ? logf(ip + eps) : 0.f;
+        }
+        named_bar(2 + wg, 128);
+        if (t < nodes) {
+          float s = nodesum[wg * NMAX + t];
+          for (int r = 0; r < 64; ++r) s += logs[r * CLD + t];
+          nodesum[wg * NMAX + t] = s;
+        }
+      }
+      named_bar(1, CONSUMERS);
+      if (tid < ncols) {
+        pooled[(size_t)b * P + c0 + tid] = __uint_as_float(colmax_s[tid]);
+        colmax_s[tid] = 0;
+      } else if (tid >= 128 && tid - 128 < ncols) {
+        pooled[(size_t)(B + b) * P + c0 + tid - 128] = __uint_as_float(colmax_s[tid]);
+        colmax_s[tid] = 0;
+      }
+      if (tid < nodes) {
+        logsum[(size_t)b * N + proto_node[c0 + tid * width]] = nodesum[tid] + nodesum[NMAX + tid];
+        nodesum[tid] = nodesum[NMAX + tid] = 0.f;
+      }
+    }
+  }
 }
 
 }  // namespace
@@ -132,21 +272,42 @@ int launch(const void* features, const void* kernel, const void* valid, const vo
 extern "C" {
 
 // B is the number of image pairs (features hold 2B images).  dtype: 0 =
-// float32, 1 = bfloat16.  Launches on `stream`; returns the CUDA error code
-// so a refused launch is reported to the caller.
+// float32 (groups of <= 128 columns), 1 = bfloat16 (groups of <= 16 nodes,
+// each inside a 128-column tile that starts on a multiple of 8 columns; D
+// and P multiples of 8, 16-byte aligned features and kernel, for TMA).  Launches on `stream`; returns the CUDA error code so
+// a refused launch is reported to the caller.
 int pipnet_fused_head_nopf_forward(const void* features, const void* kernel,
                                    const void* valid, const void* groups,
                                    const void* proto_node, void* pooled, void* logsum,
                                    int B, int HW, int D, int P, int N, int G, float tau,
                                    float eps, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float>(features, kernel, valid, groups, proto_node, pooled, logsum, B, HW,
-                         D, P, N, G, tau, eps, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(features, kernel, valid, groups, proto_node, pooled, logsum,
-                                 B, HW, D, P, N, G, tau, eps, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0) {
+    cudaError_t err = cudaFuncSetAttribute(fused_head_nopf_f32,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, F32_SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    fused_head_nopf_f32<<<dim3(G, B), head_tile::THREADS, F32_SMEM, s>>>(
+        static_cast<const float*>(features), static_cast<const float*>(kernel),
+        static_cast<const uint8_t*>(valid), static_cast<const int*>(groups),
+        static_cast<const int*>(proto_node), static_cast<float*>(pooled),
+        static_cast<float*>(logsum), B, HW, D, P, N, tau, eps);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tmF, tmK;
+  cudaError_t err = hopper::bf16_map(&tmF, features, D, (uint64_t)2 * B * HW, hopper::BK,
+                                     hopper::BM);
+  if (err == cudaSuccess) err = hopper::bf16_map(&tmK, kernel, P, D, 64, hopper::BK);
+  int grid = 0;
+  if (err == cudaSuccess)
+    err = hopper::persistent_grid(fused_head_nopf_bf16, K2Plan::BYTES, G * B, &grid);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fused_head_nopf_bf16<<<grid, hopper::THREADS, K2Plan::BYTES, s>>>(
+      tmF, tmK, static_cast<const uint8_t*>(valid), static_cast<const int*>(groups),
+      static_cast<const int*>(proto_node), static_cast<float*>(pooled),
+      static_cast<float*>(logsum), B, HW, P, N, G, (D + hopper::BK - 1) / hopper::BK,
+      1.0f / tau, eps);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

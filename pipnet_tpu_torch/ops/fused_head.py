@@ -9,17 +9,21 @@ the analytic softmax / max-pool adjoint of ``make_fused_head``
 ``csrc/head_backward.cu``.  Both are built for ``sm_90a`` at first use
 (``ops/build.py``) and bound with ``ctypes``.
 
-What bounds K1 on an H100, at the flagship serving shape (B=8, 26x26
-patches, D=768, P=3840, bf16): the product, 2*8*676*768*3840 = 32 GFLOP,
-about 32 us at the 989 TFLOP/s bf16 dense peak; the memory it must move is
-about 56 MB (F 8.3 MB + K 5.9 MB + pf 41.5 MB bf16), about 17 us at
-3.35 TB/s.  The first design is right and simple: one block per
-(node-aligned 128-column group, image) loops over the patch rows, so the
-max-pool needs no atomics, and its row tiles are shared-memory products
-(SIMT FMA in f32, ``mma.sync`` in bf16).  It leaves ``wgmma``/TMA, a
-``cp.async`` pipeline, and reuse of the F and K tiles across row tiles to
-later work.  One launch covers every bucket of the tree.  K1b is bound by
-bytes (it reads pf and g_pf and writes dz); see its source.
+What bounds K1 on an H100: its product.  At the flagship training shape
+(B=128, 26x26 patches, D=768, 3780 real columns, bf16) it is 502 GFLOP,
+0.51 ms at the 989 TFLOP/s bf16 dense peak, against 0.21 ms for its bytes
+(F 133 MB, K 5.9 MB, pf 664 MB at 3.35 TB/s); at serving (B=8) 32 GFLOP,
+32 us.  The bf16 kernel is built for Hopper (``csrc/head_tile.cuh``): a
+persistent block per SM, TMA tile loads into a ring of shared-memory stages,
+``wgmma`` products of 128 rows by two 128-column groups, and the per-node
+softmax, column max and pf stores on the accumulator registers; the
+epilogue, which does not overlap the product, is what holds it above its
+bound (``PERF.md``).  f32 keeps a SIMT tile (TF32 would miss 1e-5).  Each
+kernel plans its own column groups (``column_groups``, ``kernel_groups``):
+whole nodes of one bucket, so a node's softmax never crosses groups, and
+the max-pool needs no global atomics.  One launch covers every bucket of
+the tree.  K1b is bound by bytes (it reads pf and g_pf and writes dz); see
+its source.
 
 ``fused_head`` runs the kernel for CUDA tensors and the plain PyTorch
 version ``fused_head_reference`` for CPU tensors; there is no fallback from
@@ -43,31 +47,62 @@ from ..tree.compile import TreeArrays
 from .build import check_cuda, kernel_entry
 from .segment import _node_onehot, segment_softmax, segment_sum_to_nodes, tree_tensor
 
-TILE_COLS = 128          # TN in csrc/fused_head.cu
+# column plans: the f32 SIMT tile of K1, K2 and K1b (TN in head_tile.cuh),
+# and the bf16 kernels' tile of one column group (HALF in head_tile.cuh; K1
+# runs two groups side by side in one wgmma of 256 columns, K2 one group
+# per view), which TMA starts on a multiple of 8 columns (16 bytes); a bf16
+# group holds at most MAX_GROUP_NODES nodes (NMAX, the size of the kernels'
+# per-node tables)
+SIMT_TILE_COLS = 128
+BF16_TILE_COLS = 128
+MAX_GROUP_NODES = 16
+TMA_ALIGN_COLS = 8
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def column_groups(tree: TreeArrays) -> np.ndarray:
-    """(G, 3) int32 (col_start, ncols, width) per kernel block column.
+def column_groups(tree: TreeArrays, tile_cols: int, max_nodes: Optional[int] = None,
+                  align: int = 1) -> np.ndarray:
+    """(G, 3) int32 (col_start, ncols, width) per column group of a kernel
+    whose column tile is ``tile_cols`` wide.
 
-    Each bucket is cut into runs of whole nodes that fit ``TILE_COLS``
-    columns, so a node's softmax never crosses blocks; the padded tail
-    beyond the last bucket becomes groups of width 0, which write zeros."""
+    Each bucket is cut into runs of whole nodes (at most ``max_nodes``), so a
+    node's softmax never crosses groups; the padded tail beyond the last
+    bucket becomes groups of width 0, which write zeros.  A kernel whose
+    tile must start at a multiple of ``align`` columns (the bf16 kernels'
+    TMA loads: 8 columns, 16 bytes) holds a group starting at ``c0`` from
+    tile column ``c0 % align`` on, so the group fits ``tile_cols - c0 %
+    align`` columns."""
     groups = []
     covered = 0
     for b in tree.buckets:
-        if b.width > TILE_COLS:
+        if b.width > tile_cols - (align - 1):
             raise ValueError(
                 f"bucket width {b.width} exceeds the fused head kernel's "
-                f"{TILE_COLS}-column tile; nodes that wide are not supported yet")
-        per = TILE_COLS // b.width
-        for first in range(0, b.num_nodes, per):
-            n = min(per, b.num_nodes - first)
-            groups.append((b.proto_offset + first * b.width, n * b.width, b.width))
+                f"{tile_cols}-column tile; nodes that wide are not supported yet")
+        first = 0
+        while first < b.num_nodes:
+            start = b.proto_offset + first * b.width
+            n = min((tile_cols - start % align) // b.width, b.num_nodes - first)
+            if max_nodes is not None:
+                n = min(n, max_nodes)
+            groups.append((start, n * b.width, b.width))
+            first += n
         covered = b.proto_offset + b.num_nodes * b.width
-    for start in range(covered, tree.num_protos_padded, TILE_COLS):
-        groups.append((start, min(TILE_COLS, tree.num_protos_padded - start), 0))
+    for start in range(covered, tree.num_protos_padded, tile_cols):
+        groups.append((start, min(tile_cols, tree.num_protos_padded - start), 0))
     return np.asarray(groups, np.int32).reshape(-1, 3)
+
+
+def kernel_groups(tree: TreeArrays, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The column plan a head kernel runs on for ``dtype``, cached on the
+    device: the SIMT tile for f32; for bf16 the 128-column tile, at most
+    MAX_GROUP_NODES nodes a group, tiles on 8-column boundaries."""
+    if dtype == torch.float32:
+        plan = (SIMT_TILE_COLS, None, 1)
+    else:
+        plan = (BF16_TILE_COLS, MAX_GROUP_NODES, TMA_ALIGN_COLS)
+    return tree_tensor(tree, "head_groups_{}_{}_{}".format(*plan), column_groups(tree, *plan),
+                       device, torch.int32)
 
 
 def fused_head_reference(features: torch.Tensor, kernel: torch.Tensor,
@@ -101,6 +136,12 @@ def check_head_inputs(features: torch.Tensor, kernel: torch.Tensor, tree: TreeAr
                         f"{kernel.dtype}")
     if not (features.is_contiguous() and kernel.is_contiguous()):
         raise ValueError(f"{what} needs contiguous features and kernel")
+    if features.dtype == torch.bfloat16 and features.device.type == "cuda":
+        # the bf16 kernels read both by TMA: row strides and base addresses
+        # must be multiples of 16 bytes
+        if D % 8 or P % 8 or features.data_ptr() % 16 or kernel.data_ptr() % 16:
+            raise ValueError(f"{what} on the card needs D and P multiples of 8 and "
+                             f"16-byte aligned bf16 features and kernel, got D={D}, P={P}")
 
 
 def _launch(features: torch.Tensor, kernel: torch.Tensor, tree: TreeArrays,
@@ -109,8 +150,7 @@ def _launch(features: torch.Tensor, kernel: torch.Tensor, tree: TreeArrays,
     B, H, W, D = features.shape
     P = tree.num_protos_padded
     dev = features.device
-    groups = tree_tensor(tree, "fused_head_groups", column_groups(tree), dev,
-                         torch.int32)
+    groups = kernel_groups(tree, features.dtype, dev)
     valid = tree_tensor(tree, "proto_valid_u8", tree.proto_valid, dev, torch.uint8)
     pf = torch.empty((B, H, W, P), dtype=features.dtype, device=dev)
     pooled = torch.empty((B, P), dtype=torch.float32, device=dev)
@@ -203,8 +243,7 @@ def _check_backward(pf, g_pf, g_pooled, tree):
 
 def _launch_backward(pf, g_pf, g_pooled, tree, tau):
     B, H, W, P = pf.shape
-    groups = tree_tensor(tree, "fused_head_groups", column_groups(tree), pf.device,
-                         torch.int32)
+    groups = kernel_groups(tree, torch.float32, pf.device)   # K1b's tile is the SIMT one
     dz = torch.empty_like(pf)
     lib, fn = kernel_entry("head_backward", "pipnet_head_backward",
                            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4

@@ -14,8 +14,12 @@ without writing the (2B, H, W, P) softmaxed maps to device memory.
 What bounds it on an H100 at the flagship train step (64 image pairs, 26x26
 patches, D=768, 3780 real prototype columns, bf16): the two views'
 products, 502 GFLOP, 0.51 ms at the 989 TFLOP/s bf16 dense peak; the bytes
-(F 133 MB, K 5.9 MB, outputs 2 MB) take 0.04 ms.  The design is K1's block
-plan over image pairs; see the source.
+(F 133 MB, K 5.9 MB, outputs 2 MB) take 0.04 ms.  The bf16 kernel is K1's
+Hopper core (``csrc/head_tile.cuh``) over (column group, image pair) items:
+each K tile serves both views, the softmaxes and the per-node inner
+products run on the accumulator registers, and the per-node log sums are
+added in row order, so logsum does not depend on the run.  As for K1 the
+epilogue, not overlapped with the products, holds it above its bound.
 
 ``fused_head_nopf`` runs the kernel for CUDA tensors and the plain PyTorch
 version ``fused_head_nopf_reference`` for CPU tensors, with no fallback
@@ -35,8 +39,8 @@ import torch
 
 from ..tree.compile import TreeArrays
 from .build import check_cuda, kernel_entry
-from .fused_head import (_DTYPE_CODES, _forward, check_head_inputs, column_groups,
-                         head_backward, projection_grads)
+from .fused_head import (_DTYPE_CODES, _forward, check_head_inputs, head_backward,
+                         kernel_groups, projection_grads)
 from .segment import _node_onehot, segment_softmax, segment_sum_to_nodes, tree_tensor
 
 
@@ -62,7 +66,7 @@ def _launch(features, kernel, tree, tau, eps):
     B2, H, W, D = features.shape
     P, N = tree.num_protos_padded, tree.num_nodes
     dev = features.device
-    groups = tree_tensor(tree, "fused_head_groups", column_groups(tree), dev, torch.int32)
+    groups = kernel_groups(tree, features.dtype, dev)
     valid = tree_tensor(tree, "proto_valid_u8", tree.proto_valid, dev, torch.uint8)
     proto_node = tree_tensor(tree, "proto_node_i32", tree.proto_node, dev, torch.int32)
     pooled = torch.empty((B2, P), dtype=torch.float32, device=dev)

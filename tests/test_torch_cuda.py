@@ -43,11 +43,15 @@ def _tree(name):
     return compiled_pair(newick, *per)[1]
 
 
-# (tree, shape (B, H, W, D), tau): several bucket widths with D not a
-# multiple of the depth tile; rows not a multiple of the row tile; the
-# flagship tree at the training slice's per-image shape
+# (tree, shape (B, H, W, D), tau): several bucket widths (6, 9, 15, 30: none
+# divides the bf16 kernels' 128-column tile, every group narrower than its
+# tile, groups starting off an 8-column boundary, a padded tail) with D not
+# a multiple of the 64-deep stage and 99 rows, not a multiple of the 128-row
+# tile; the flagship tree at the training slice's per-image shape (its last
+# group of 60 columns is narrower than the tile); one image pair; tau 0.5
 KERNEL_CASES = [("multi_bucket", (4, 9, 11, 72), 0.5), ("tiny", (2, 13, 13, 64), 1.0),
-                ("flagship", (4, 26, 26, 768), 1.0)]
+                ("flagship", (4, 26, 26, 768), 1.0), ("multi_bucket", (2, 9, 11, 72), 0.5),
+                ("flagship", (2, 26, 26, 768), 0.5)]
 
 
 def _inputs(tree, B, H, W, D, seed, dtype, scale=0.3):
@@ -63,12 +67,12 @@ def _inputs(tree, B, H, W, D, seed, dtype, scale=0.3):
 @pytest.mark.parametrize("tree_name,shape,tau", [
     ("multi_bucket", (3, 9, 11, 72), 0.5),     # D not a multiple of the depth tile
     ("tiny", (2, 13, 13, 64), 1.0),            # rows not a multiple of the row tile
+    ("multi_bucket", (1, 9, 11, 72), 0.5),     # one image
+    ("flagship", (1, 26, 26, 768), 0.5),       # a group narrower than the bf16 tile
 ])
 def test_fused_head_kernel_matches_plain(card, dtype, tree_name, shape, tau):
     from pipnet_tpu_torch.ops.fused_head import fused_head, fused_head_reference
-    newick, budget = {"multi_bucket": (MULTI_NEWICK, (2, 3)),
-                      "tiny": (TINY, (10, 0))}[tree_name]
-    _, tree = compiled_pair(newick, *budget)
+    tree = _tree(tree_name)
     dt = getattr(torch, dtype)
     f, k = _inputs(tree, *shape, seed=5, dtype=dt)
     with torch.inference_mode():
@@ -102,6 +106,13 @@ def test_fused_head_counts_launches_and_checks_inputs(card):
             fused_head(f.transpose(1, 2), k, tree)          # not contiguous
         with pytest.raises(ValueError):
             fused_head(f, k[:, :-1].contiguous(), tree)     # wrong P
+        # the bf16 kernel reads by TMA: D a multiple of 8, 16-byte aligned rows
+        with pytest.raises(ValueError):
+            fused_head(torch.zeros(2, 4, 4, 36, dtype=torch.bfloat16, device="cuda"),
+                       torch.zeros(36, k.shape[1], dtype=torch.bfloat16, device="cuda"), tree)
+        shifted = torch.zeros(f.numel() + 1, dtype=torch.bfloat16, device="cuda")[1:]
+        with pytest.raises(ValueError):
+            fused_head(shifted.view(f.shape), k.bfloat16(), tree)
     assert fused_head.launches == before + 2
 
 

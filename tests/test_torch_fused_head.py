@@ -103,16 +103,18 @@ def test_cpu_wrapper_runs_plain_version(tiny_newick):
     assert got[0].dtype == torch.float32 and got[1].dtype == torch.float32
 
 
-def _check_groups(tree, groups):
-    from pipnet_tpu_torch.ops.fused_head import TILE_COLS
+def _check_groups(tree, groups, tile_cols, max_nodes=None, align=1):
     covered = np.zeros(tree.num_protos_padded, int)
     for start, ncols, width in groups:
-        assert 0 < ncols <= TILE_COLS
+        assert 0 < ncols <= tile_cols
+        # a bf16 tile starts on an aligned column before the group
+        assert width == 0 or start % align + ncols <= tile_cols
         covered[start:start + ncols] += 1
         if width == 0:                      # padded tail: no real node
             assert (tree.proto_node[start:start + ncols] == -1).all()
         else:                               # whole nodes of one bucket
             assert ncols % width == 0
+            assert max_nodes is None or ncols // width <= max_nodes
             assert (tree.node_proto_width[tree.proto_node[start:start + ncols]
                                           [tree.proto_valid[start:start + ncols]]]
                     == width).all()
@@ -120,29 +122,69 @@ def _check_groups(tree, groups):
     assert (covered == 1).all()
 
 
-def test_column_groups_multi_bucket():
+# each kernel's column plan: the f32 SIMT tile (K1, K2, K1b), and the bf16
+# tile of K1 and K2 (one group of 128 columns, on 8-column boundaries, at
+# most 16 nodes), with a wider tile for contrast
+PLANS = {"simt": (128, None, 1), "bf16": (128, 16, 8), "wide": (240, 16, 8)}
+
+
+@pytest.mark.parametrize("plan", sorted(PLANS))
+def test_column_groups_multi_bucket(plan):
     from pipnet_tpu_torch.ops.fused_head import column_groups
     _, tt = compiled_pair(MULTI_NEWICK, 2, 3)
-    groups = column_groups(tt)
-    _check_groups(tt, groups)
-    assert len({int(w) for w in groups[:, 2] if w}) == len(tt.buckets)
-    assert groups[-1, 2] == 0          # the padded tail is its own group
+    groups = column_groups(tt, *PLANS[plan])
+    _check_groups(tt, groups, *PLANS[plan])
+    # one group per bucket (each bucket's nodes fit every tile), then the
+    # padded tail
+    assert [int(w) for w in groups[:-1, 2]] == [b.width for b in tt.buckets]
+    assert groups[-1, 2] == 0
 
 
-def test_column_groups_flagship():
+@pytest.mark.parametrize("plan,count,full,last", [
+    # 189 nodes of width 20: 31 groups of 6 and one of 3, then the 60-column tail
+    ("simt", 33, 120, (3720, 60, 20)),
+    ("bf16", 33, 120, (3720, 60, 20)),
+    # 15 groups of 12 nodes and one of 9 (a group narrower than the tile)
+    ("wide", 17, 240, (3600, 180, 20)),
+])
+def test_column_groups_flagship(plan, count, full, last):
     from pipnet_tpu_torch.ops.fused_head import column_groups
     from pipnet_tpu_torch.tree import compile_tree
     _, rt, classes = flagship_roots()
     tt = compile_tree(budget(rt, 10), class_names=classes, protopool=False)
-    groups = column_groups(tt)
-    _check_groups(tt, groups)
-    # 189 nodes of width 20 in groups of 6, then the 60-column tail
-    assert len(groups) == 33 and (groups[:31, 1] == 120).all()
-    assert tuple(groups[31]) == (3720, 60, 20) and tuple(groups[32]) == (3780, 60, 0)
+    groups = column_groups(tt, *PLANS[plan])
+    _check_groups(tt, groups, *PLANS[plan])
+    assert len(groups) == count and (groups[:count - 2, 1] == full).all()
+    assert tuple(groups[count - 2]) == last and tuple(groups[count - 1]) == (3780, 60, 0)
+
+
+def test_column_groups_cap_nodes_per_group():
+    """Narrow nodes fill a bf16 tile only up to the kernels' 16-node tables:
+    the flagship tree at one prototype per child has buckets of many narrow
+    nodes."""
+    from pipnet_tpu_torch.ops.fused_head import column_groups
+    from pipnet_tpu_torch.tree import compile_tree
+    _, rt, classes = flagship_roots()
+    tt = compile_tree(budget(rt, 1), class_names=classes, protopool=False)
+    assert max(b.num_nodes for b in tt.buckets) > 16 and min(b.width for b in tt.buckets) * 16 < 240
+    groups = column_groups(tt, 240, 16, 8)
+    _check_groups(tt, groups, 240, 16, 8)
+    assert max(n // w for _, n, w in groups if w) == 16
+    assert len(column_groups(tt, 240, None, 8)) < len(groups)
+
+
+def test_kernel_groups_pick_each_kernels_plan(tiny_newick):
+    from pipnet_tpu_torch.ops.fused_head import column_groups, kernel_groups
+    _, tt = compiled_pair(tiny_newick, 10, 0)
+    cpu = torch.device("cpu")
+    for dtype, want in ((torch.float32, column_groups(tt, 128)),
+                        (torch.bfloat16, column_groups(tt, 128, 16, 8))):
+        got = kernel_groups(tt, dtype, cpu)
+        assert got.dtype == torch.int32 and np.array_equal(got.numpy(), want)
 
 
 def test_column_groups_reject_nodes_wider_than_a_tile(tiny_newick):
     from pipnet_tpu_torch.ops.fused_head import column_groups
     _, tt = compiled_pair(tiny_newick, 70, 0)
     with pytest.raises(ValueError, match="exceeds"):
-        column_groups(tt)
+        column_groups(tt, 128)
