@@ -20,8 +20,9 @@ Phases, each of which fails the run loudly:
    one computes the same function, and the card's bound; K1 and K2 also at
    the edges of their bf16 tiling (99 rows, D = 72, bucket widths that do
    not divide the tile, one image, tau = 0.5); with ``--baseline CHECKOUT``
-   an older checkout's bf16 K1 and K2 are built and timed in turns with
-   these (baseline, this, this, baseline);
+   an older checkout's K1, K2, K1b and K3 are built and their bf16 launches
+   at the main-path shapes timed in turns with these (baseline, this, this,
+   baseline);
 4. K3's own path: ``dwconv7x7`` forward and backward at the four stage
    maps (no model of either package runs K3), with its exact launches;
 5. serving: a run directory holding the flagship configuration and tree
@@ -246,9 +247,10 @@ def _features_and_kernel(tree, B, H, W, D, dtype, seed):
     return f.to("cuda", dtype), k.to("cuda", dtype)
 
 
-def check_head_backward(tree, B, H, W, D, dtype, seed, timed=False):
+def check_head_backward(tree, B, H, W, D, dtype, seed, timed=False, baseline=None):
     """K1b against its plain version on the card, on pf from the forward at
-    the same shape and random cotangents; returns a result record."""
+    the same shape and random cotangents; returns a result record (with
+    ``baseline``, as ``check_fused_head``)."""
     from pipnet_tpu_torch.ops.fused_head import (fused_head, head_backward,
                                                  head_backward_reference)
     f, k = _features_and_kernel(tree, B, H, W, D, dtype, seed)
@@ -272,6 +274,8 @@ def check_head_backward(tree, B, H, W, D, dtype, seed, timed=False):
             rec["plain_ms"] = time_ms(lambda: head_backward_reference(pf, g_pf, g_pooled, tree),
                                       iters=5)
             rec["library_ms"] = None       # no single PyTorch call computes this
+            if baseline is not None:
+                rec.update(in_turns(lambda: head_backward(pf, g_pf, g_pooled, tree), baseline))
             es = pf.element_size()
             rec.update(bound((pf.numel() * 3) * es + g_pooled.numel() * 4,
                              5.0 * pf.numel(), torch.float32))
@@ -315,22 +319,38 @@ def check_nopf(tree, pairs, H, W, D, dtype, seed, timed=False, tau=1.0, baseline
     return rec
 
 
-def baseline_kernels(checkout: str) -> dict:
-    """K1's and K2's libraries built from an older checkout of this
-    repository (e.g. ``git archive`` of a parent commit unpacked under the
-    git-ignored ``build/``), with this checkout's flags, for timing in turns
-    with the kernels here.  They run on this checkout's column plan
-    (``kernel_groups``), so the older kernels must accept it: those of the
-    parent commits took any groups of whole nodes within 128 columns."""
+BASELINE_SOURCES = ("fused_head", "fused_head_nopf", "head_backward", "dwconv")
+
+
+@dataclasses.dataclass
+class Baseline:
+    """An older checkout's kernel libraries, and whether its K1b takes this
+    checkout's plan (``backward_plan``: groups of ``sv`` 16-byte vectors) or
+    is the earlier kernel, which ran on the f32 SIMT column plan."""
+    libs: dict
+    k1b_takes_sv: bool
+
+
+def baseline_kernels(checkout: str) -> Baseline:
+    """K1's, K2's, K1b's and K3's libraries built from an older checkout of
+    this repository (e.g. ``git archive`` of a parent commit unpacked under
+    the git-ignored ``build/``), with this checkout's flags, for timing in
+    turns with the kernels here.  K1 and K2 run on this checkout's column
+    plan (``kernel_groups``), so the older kernels must accept it: those of
+    the parent commits took any groups of whole nodes within 128 columns."""
     from pipnet_tpu_torch.ops.build import NVCC_FLAGS, _nvcc
     src = os.path.join(checkout, "pipnet_tpu_torch", "ops", "csrc")
     out = os.path.join(REPO, "build", "baseline_kernels")
     os.makedirs(out, exist_ok=True)
     procs = {}
-    for name in ("fused_head", "fused_head_nopf"):
+    for name in BASELINE_SOURCES:
         lib = os.path.join(out, f"lib{name}.so")
+        # without GNU-unique symbols, so that the statics of inline host code
+        # (a kernel's "shared-memory limit raised" flag, tensor-map caches)
+        # stay the baseline's own and are not bound to this checkout's copy
         procs[name] = (lib, subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", lib, os.path.join(src, f"{name}.cu")],
+            [_nvcc(), *NVCC_FLAGS, "-Xcompiler", "-fno-gnu-unique", "-o", lib,
+             os.path.join(src, f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (lib, proc) in procs.items():
@@ -340,33 +360,62 @@ def baseline_kernels(checkout: str) -> dict:
         libs[name] = ctypes.CDLL(lib)
         libs[name].pipnet_cuda_error_string.argtypes = [ctypes.c_int]
         libs[name].pipnet_cuda_error_string.restype = ctypes.c_char_p
-    return libs
+    with open(os.path.join(src, "head_backward.cu")) as f:
+        takes_sv = "int G, int sv," in f.read()
+    return Baseline(libs, takes_sv)
+
+
+def _simt_plan_backward(lib):
+    """A launcher of the earlier K1b (no ``sv`` argument; the f32 SIMT
+    column plan) in the place of ``fused_head._launch_backward``."""
+    from pipnet_tpu_torch.ops.build import check_cuda
+    from pipnet_tpu_torch.ops.fused_head import _DTYPE_CODES, head_backward, kernel_groups
+    fn = lib.pipnet_head_backward
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+
+    def launch(pf, g_pf, g_pooled, tree, tau):
+        B, H, W, P = pf.shape
+        groups = kernel_groups(tree, torch.float32, pf.device)
+        dz = torch.empty_like(pf)
+        code = fn(pf.data_ptr(), None if g_pf is None else g_pf.data_ptr(),
+                  g_pooled.data_ptr(), groups.data_ptr(), dz.data_ptr(), B, H * W, P,
+                  groups.shape[0], float(tau), _DTYPE_CODES[pf.dtype],
+                  torch.cuda.current_stream().cuda_stream)
+        check_cuda(lib, code, "baseline head backward launch")
+        head_backward.launches += 1
+        return dz
+    return launch
 
 
 @contextlib.contextmanager
-def baseline_launches(libs: dict):
+def baseline_launches(baseline: Baseline):
     """The wrappers launch the baseline libraries."""
+    import pipnet_tpu_torch.ops.dwconv as dw
     import pipnet_tpu_torch.ops.fused_head as fh
     import pipnet_tpu_torch.ops.fused_head_nopf as fn
-    saved = (fh.kernel_entry, fn.kernel_entry)
+    saved = (fh.kernel_entry, fn.kernel_entry, dw.kernel_entry, fh._launch_backward)
 
     def entry(name, symbol, argtypes):
-        fn_ = getattr(libs[name], symbol)
+        fn_ = getattr(baseline.libs[name], symbol)
         fn_.argtypes, fn_.restype = list(argtypes), ctypes.c_int
-        return libs[name], fn_
-    fh.kernel_entry = fn.kernel_entry = entry
+        return baseline.libs[name], fn_
+    fh.kernel_entry = fn.kernel_entry = dw.kernel_entry = entry
+    if not baseline.k1b_takes_sv:
+        fh._launch_backward = _simt_plan_backward(baseline.libs["head_backward"])
     try:
         yield
     finally:
-        fh.kernel_entry, fn.kernel_entry = saved
+        fh.kernel_entry, fn.kernel_entry, dw.kernel_entry, fh._launch_backward = saved
 
 
-def in_turns(call, libs: dict) -> dict:
+def in_turns(call, baseline: Baseline) -> dict:
     """``call`` through the baseline kernels and through this checkout's, in
     the order baseline, this, this, baseline, each by ``time_ms``."""
     out = {"baseline_ms": [], "turns_ms": []}
     for who in ("baseline_ms", "turns_ms", "turns_ms", "baseline_ms"):
-        ctx = baseline_launches(libs) if who == "baseline_ms" else contextlib.nullcontext()
+        ctx = baseline_launches(baseline) if who == "baseline_ms" else contextlib.nullcontext()
         with ctx:
             out[who].append(time_ms(call, iters=10))
     return out
@@ -408,7 +457,8 @@ def kernel_phase(card: str, baseline=None):
             ("multi_bucket_f32", multi, (4, 9, 11, 72), f32, False),
             ("multi_bucket_bf16", multi, (4, 9, 11, 72), bf16, False)):
         backward[name] = check_head_backward(tree, *shape, dtype, seed=10 + len(backward),
-                                             timed=timed)
+                                             timed=timed,
+                                             baseline=baseline if dtype == bf16 else None)
         say(f"kernel head_backward {name}: {json.dumps(backward[name])} [{card}]")
     nopf = {}
     for name, tree, shape, dtype, timed in (
@@ -445,9 +495,10 @@ def _rel_check(what: str, got, want, rel: float, rec: dict) -> None:
         fail(f"{what} disagrees with its plain version: {rec}, tolerance {rel} of the scale")
 
 
-def check_dwconv(shape, dtype, seed, timed=False):
+def check_dwconv(shape, dtype, seed, timed=False, baseline=None):
     """K3 against its plain version on the card; the library call is cuDNN's
-    depthwise convolution (``F.conv2d(groups=C)``) on the same input."""
+    depthwise convolution (``F.conv2d(groups=C)``) on the same input (with
+    ``baseline``, as ``check_fused_head``)."""
     from pipnet_tpu_torch.ops.dwconv import dwconv7x7, dwconv7x7_reference
     x, k = _dw_inputs(shape, dtype, seed)
     rec = {"shape": list(shape), "dtype": _dtype_name(dtype)}
@@ -461,6 +512,8 @@ def check_dwconv(shape, dtype, seed, timed=False):
             rec["ms"] = time_ms(lambda: dwconv7x7(x, k))
             rec["plain_ms"] = time_ms(lambda: dwconv7x7_reference(x, k), iters=5)
             rec["library_ms"] = time_ms(lambda: F.conv2d(xc, kc, padding=3, groups=C))
+            if baseline is not None:
+                rec.update(in_turns(lambda: dwconv7x7(x, k), baseline))
             rec.update(bound((2 * x.numel() + k.numel()) * x.element_size(), 0.0, dtype,
                              f32_ops=2.0 * 49 * x.numel()))
     return rec
@@ -539,7 +592,7 @@ def check_cnblock(shape, dtype, fast_gelu, seed, timed=False):
     return rec
 
 
-def block_kernel_phase(card: str):
+def block_kernel_phase(card: str, baseline=None):
     """K3 and K4 against their plain versions (TF32 off, as ``kernel_phase``
     left it): the four stage maps at B=128 in bf16 (timed), f32 shapes,
     small ragged shapes (odd H and W, C not a multiple of the channel tile,
@@ -548,10 +601,15 @@ def block_kernel_phase(card: str):
     dw = {}
     for i, hwc in enumerate(STAGES):
         dw[f"stage{i}_bf16"] = check_dwconv((STEP_IMAGES, *hwc), torch.bfloat16, 30 + i,
-                                            timed=True)
+                                            timed=True, baseline=baseline)
     dw["stage3_f32"] = check_dwconv((STEP_IMAGES, *last), torch.float32, 34, timed=True)
-    for dtype in (torch.float32, torch.bfloat16):
-        dw[f"ragged_{_dtype_name(dtype)}"] = check_dwconv((3, 9, 11, 40), dtype, 35)
+    # odd maps, C not a multiple of the 32-channel tile; C = 12 and 100 rows
+    # that are not 16-byte multiples in bf16 (the direct-load kernel); a map
+    # smaller than the 7x7 window
+    for shape in ((3, 9, 11, 40), (1, 3, 5, 12), (1, 27, 27, 100)):
+        for dtype in (torch.float32, torch.bfloat16):
+            dw[f"ragged_{'x'.join(map(str, shape))}_{_dtype_name(dtype)}"] = check_dwconv(
+                shape, dtype, 35)
     for name, rec in dw.items():
         say(f"kernel dwconv {name}: {json.dumps(rec)} [{card}]")
     grad = check_dwconv_grad((SERVE_IMAGES, *last), seed=36)
@@ -1228,7 +1286,7 @@ def main(argv=None) -> int:
 
     baseline = baseline_kernels(args.baseline) if args.baseline else None
     records, backward, nopf = kernel_phase(card, baseline)
-    dw, blocks = block_kernel_phase(card)
+    dw, blocks = block_kernel_phase(card, baseline)
 
     paths = {"depthwise conv op": dwconv_op_path(card),
              "serving": serving_phase(card, fused=False),

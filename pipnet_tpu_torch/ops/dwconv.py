@@ -3,15 +3,17 @@ for Hopper, with its exact gradient.
 
 Replaces ``pipnet_tpu/ops/pallas_dwconv.py::_dw_kernel`` (behind
 ``make_dwconv7x7``); its kernel is ``csrc/dwconv.cu``, built for ``sm_90a``
-at first use (``ops/build.py``) and bound with ``ctypes``.  The 49-tap
-device code is ``csrc/dwconv_tile.cuh``, which K4 (``ops/cnblock.py``)
-shares as its first stage.  No model of either package runs this op: the
-model's blocks take K4 (fused) or the unfused composition.
+at first use (``ops/build.py``) and bound with ``ctypes``.  It shares the
+weight loader of ``csrc/dwconv_tile.cuh`` with K4 (``ops/cnblock.py``),
+whose first stage is the same 49 taps.  No model of either package runs
+this op: the model's blocks take K4 (fused) or the unfused composition.
 
 What bounds K3 on an H100, at B=128 and stage 3 (26x26x768, bf16): its
 266 MB of input and output take 79 us at 3.35 TB/s, its 6.5 GFLOP of f32
 FMA 97 us at the 67 TFLOP/s f32 peak, so operations on the SIMT units bound
-it.  See the source for the block plan.
+it.  The kernel rolls rows down the image: a thread owns one channel and a
+strip of output columns that divides W, loads each input row once into
+registers and keeps the 7 output rows it feeds there (see the source).
 
 ``dwconv7x7`` runs the kernel for CUDA tensors and the plain PyTorch version
 ``dwconv7x7_reference`` for CPU tensors, with no fallback between them;

@@ -22,8 +22,11 @@ bound (``PERF.md``).  f32 keeps a SIMT tile (TF32 would miss 1e-5).  Each
 kernel plans its own column groups (``column_groups``, ``kernel_groups``):
 whole nodes of one bucket, so a node's softmax never crosses groups, and
 the max-pool needs no global atomics.  One launch covers every bucket of
-the tree.  K1b is bound by bytes (it reads pf and g_pf and writes dz); see
-its source.
+the tree.  K1b is bound by bytes (it reads pf and g_pf and writes dz): it
+plans its own groups (``backward_plan``: whole nodes in a window of 16-byte
+vectors, ending on 32-byte sectors where they can), keeps a block's pf slice
+in shared memory so pf is read once, and moves g_pf and dz as 16-byte
+vectors; see its source.
 
 ``fused_head`` runs the kernel for CUDA tensors and the plain PyTorch
 version ``fused_head_reference`` for CPU tensors; there is no fallback from
@@ -38,6 +41,7 @@ launches.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional, Tuple
 
 import numpy as np
@@ -47,7 +51,7 @@ from ..tree.compile import TreeArrays
 from .build import check_cuda, kernel_entry
 from .segment import _node_onehot, segment_softmax, segment_sum_to_nodes, tree_tensor
 
-# column plans: the f32 SIMT tile of K1, K2 and K1b (TN in head_tile.cuh),
+# column plans: the f32 SIMT tile of K1 and K2 (TN in head_tile.cuh),
 # and the bf16 kernels' tile of one column group (HALF in head_tile.cuh; K1
 # runs two groups side by side in one wgmma of 256 columns, K2 one group
 # per view), which TMA starts on a multiple of 8 columns (16 bytes); a bf16
@@ -57,11 +61,19 @@ SIMT_TILE_COLS = 128
 BF16_TILE_COLS = 128
 MAX_GROUP_NODES = 16
 TMA_ALIGN_COLS = 8
+# K1b reads and writes 16-byte vectors, one thread each, at most a warp's
+# 32 of them a row; a block's pf slice takes at most BACKWARD_SLICE_BYTES,
+# so that two share an SM's 227 KB; a group ends on a 32-byte sector of dz
+# where it can (SECTOR_BYTES)
+BACKWARD_VECTOR_BYTES = 16
+BACKWARD_MAX_VECTORS = 32
+BACKWARD_SLICE_BYTES = 110 * 1024
+SECTOR_BYTES = 32
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def column_groups(tree: TreeArrays, tile_cols: int, max_nodes: Optional[int] = None,
-                  align: int = 1) -> np.ndarray:
+                  align: int = 1, sector: int = 1) -> np.ndarray:
     """(G, 3) int32 (col_start, ncols, width) per column group of a kernel
     whose column tile is ``tile_cols`` wide.
 
@@ -71,7 +83,9 @@ def column_groups(tree: TreeArrays, tile_cols: int, max_nodes: Optional[int] = N
     tile must start at a multiple of ``align`` columns (the bf16 kernels'
     TMA loads: 8 columns, 16 bytes) holds a group starting at ``c0`` from
     tile column ``c0 % align`` on, so the group fits ``tile_cols - c0 %
-    align`` columns."""
+    align`` columns.  With ``sector`` (columns) a group that could hold
+    more nodes than fill a whole number of sectors holds such a multiple, so
+    that groups of a bucket starting on a sector also end on one."""
     groups = []
     covered = 0
     for b in tree.buckets:
@@ -85,6 +99,9 @@ def column_groups(tree: TreeArrays, tile_cols: int, max_nodes: Optional[int] = N
             n = min((tile_cols - start % align) // b.width, b.num_nodes - first)
             if max_nodes is not None:
                 n = min(n, max_nodes)
+            whole = sector // math.gcd(b.width, sector)     # nodes a whole sector run takes
+            if n > whole:
+                n -= n % whole
             groups.append((start, n * b.width, b.width))
             first += n
         covered = b.proto_offset + b.num_nodes * b.width
@@ -241,18 +258,51 @@ def _check_backward(pf, g_pf, g_pooled, tree):
         raise ValueError("head backward needs contiguous pf and cotangents")
 
 
+def backward_plan(tree: TreeArrays, dtype: torch.dtype, hw: int, device: torch.device
+                  ) -> Tuple[int, torch.Tensor]:
+    """K1b's plan for ``hw`` patch rows in ``dtype``: ``(sv, groups)``.
+
+    Groups are whole nodes of one bucket, at most as many columns as two
+    blocks' pf slices (``hw`` rows, ``BACKWARD_SLICE_BYTES`` each) leave
+    room for, whole 32-byte sectors of nodes where they fit (no sector of
+    dz is written by two blocks; ``column_groups``' ``sector``), each seen
+    from the 16-byte boundary at or below its start.  ``sv`` is the most
+    16-byte vectors a group so seen needs (a row's lanes in the kernel, and
+    the slice's row), ``groups`` the (G, 3) plan, cached on the device."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    vec = BACKWARD_VECTOR_BYTES // es
+    widest = max((b.width for b in tree.buckets), default=1)
+    need = -(-(widest + vec - 1) // vec) * vec
+    if need > BACKWARD_MAX_VECTORS * vec:
+        raise ValueError(f"bucket width {widest} exceeds K1b's {BACKWARD_MAX_VECTORS * vec}-column "
+                         f"window in {dtype}; nodes that wide are not supported yet")
+    budget = BACKWARD_SLICE_BYTES // (hw * es) // vec * vec
+    tile = min(max(budget, need), BACKWARD_MAX_VECTORS * vec)
+    key = f"backward_groups_{tile}_{vec}"
+    plan = column_groups(tree, tile, None, vec, sector=SECTOR_BYTES // es)
+    nodes = plan[plan[:, 2] > 0]
+    span = int(max((c0 % vec + n for c0, n, _ in nodes), default=vec))
+    return -(-span // vec), tree_tensor(tree, key, plan, device, torch.int32)
+
+
 def _launch_backward(pf, g_pf, g_pooled, tree, tau):
     B, H, W, P = pf.shape
-    groups = kernel_groups(tree, torch.float32, pf.device)   # K1b's tile is the SIMT one
+    vec = BACKWARD_VECTOR_BYTES // pf.element_size()
+    if P % vec or any(t.data_ptr() % BACKWARD_VECTOR_BYTES
+                      for t in (pf, g_pf) if t is not None):
+        raise ValueError(f"head backward on the card reads 16-byte vectors: it needs P a "
+                         f"multiple of {vec} and 16-byte aligned pf and g_pf, got P={P}")
+    sv, groups = backward_plan(tree, pf.dtype, H * W, pf.device)
     dz = torch.empty_like(pf)
     lib, fn = kernel_entry("head_backward", "pipnet_head_backward",
-                           [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                           [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     with torch.cuda.device(pf.device):
         stream = torch.cuda.current_stream(pf.device).cuda_stream
         code = fn(pf.data_ptr(), None if g_pf is None else g_pf.data_ptr(),
                   g_pooled.data_ptr(), groups.data_ptr(), dz.data_ptr(),
-                  B, H * W, P, groups.shape[0], float(tau), _DTYPE_CODES[pf.dtype], stream)
+                  B, H * W, P, groups.shape[0], sv, float(tau),
+                  _DTYPE_CODES[pf.dtype], stream)
     check_cuda(lib, code, "head backward launch")
     head_backward.launches += 1
     return dz

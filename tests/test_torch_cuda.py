@@ -116,9 +116,17 @@ def test_fused_head_counts_launches_and_checks_inputs(card):
     assert fused_head.launches == before + 2
 
 
+# K1b's own edges besides: one image (a single group row of blocks), and a
+# map of 80x80 patches whose pf slice does not fit a block's shared memory
+# (pf is read from device memory in both passes)
+BACKWARD_CASES = KERNEL_CASES + [("multi_bucket", (1, 9, 11, 72), 0.5),
+                                 ("flagship", (1, 26, 26, 768), 1.0),
+                                 ("flagship", (1, 80, 80, 64), 1.0)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("tree_name,shape,tau", KERNEL_CASES)
+@pytest.mark.parametrize("tree_name,shape,tau", BACKWARD_CASES)
 def test_head_backward_kernel_matches_plain(card, dtype, tree_name, shape, tau):
     """K1b against its plain version on the same pf and cotangents, with and
     without g_pf: f32 to summation-order noise; bf16 dz within one bf16 ulp
@@ -142,6 +150,38 @@ def test_head_backward_kernel_matches_plain(card, dtype, tree_name, shape, tau):
         bar = (1e-5 if dtype == "float32" else 2.0 ** -7) * w.abs() + 1e-6 * w.abs().max()
         assert ((d - w).abs() <= bar).all(), (d - w).abs().max()
         assert (dz[..., torch.from_numpy(~tree.proto_valid).cuda()] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("tree_name", ["flagship", "multi_bucket"])
+def test_head_backward_splits_exact_ties_at_the_max(card, dtype, tree_name):
+    """Rows copied onto others tie exactly at many columns' max, and a
+    constant column ties on every row: each tied row gets an even share of
+    the pooled cotangent, as in the plain version, with and without g_pf."""
+    from pipnet_tpu_torch.ops.fused_head import (fused_head_reference, head_backward,
+                                                 head_backward_reference)
+    tree = _tree(tree_name)
+    dt = getattr(torch, dtype)
+    shape = (2, 9, 11, 72) if tree_name == "multi_bucket" else (2, 26, 26, 768)
+    f, k = _inputs(tree, *shape, seed=11, dtype=dt)
+    pf, _ = fused_head_reference(f, k, tree)
+    pf = pf.reshape(shape[0], -1, pf.shape[-1])
+    pf[:, 5] = pf[:, 3]
+    pf[:, 7] = pf[:, 3]
+    col = int(np.flatnonzero(tree.proto_valid)[0])
+    pf[:, :, col] = pf[:, 0, col].unsqueeze(1)
+    pf = pf.reshape(shape[0], shape[1], shape[2], -1).contiguous()
+    r = np.random.default_rng(12)
+    g_pooled = torch.from_numpy(r.standard_normal((shape[0], pf.shape[-1])).astype(np.float32)).cuda()
+    g_pf = torch.from_numpy(r.standard_normal(pf.shape).astype(np.float32)).to("cuda", dt)
+    for g in (None, g_pf):
+        dz = head_backward(pf, g, g_pooled, tree)
+        torch.cuda.synchronize()
+        ref = head_backward_reference(pf, g, g_pooled, tree)
+        d, w = dz.float(), ref.float()
+        bar = (1e-5 if dtype == "float32" else 2.0 ** -7) * w.abs() + 1e-6 * w.abs().max()
+        assert ((d - w).abs() <= bar).all(), (d - w).abs().max()
 
 
 @pytest.mark.cuda
@@ -284,6 +324,13 @@ def _dw_inputs(shape, seed, dtype):
     (2, 9, 11, 40),       # odd H and W, C not a multiple of the 32-channel slice
     (1, 5, 3, 12),        # map smaller than a tile, C not a multiple of 8
     (2, 26, 26, 64),      # the stage-3 map
+    (1, 26, 26, 96),      # the four stage maps, one image each: strips of 4
+    (1, 27, 27, 40),      # columns over 26, 27 (the last strip ragged), 28
+    (1, 28, 28, 24),      # and 56
+    (1, 56, 56, 16),
+    (1, 3, 5, 12),        # a map smaller than the 7x7 window
+    (2, 26, 26, 100),     # bf16 rows of 200 bytes: not TMA-aligned, direct loads
+    (1, 7, 9, 7),         # C below one 32-channel slice and odd
 ])
 def test_dwconv_kernel_matches_plain(card, dtype, shape):
     """K3 and its flipped-kernel form against the plain version: f32 to

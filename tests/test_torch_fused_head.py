@@ -122,7 +122,7 @@ def _check_groups(tree, groups, tile_cols, max_nodes=None, align=1):
     assert (covered == 1).all()
 
 
-# each kernel's column plan: the f32 SIMT tile (K1, K2, K1b), and the bf16
+# each kernel's column plan: the f32 SIMT tile (K1, K2), and the bf16
 # tile of K1 and K2 (one group of 128 columns, on 8-column boundaries, at
 # most 16 nodes), with a wider tile for contrast
 PLANS = {"simt": (128, None, 1), "bf16": (128, 16, 8), "wide": (240, 16, 8)}
@@ -188,3 +188,67 @@ def test_column_groups_reject_nodes_wider_than_a_tile(tiny_newick):
     _, tt = compiled_pair(tiny_newick, 70, 0)
     with pytest.raises(ValueError, match="exceeds"):
         column_groups(tt, 128)
+
+
+# K1b's own plan (``backward_plan``) at the flagship train step's 26x26
+# patches, at a 56x56 map (narrower groups: the slice takes more rows), and
+# on small trees with several bucket widths
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("tree_name,hw", [("flagship", 676), ("flagship", 3136),
+                                          ("multi_bucket", 99), ("tiny", 169)])
+def test_backward_plan_covers_every_column_once_in_whole_nodes(tiny_newick, dtype, tree_name,
+                                                               hw):
+    """Every column in exactly one group, every group whole nodes of one
+    bucket (or the padded tail), each node group inside the kernel's window
+    of ``sv`` 16-byte vectors (at most a warp's 32) seen from the boundary
+    below its start; the slice leaves room for two blocks an SM unless the
+    widest node needs more."""
+    from pipnet_tpu_torch.ops.fused_head import (BACKWARD_MAX_VECTORS, BACKWARD_SLICE_BYTES,
+                                                 backward_plan)
+    from pipnet_tpu_torch.tree import compile_tree
+    if tree_name == "flagship":
+        _, rt, classes = flagship_roots()
+        tt = compile_tree(budget(rt, 10), class_names=classes, protopool=False)
+    else:
+        _, tt = (compiled_pair(MULTI_NEWICK, 2, 3) if tree_name == "multi_bucket"
+                 else compiled_pair(tiny_newick, 10, 0))
+    dt = getattr(torch, dtype)
+    es = torch.tensor([], dtype=dt).element_size()
+    vec = 16 // es
+    sv, groups = backward_plan(tt, dt, hw, torch.device("cpu"))
+    g = groups.numpy()
+    assert groups.dtype == torch.int32 and 1 <= sv <= BACKWARD_MAX_VECTORS
+    _check_groups(tt, g, int(g[:, 1].max()), None, vec)
+    nodes = g[g[:, 2] > 0]
+    assert (nodes[:, 0] % vec + nodes[:, 1] <= sv * vec).all()
+    widest = max(b.width for b in tt.buckets)
+    assert hw * sv * 16 <= BACKWARD_SLICE_BYTES or sv * vec < widest + 2 * vec - 1
+
+
+@pytest.mark.parametrize("dtype,sv,full", [("bfloat16", 10, 80), ("float32", 10, 40)])
+def test_backward_plan_flagship_groups_end_on_sectors(dtype, sv, full):
+    """At the flagship train step's shape, K1b's groups are runs of nodes
+    whose dz bytes start and end on 32-byte sectors (4 nodes of 20 bf16
+    columns, 2 in f32), so no sector is written by two blocks; only the
+    bucket's last node and the padded tail break the run."""
+    from pipnet_tpu_torch.ops.fused_head import backward_plan
+    from pipnet_tpu_torch.tree import compile_tree
+    _, rt, classes = flagship_roots()
+    tt = compile_tree(budget(rt, 10), class_names=classes, protopool=False)
+    dt = getattr(torch, dtype)
+    es = torch.tensor([], dtype=dt).element_size()
+    got_sv, groups = backward_plan(tt, dt, 676, torch.device("cpu"))
+    g = groups.numpy()
+    assert got_sv == sv
+    runs = g[(g[:, 1] == full) & (g[:, 2] == 20)]
+    assert len(runs) == 189 // (full // 20)           # all nodes but the odd last one
+    assert ((runs[:, 0] * es) % 32 == 0).all() and (((runs[:, 0] + runs[:, 1]) * es) % 32 == 0).all()
+    assert g[-1, 2] == 0
+
+
+def test_backward_plan_rejects_nodes_wider_than_its_window(tiny_newick):
+    from pipnet_tpu_torch.ops.fused_head import backward_plan
+    _, tt = compiled_pair(tiny_newick, 70, 0)
+    assert max(b.width for b in tt.buckets) > 125
+    with pytest.raises(ValueError, match="exceeds"):
+        backward_plan(tt, torch.float32, 676, torch.device("cpu"))
