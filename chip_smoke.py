@@ -19,7 +19,11 @@ Phases, each of which fails the run loudly:
    the kernel's time, its plain version's, one PyTorch library call's where
    one computes the same function, and the card's bound; K1 and K2 also at
    the edges of their bf16 tiling (99 rows, D = 72, bucket widths that do
-   not divide the tile, one image, tau = 0.5); with ``--baseline CHECKOUT``
+   not divide the tile, one image, tau = 0.5); K1, K1b and K2 on flat
+   PIP-Net's node of 768 prototypes (K1 at B=8 in both dtypes and at 128 in
+   bf16, K1b at 128, K2 at 64 pairs) and on nodes of 300 and 2000 and a tree
+   mixing a narrow bucket with a node of 300 off an 8-column boundary, all
+   wider than a column tile and run as parts; with ``--baseline CHECKOUT``
    an older checkout's K1, K2, K1b and K3 are built and their bf16 launches
    at the main-path shapes timed in turns with these (baseline, this, this,
    baseline);
@@ -49,7 +53,13 @@ Phases, each of which fails the run loudly:
    (K4 18, K1 1, K1b 1 per step); before it, path A's and path C's
    first-step losses from the same parameters and batch, and one stage-3
    block's gradients through ``FusedCNBlock`` against autograd through the
-   unfused composition.
+   unfused composition;
+9. flat PIP-Net (the flagship config with ``num_features`` 768 and no
+   per-child budget, one node of 768 prototypes over 200 generated classes;
+   seeded weights, the add-on kernel scaled so the softmax over 768 peaks):
+   a run directory served as in 5 (K1 twice per forward: the row statistics
+   over the node's parts, then the pass that writes), path A (K1 2, K1b 2
+   per step), the path A / B cross-checks, and path B (K2 3, K1 2, K1b 2).
 
 The last two lines of standard output are the ``{"kernels": [...]}``
 record and ``{"ok": true, "device": {...}}``.  Without a CUDA card, or
@@ -79,7 +89,18 @@ import torch.nn.functional as F
 REPO = os.path.dirname(os.path.abspath(__file__))
 FLAGSHIP_META = os.path.join(REPO, "artifacts", "lou_190_s2", "metadata")
 RUN_DIR = os.path.join(REPO, "build", "smoke_run")
-FUSED_RUN_DIR = os.path.join(REPO, "build", "smoke_run_fused")
+# flat PIP-Net (Nauta et al., CVPR 2023, CUB-200-2011): one node of 768
+# prototypes (num_features; one per ConvNeXt-tiny-26 channel) over 200
+# classes, named cub_001 .. cub_200 here (no dataset is read)
+FLAT_FEATURES, FLAT_CLASSES = 768, 200
+# the flat head's seeded add-on kernel is scaled so that its logits F K
+# spread with this standard deviation over the served images: from the
+# xavier scale a softmax over 768 prototypes is nearly uniform (every
+# pooled value under the 0.1 inference cut), as no trained head's is
+FLAT_LOGIT_STD = 6.0
+# the test fixtures' trees (MULTI_NEWICK, MIXED_NEWICK, the flat trees) are
+# those of tests/torch_port_util.py, which imports no JAX until asked to
+FIXTURES = os.path.join(REPO, "tests")
 KERNEL_SOURCES = ["fused_head", "head_backward", "fused_head_nopf", "dwconv", "cnblock"]
 
 # H100 SXM published peaks (dense): the bound of a kernel is the larger of
@@ -87,19 +108,18 @@ KERNEL_SOURCES = ["fused_head", "head_backward", "fused_head_nopf", "dwconv", "c
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
-# a tree whose nodes have 2, 3 and 4 children: with per-child budgets
-# max(2, 3 * leaves) it compiles to several bucket widths and a padded tail
-MULTI_NEWICK = (
-    "((cub_001_A:1,cub_002_B:1,cub_003_C:1):1,"
-    "((cub_004_D:1,cub_005_E:1):1,cub_006_F:1,cub_007_G:1,cub_008_H:1):1,"
-    "(cub_009_I:1,cub_010_J:1):1);")
-
-# tolerances: f32 (TF32 off) differs from the plain version only by the
-# product's summation order; bf16 pf is rounded from f32 values that differ
-# that way, so it may land one bf16 ulp (2^-8 below 1.0) apart, while pooled
-# is taken in f32 before the cast
-TOL = {torch.float32: {"pf": 1e-5, "pooled": 1e-5},
-       torch.bfloat16: {"pf": 2.0 ** -8, "pooled": 4e-3}}
+# K1's tolerances: f32 (TF32 off) differs from the plain version only by
+# the product's summation order, pf and pooled within 1e-5; bf16 pf is
+# rounded from f32 values that differ that way, so it may land one bf16 ulp
+# apart: within 2^-7 of each plain value (an ulp is 2^-8 to 2^-7 of a
+# value), beyond a floor at f32's least normal (exponentials of slots at the
+# clip, flushed to zero); pooled is taken in f32 before the cast, within
+# 1e-5 in both dtypes
+TOL = {torch.float32: {"pf_abs": 1e-5, "pf_rel": 0.0, "pooled": 1e-5},
+       torch.bfloat16: {"pf_abs": 2.0 ** -126, "pf_rel": 2.0 ** -7, "pooled": 1e-5}}
+# the served head against the plain head on the same features: pooled values
+# within 4e-3 (the kernel check above holds K1 itself to 1e-5)
+SERVED_POOLED_TOL = 4e-3
 # K1b writes dz in pf's dtype from f32 arithmetic that differs from the
 # plain version's by summation order: f32 to 1e-5 relative, bf16 within one
 # bf16 ulp (2^-7 relative); K2's outputs are f32 in both dtypes (bf16
@@ -177,14 +197,44 @@ def flagship_tree():
                         weighted=cfg.train.loss.weighted_ce), cfg
 
 
-def multi_bucket_tree():
-    from pipnet_tpu_torch.tree import Phylogeny, compile_tree, construct_phylo_tree
-    root = construct_phylo_tree(phylo=Phylogeny(newick=MULTI_NEWICK))
-    root.assign_all_descendents()
-    for node in root.nodes_with_children():
-        node.set_num_protos(num_protos_per_descendant=3, num_protos_per_child=2,
-                            min_protos=0, split_protos=True)
-    return compile_tree(root, protopool=False)
+@dataclasses.dataclass
+class Setup:
+    """A model configuration that the smoke run serves and trains: the
+    flagship run config with the changes ``model`` to its model section, a
+    tree (as a run directory's ``metadata/tree.json`` holds it) and classes,
+    and seeded random weights, whose add-on kernel is scaled so that F K has
+    the standard deviation ``logit_std`` on the served images where that is
+    set (the factor is measured once).  ``wide_node``: the tree has a node
+    wider than every head kernel's column tile, which K1 and K1b run in two
+    launches a call (row statistics over its parts, then the pass that
+    writes) and K2 in three (its third adds each row's parts and takes the
+    log sums)."""
+    name: str
+    model: dict
+    tree_json: dict
+    classes: list
+    wide_node: bool = False
+    logit_std: float = None
+    kernel_scale: float = None
+
+
+def flagship_setup() -> Setup:
+    with open(os.path.join(FLAGSHIP_META, "tree.json")) as f:
+        tree_json = json.load(f)
+    with open(os.path.join(FLAGSHIP_META, "classes.json")) as f:
+        classes = json.load(f)
+    return Setup("", {}, tree_json, classes)
+
+
+def flat_setup() -> Setup:
+    """Flat PIP-Net: ``num_features`` 768, no per-child budget, the flat tree
+    over the generated classes unbudgeted, as a flat run saves it."""
+    from pipnet_tpu_torch.tree import flat_tree
+    from torch_port_util import flat_classes
+    classes = flat_classes(FLAT_CLASSES)
+    return Setup("flat", {"num_features": FLAT_FEATURES, "num_protos_per_child": 0},
+                 flat_tree(classes, FLAT_FEATURES).to_dict(), classes, wide_node=True,
+                 logit_std=FLAT_LOGIT_STD)
 
 
 def check_fused_head(tree, B, H, W, D, dtype, seed, timed=False, tau=1.0, baseline=None):
@@ -202,15 +252,24 @@ def check_fused_head(tree, B, H, W, D, dtype, seed, timed=False, tau=1.0, baseli
         fail(f"fused head output shapes {tuple(pf.shape)} {tuple(pooled.shape)} {pf.dtype}")
     if not (torch.isfinite(pf.float()).all() and torch.isfinite(pooled).all()):
         fail("fused head gave non-finite values")
-    pf_err = (pf.float() - pf_r.float()).abs().max().item()
-    pooled_err = (pooled - pooled_r).abs().max().item()
-    tail = pf[..., ~torch.from_numpy(tree.proto_valid).cuda()]
+    tol = TOL[dtype]
+    valid = torch.from_numpy(tree.proto_valid).cuda()
+    ref = pf_r.float().abs()
+    err = (pf.float() - pf_r.float()).abs()
+    over = (err - tol["pf_rel"] * ref - tol["pf_abs"]).max().item()
+    # a typical pf value (the median over real slots, every 7th taken) sets
+    # the scale of the errors: most pf values of a wide node are far below
+    # any absolute bar
+    typical = ref[..., valid].flatten()[::7].median().item()
     rec = {"shape": [B, H, W, D, P], "dtype": _dtype_name(dtype), "tau": tau,
            "buckets": [[b.num_nodes, b.width] for b in tree.buckets],
-           "pf_max_abs_err": pf_err, "pooled_max_abs_err": pooled_err,
-           "padded_slots_zero": bool((tail == 0).all().item())}
-    tol = TOL[dtype]
-    if pf_err > tol["pf"] or pooled_err > tol["pooled"] or not rec["padded_slots_zero"]:
+           "pf_max_abs_err": err.max().item(),
+           "pf_max_rel_err": (err / ref.clamp(min=2.0 ** -126)).max().item(),
+           "pf_typical": typical, "pf_max_abs_err_over_typical": err.max().item() / max(typical, 2.0 ** -126),
+           "pooled_max_abs_err": (pooled - pooled_r).abs().max().item(),
+           "padded_slots_zero": bool((pf[..., ~valid] == 0).all().item())}
+    del ref, err
+    if over > 0 or rec["pooled_max_abs_err"] > tol["pooled"] or not rec["padded_slots_zero"]:
         fail(f"fused head disagrees with its plain version: {rec}, tolerance {tol}")
     if timed:
         with torch.inference_mode():
@@ -324,11 +383,15 @@ BASELINE_SOURCES = ("fused_head", "fused_head_nopf", "head_backward", "dwconv")
 
 @dataclasses.dataclass
 class Baseline:
-    """An older checkout's kernel libraries, and whether its K1b takes this
-    checkout's plan (``backward_plan``: groups of ``sv`` 16-byte vectors) or
-    is the earlier kernel, which ran on the f32 SIMT column plan."""
+    """An older checkout's kernel libraries; whether its K1b takes a
+    plan of groups of ``sv`` 16-byte vectors (``backward_plan``) or is the
+    earlier kernel, which ran on the f32 SIMT column plan; and whether its
+    K1, K2 and K1b take split plans (``split_plan``: whole-node groups and
+    parts of wide nodes, GF ints a group) or one plan of (col_start, ncols,
+    width) triples of whole nodes."""
     libs: dict
     k1b_takes_sv: bool
+    takes_split_plan: bool
 
 
 def baseline_kernels(checkout: str) -> Baseline:
@@ -336,8 +399,8 @@ def baseline_kernels(checkout: str) -> Baseline:
     this repository (e.g. ``git archive`` of a parent commit unpacked under
     the git-ignored ``build/``), with this checkout's flags, for timing in
     turns with the kernels here.  K1 and K2 run on this checkout's column
-    plan (``kernel_groups``), so the older kernels must accept it: those of
-    the parent commits took any groups of whole nodes within 128 columns."""
+    plan (``head_plan``), so the older kernels must accept it: those of the
+    parent commits took any groups of whole nodes within 128 columns."""
     from pipnet_tpu_torch.ops.build import NVCC_FLAGS, _nvcc
     src = os.path.join(checkout, "pipnet_tpu_torch", "ops", "csrc")
     out = os.path.join(REPO, "build", "baseline_kernels")
@@ -361,15 +424,97 @@ def baseline_kernels(checkout: str) -> Baseline:
         libs[name].pipnet_cuda_error_string.argtypes = [ctypes.c_int]
         libs[name].pipnet_cuda_error_string.restype = ctypes.c_char_p
     with open(os.path.join(src, "head_backward.cu")) as f:
-        takes_sv = "int G, int sv," in f.read()
-    return Baseline(libs, takes_sv)
+        k1b_src = f.read()
+    takes_split = "const void* whole, int Gw" in k1b_src
+    return Baseline(libs, takes_split or "int G, int sv," in k1b_src, takes_split)
+
+
+def _triples(tree, dtype, device, hw=None):
+    """``(sv, plan)``: the (G, 3) (col_start, ncols, width) plan that kernels
+    older than the split plans take, for trees of whole nodes only: K1's
+    and K2's (``head_plan``; sv 0) or, with ``hw`` patch rows, K1b's
+    (``backward_plan``), cached on the tree."""
+    from pipnet_tpu_torch.ops import fused_head as fh
+
+    def make():
+        sv, whole, wide = (fh.backward_plan(tree, dtype, hw, device) if hw
+                           else (0, *fh.head_plan(tree, dtype, device)))
+        if wide is not None:
+            fail("kernels older than the split plans take trees of whole nodes only")
+        return sv, whole[:, :3].contiguous()
+    return fh._cached_plan(tree, ("triples", str(dtype), hw), device, make)
+
+
+def _triple_plan_launchers(libs):
+    """Launchers of K1, K2 and K1b (with ``sv``) older than the split plans
+    (``_triples``), in the place of ``fused_head._launch``,
+    ``fused_head_nopf._launch`` and ``fused_head._launch_backward``."""
+    from pipnet_tpu_torch.ops import fused_head as fh
+    from pipnet_tpu_torch.ops import fused_head_nopf as fn
+    from pipnet_tpu_torch.ops.build import check_cuda
+    from pipnet_tpu_torch.ops.segment import tree_tensor
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+    def entry(name, symbol, argtypes):
+        fn_ = getattr(libs[name], symbol)
+        fn_.argtypes, fn_.restype = argtypes, ctypes.c_int
+        return fn_
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    def k1(features, kernel, tree, tau):
+        B, H, W, D = features.shape
+        P, dev = tree.num_protos_padded, features.device
+        _, groups = _triples(tree, features.dtype, dev)
+        valid = tree_tensor(tree, "proto_valid_u8", tree.proto_valid, dev, torch.uint8)
+        pf = torch.empty((B, H, W, P), dtype=features.dtype, device=dev)
+        pooled = torch.empty((B, P), dtype=torch.float32, device=dev)
+        code = entry("fused_head", "pipnet_fused_head_forward", [vp] * 6 + [ci] * 5 + [cf, ci, vp])(
+            features.data_ptr(), kernel.data_ptr(), valid.data_ptr(), groups.data_ptr(),
+            pf.data_ptr(), pooled.data_ptr(), B, H * W, D, P, groups.shape[0], float(tau),
+            fh._DTYPE_CODES[features.dtype], stream())
+        check_cuda(libs["fused_head"], code, "baseline fused head launch")
+        fh.fused_head.launches += 1
+        return pf, pooled
+
+    def k2(features, kernel, tree, tau, eps):
+        B2, H, W, D = features.shape
+        P, N, dev = tree.num_protos_padded, tree.num_nodes, features.device
+        _, groups = _triples(tree, features.dtype, dev)
+        valid = tree_tensor(tree, "proto_valid_u8", tree.proto_valid, dev, torch.uint8)
+        proto_node = tree_tensor(tree, "proto_node_i32", tree.proto_node, dev, torch.int32)
+        pooled = torch.empty((B2, P), dtype=torch.float32, device=dev)
+        logsum = torch.empty((B2 // 2, N), dtype=torch.float32, device=dev)
+        code = entry("fused_head_nopf", "pipnet_fused_head_nopf_forward",
+                     [vp] * 7 + [ci] * 6 + [cf, cf, ci, vp])(
+            features.data_ptr(), kernel.data_ptr(), valid.data_ptr(), groups.data_ptr(),
+            proto_node.data_ptr(), pooled.data_ptr(), logsum.data_ptr(), B2 // 2, H * W, D, P,
+            N, groups.shape[0], float(tau), float(eps), fh._DTYPE_CODES[features.dtype],
+            stream())
+        check_cuda(libs["fused_head_nopf"], code, "baseline no-pf head launch")
+        fn.fused_head_nopf.launches += 1
+        return pooled, logsum
+
+    def k1b(pf, g_pf, g_pooled, tree, tau):
+        B, H, W, P = pf.shape
+        sv, groups = _triples(tree, pf.dtype, pf.device, H * W)
+        dz = torch.empty_like(pf)
+        code = entry("head_backward", "pipnet_head_backward", [vp] * 5 + [ci] * 5 + [cf, ci, vp])(
+            pf.data_ptr(), None if g_pf is None else g_pf.data_ptr(), g_pooled.data_ptr(),
+            groups.data_ptr(), dz.data_ptr(), B, H * W, P, groups.shape[0], sv, float(tau),
+            fh._DTYPE_CODES[pf.dtype], stream())
+        check_cuda(libs["head_backward"], code, "baseline head backward launch")
+        fh.head_backward.launches += 1
+        return dz
+    return k1, k2, k1b
 
 
 def _simt_plan_backward(lib):
     """A launcher of the earlier K1b (no ``sv`` argument; the f32 SIMT
     column plan) in the place of ``fused_head._launch_backward``."""
     from pipnet_tpu_torch.ops.build import check_cuda
-    from pipnet_tpu_torch.ops.fused_head import _DTYPE_CODES, head_backward, kernel_groups
+    from pipnet_tpu_torch.ops.fused_head import _DTYPE_CODES, head_backward
     fn = lib.pipnet_head_backward
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
@@ -377,7 +522,7 @@ def _simt_plan_backward(lib):
 
     def launch(pf, g_pf, g_pooled, tree, tau):
         B, H, W, P = pf.shape
-        groups = kernel_groups(tree, torch.float32, pf.device)
+        _, groups = _triples(tree, torch.float32, pf.device)
         dz = torch.empty_like(pf)
         code = fn(pf.data_ptr(), None if g_pf is None else g_pf.data_ptr(),
                   g_pooled.data_ptr(), groups.data_ptr(), dz.data_ptr(), B, H * W, P,
@@ -395,19 +540,23 @@ def baseline_launches(baseline: Baseline):
     import pipnet_tpu_torch.ops.dwconv as dw
     import pipnet_tpu_torch.ops.fused_head as fh
     import pipnet_tpu_torch.ops.fused_head_nopf as fn
-    saved = (fh.kernel_entry, fn.kernel_entry, dw.kernel_entry, fh._launch_backward)
+    saved = (fh.kernel_entry, fn.kernel_entry, dw.kernel_entry, fh._launch_backward,
+             fh._launch, fn._launch)
 
     def entry(name, symbol, argtypes):
         fn_ = getattr(baseline.libs[name], symbol)
         fn_.argtypes, fn_.restype = list(argtypes), ctypes.c_int
         return baseline.libs[name], fn_
     fh.kernel_entry = fn.kernel_entry = dw.kernel_entry = entry
+    if not baseline.takes_split_plan:
+        fh._launch, fn._launch, fh._launch_backward = _triple_plan_launchers(baseline.libs)
     if not baseline.k1b_takes_sv:
         fh._launch_backward = _simt_plan_backward(baseline.libs["head_backward"])
     try:
         yield
     finally:
-        fh.kernel_entry, fn.kernel_entry, dw.kernel_entry, fh._launch_backward = saved
+        (fh.kernel_entry, fn.kernel_entry, dw.kernel_entry, fh._launch_backward,
+         fh._launch, fn._launch) = saved
 
 
 def in_turns(call, baseline: Baseline) -> dict:
@@ -426,9 +575,21 @@ def kernel_phase(card: str, baseline=None):
     torch.backends.cudnn.allow_tf32 = False
     say(f"tf32: matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+    from torch_port_util import MIXED_NEWICK, MULTI_NEWICK, flat_tree_port, port_tree
     flag, _ = flagship_tree()
-    multi = multi_bucket_tree()
+    # a tree whose nodes have 2, 3 and 4 children: with per-child budgets
+    # max(2, 3 * leaves) it compiles to several bucket widths and a padded tail
+    multi = port_tree(MULTI_NEWICK, 2, 3)
+    flat = flat_tree_port(FLAT_CLASSES, FLAT_FEATURES)
     bf16, f32 = torch.bfloat16, torch.float32
+    # nodes wider than every kernel's tile besides flat PIP-Net's 768: 300 (a
+    # part ends inside a 16-byte vector, a padded tail follows), 2000 (the
+    # flat tree at 10 prototypes a child), and a narrow bucket with a node of
+    # 300 starting off an 8-column boundary (MIXED_NEWICK); 99 rows, D = 72
+    wide = [(name, tree, dt) for name, tree in (
+        ("flat300", flat_tree_port(FLAT_CLASSES, 300)),
+        ("flat2000", flat_tree_port(FLAT_CLASSES, 2000)), ("mixed", port_tree(MIXED_NEWICK)))
+        for dt in (f32, bf16)]
     # the edges of the bf16 kernels' tiling: 9x11 = 99 rows (not a multiple
     # of the 128-row tile), D = 72 (not a multiple of the 64-deep stage),
     # bucket widths 6, 9, 15, 30 (none divides the 128-column tile), groups
@@ -446,6 +607,14 @@ def kernel_phase(card: str, baseline=None):
             ("multi_bucket_bf16", multi, (3, 9, 11, 72), bf16, False)):
         records[name] = check_fused_head(tree, *shape, dtype, seed=len(records), timed=timed,
                                          baseline=baseline if dtype == bf16 else None)
+    for name, tree, shape, dtype, timed in (
+            ("flat_bf16", flat, (8, 26, 26, 768), bf16, True),
+            ("flat_train_bf16", flat, (128, 26, 26, 768), bf16, True),
+            ("flat_f32", flat, (8, 26, 26, 768), f32, True)):
+        records[name] = check_fused_head(tree, *shape, dtype, seed=len(records), timed=timed)
+    for name, tree, dtype in wide:
+        records[f"{name}_{_dtype_name(dtype)}"] = check_fused_head(
+            tree, 3, 9, 11, 72, dtype, seed=len(records), tau=0.5)
     for name, tree, shape, dtype, tau in ragged:
         records[name] = check_fused_head(tree, *shape, dtype, seed=len(records), tau=tau)
     for name, rec in records.items():
@@ -455,19 +624,29 @@ def kernel_phase(card: str, baseline=None):
             ("flagship_train_f32", flag, (128, 26, 26, 768), f32, True),
             ("flagship_train_bf16", flag, (128, 26, 26, 768), bf16, True),
             ("multi_bucket_f32", multi, (4, 9, 11, 72), f32, False),
-            ("multi_bucket_bf16", multi, (4, 9, 11, 72), bf16, False)):
+            ("multi_bucket_bf16", multi, (4, 9, 11, 72), bf16, False),
+            ("flat_train_bf16", flat, (128, 26, 26, 768), bf16, True),
+            ("flat_train_f32", flat, (128, 26, 26, 768), f32, True)) + tuple(
+            (f"{name}_{_dtype_name(dt)}", tree, (4, 9, 11, 72), dt, False)
+            for name, tree, dt in wide):
+        flagship_bf16 = dtype == bf16 and not name.startswith(("flat", "mixed"))
         backward[name] = check_head_backward(tree, *shape, dtype, seed=10 + len(backward),
                                              timed=timed,
-                                             baseline=baseline if dtype == bf16 else None)
+                                             baseline=baseline if flagship_bf16 else None)
         say(f"kernel head_backward {name}: {json.dumps(backward[name])} [{card}]")
     nopf = {}
     for name, tree, shape, dtype, timed in (
             ("flagship_train_f32", flag, (64, 26, 26, 768), f32, True),
             ("flagship_train_bf16", flag, (64, 26, 26, 768), bf16, True),
             ("multi_bucket_f32", multi, (2, 9, 11, 72), f32, False),
-            ("multi_bucket_bf16", multi, (2, 9, 11, 72), bf16, False)):
+            ("multi_bucket_bf16", multi, (2, 9, 11, 72), bf16, False),
+            ("flat_train_bf16", flat, (64, 26, 26, 768), bf16, True),
+            ("flat_train_f32", flat, (64, 26, 26, 768), f32, True)) + tuple(
+            (f"{name}_{_dtype_name(dt)}", tree, (2, 9, 11, 72), dt, False)
+            for name, tree, dt in wide):
+        flagship_bf16 = dtype == bf16 and not name.startswith(("flat", "mixed"))
         nopf[name] = check_nopf(tree, *shape, dtype, seed=20 + len(nopf), timed=timed,
-                                baseline=baseline if dtype == bf16 else None)
+                                baseline=baseline if flagship_bf16 else None)
     for name, tree, shape, dtype, tau in ragged:
         nopf[name.replace("_b1_", "_1pair_")] = check_nopf(tree, *shape, dtype,
                                                            seed=20 + len(nopf), tau=tau)
@@ -654,24 +833,74 @@ def dwconv_op_path(card: str):
     return launches
 
 
-def write_run_dir(run_dir: str, fused: bool, seed: int = 0) -> None:
-    """The flagship metadata beside seeded random weights in the JAX layout,
-    converted to the port's state_dict (``checkpoints/net_trained_last.pt``).
-    With ``fused`` the config says ``"use_pallas_backbone": true``; the
-    parameter tree is the same."""
-    from pipnet_tpu_torch.models.convert import params_from_jax, random_jax_params
-    tree, cfg = flagship_tree()
+def run_config(setup: Setup, align_eps_unset: bool = False, fused_backbone: bool = False):
+    """The flagship run config with ``setup``'s model changes; with
+    ``align_eps_unset`` the reference align_pf epsilon, as bench.py's
+    training config leaves it; with ``fused_backbone`` the fused-backbone
+    configuration."""
+    from pipnet_tpu_torch.run_io import load_run_config
+    cfg = load_run_config(os.path.dirname(FLAGSHIP_META))
+    model = dict(setup.model, use_pallas_backbone=fused_backbone)
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, **model))
+    if align_eps_unset:
+        loss = dataclasses.replace(cfg.train.loss, align_eps=None)
+        cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, loss=loss))
+    return cfg
+
+
+def build_model(setup: Setup, cfg, seed: int = 0):
+    """``setup``'s PIPNet for ``cfg`` on the card at full width and depth,
+    with seeded random weights in the JAX layout (``random_jax_params``;
+    the add-on kernel scaled to ``setup.logit_std`` where that is set)
+    converted to the port's: (model, tree, weights in the JAX layout)."""
+    from pipnet_tpu_torch.models import build_pipnet, params_from_jax, random_jax_params
+    from pipnet_tpu_torch.tree import Node
+    model, tree = build_pipnet(Node.from_dict(setup.tree_json), cfg.model,
+                               weighted=cfg.train.loss.weighted_ce,
+                               class_names=setup.classes, device="cuda")
+    params = random_jax_params(cfg.model, tree, seed=seed)
+    if setup.logit_std is not None:
+        if setup.kernel_scale is None:
+            model.load_state_dict(params_from_jax(params))
+            std = served_logit_std(model, cfg)
+            setup.kernel_scale = setup.logit_std / std
+            say(f"{setup.name} weights: add-on kernel scaled by {setup.kernel_scale} "
+                f"(logit std {std} -> {setup.logit_std})")
+        params["head"]["add_on_kernel"] = params["head"]["add_on_kernel"] * setup.kernel_scale
+    model.load_state_dict(params_from_jax(params))
+    return model, tree, params
+
+
+def served_logit_std(model, cfg) -> float:
+    """The standard deviation of F K over the served batch's images."""
+    from PIL import Image
+    from pipnet_tpu_torch.data.augment import EvalTransform
+    xs = np.stack([EvalTransform(cfg.model.image_size)(Image.fromarray(im))
+                   for im in synthetic_images(8, 256, seed=2)])
+    with torch.inference_mode():
+        feats = model.features(torch.from_numpy(xs).cuda())
+        return (feats.float() @ model.head.add_on_kernel.float()).std().item()
+
+
+def write_run_dir(run_dir: str, setup: Setup, fused: bool, seed: int = 0) -> None:
+    """``setup``'s run directory: the flagship config with its model changes
+    (with ``fused``, ``"use_pallas_backbone": true``; the parameter tree is
+    the same), its classes and tree, and its seeded weights converted to
+    the port's state_dict (``checkpoints/net_trained_last.pt``)."""
+    from pipnet_tpu_torch.models.convert import params_from_jax
     shutil.rmtree(run_dir, ignore_errors=True)
     os.makedirs(os.path.join(run_dir, "metadata"))
     os.makedirs(os.path.join(run_dir, "checkpoints"))
-    for name in ("classes.json", "tree.json"):
-        shutil.copy(os.path.join(FLAGSHIP_META, name), os.path.join(run_dir, "metadata"))
     with open(os.path.join(FLAGSHIP_META, "config.json")) as f:
         config = json.load(f)
-    config["model"]["use_pallas_backbone"] = fused
-    with open(os.path.join(run_dir, "metadata", "config.json"), "w") as f:
-        json.dump(config, f, indent=2)
-    torch.save(params_from_jax(random_jax_params(cfg.model, tree, seed=seed)),
+    config["model"].update(setup.model, use_pallas_backbone=fused)
+    for name, obj in (("config.json", config), ("classes.json", setup.classes),
+                      ("tree.json", setup.tree_json)):
+        with open(os.path.join(run_dir, "metadata", name), "w") as f:
+            json.dump(obj, f, indent=2)
+    model, _, params = build_model(setup, run_config(setup, fused_backbone=fused), seed)
+    del model
+    torch.save(params_from_jax(params),
                os.path.join(run_dir, "checkpoints", "net_trained_last.pt"))
 
 
@@ -714,18 +943,18 @@ def plain_blocks():
         convnext.cnblock_branch = kernel
 
 
-def serving_phase(card: str, fused: bool):
-    """Serve a run directory over HTTP; ``fused`` takes the fused-backbone
-    configuration (every block's branch through K4)."""
+def serving_phase(card: str, setup: Setup, fused: bool = False):
+    """Serve ``setup``'s run directory over HTTP; ``fused`` takes the
+    fused-backbone configuration (every block's branch through K4)."""
     from PIL import Image
     from pipnet_tpu_torch.models.pipnet import joint_leaf_log_distribution
     from pipnet_tpu_torch.ops.fused_head import fused_head, fused_head_reference
     from pipnet_tpu_torch.serve import Predictor, serve_http
 
     t0 = time.perf_counter()
-    run_dir = FUSED_RUN_DIR if fused else RUN_DIR
-    label = "serving, fused backbone" if fused else "serving"
-    write_run_dir(run_dir, fused)
+    label = ", ".join(["serving"] + ["fused backbone"] * fused + [setup.name] * bool(setup.name))
+    run_dir = "_".join([RUN_DIR] + ["fused"] * fused + [setup.name] * bool(setup.name))
+    write_run_dir(run_dir, setup, fused)
     pred = Predictor(run_dir, batch_size=8, device="cuda")
     if pred.bundle.cfg.model.use_pallas_backbone != fused:
         fail(f"{label}: the run directory's config did not carry use_pallas_backbone")
@@ -763,11 +992,14 @@ def serving_phase(card: str, fused: bool):
              f"{[s for s, _ in served]}, predict_batch {status_b}")
     say(f"{label}: /healthz {health}; /predict x3 and /predict_batch x{len(batch)} "
         f"answered; kernel launches during the requests: {launches}")
-    # per served forward: one K1 launch, and with the fused backbone one K4
-    # launch per block; nothing of the training kernels, no K3
+    # per served forward: one K1 launch (on a wide node two, the row
+    # statistics over its parts, then the normalised pass), and with the
+    # fused backbone one K4 launch per block; nothing of the training
+    # kernels, no K3
     forwards = len(single) + 1
     blocks = sum(pred.model.backbone.depths) if fused else 0
-    check_launches(label, launches, {**NO_LAUNCHES, "fused_head": forwards,
+    k1 = 2 if setup.wide_node else 1
+    check_launches(label, launches, {**NO_LAUNCHES, "fused_head": k1 * forwards,
                                      "cnblock": blocks * forwards})
     answers = [body for _, body in served] + served_b
 
@@ -803,7 +1035,7 @@ def serving_phase(card: str, fused: bool):
         # tolerance); take the plain side there so the logits compare the
         # kernels' values, not the cut
         thr = head.cfg.inference_threshold
-        pooled_tol = FUSED_SERVING_TOL["pooled"] if fused else TOL[torch.bfloat16]["pooled"]
+        pooled_tol = FUSED_SERVING_TOL["pooled"] if fused else SERVED_POOLED_TOL
         near = (pooled_p - thr).abs() < (pooled_tol if fused else 2.0 ** -9)
         pooled_k = torch.where(near, pooled_p, pooled_k)
         pk, logits_k = head.classify(pooled_k.to(feats.dtype), inference=True)
@@ -820,6 +1052,12 @@ def serving_phase(card: str, fused: bool):
         logit_tol = FUSED_SERVING_TOL["logits_rel"] * lp.abs().max() + 2.0 ** -7
     else:
         logit_tol = 2.0 ** -6 * lp.abs() + 2.0 ** -7   # two bf16 ulps
+        if setup.wide_node:
+            # a logit of a wide node sums its many pooled values (flat: all
+            # 768), each of which may round to bf16 one ulp (at most 2^-8
+            # below 1) from the plain one
+            w = head.effective_cls_weight().float()
+            logit_tol = logit_tol + 2.0 ** -8 * w.sum(-1)
     top2 = torch.topk(logp_p, 2, dim=-1).values
     confident = (top2[:, 0] - top2[:, 1]) > 0.1
     plain_top1 = logp_p.argmax(-1)
@@ -905,36 +1143,6 @@ def zero_counts() -> None:
         fn.launches = 0
 
 
-def flagship_run_config(align_eps_unset: bool, fused_backbone: bool = False):
-    """The flagship run config; with ``align_eps_unset`` the reference
-    align_pf epsilon, as bench.py's training config leaves it; with
-    ``fused_backbone`` the fused-backbone configuration."""
-    from pipnet_tpu_torch.run_io import load_run_config
-    cfg = load_run_config(os.path.dirname(FLAGSHIP_META))
-    if align_eps_unset:
-        loss = dataclasses.replace(cfg.train.loss, align_eps=None)
-        cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, loss=loss))
-    if fused_backbone:
-        cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model,
-                                                                 use_pallas_backbone=True))
-    return cfg
-
-
-def flagship_model(cfg, seed: int = 0):
-    """The flagship PIPNet on the card at full width and depth, with seeded
-    random weights in the JAX layout converted to the port's."""
-    from pipnet_tpu_torch.models import build_pipnet, params_from_jax, random_jax_params
-    from pipnet_tpu_torch.tree import Node
-    with open(os.path.join(FLAGSHIP_META, "tree.json")) as f:
-        root = Node.from_dict(json.load(f))
-    with open(os.path.join(FLAGSHIP_META, "classes.json")) as f:
-        classes = json.load(f)
-    model, tree = build_pipnet(root, cfg.model, weighted=cfg.train.loss.weighted_ce,
-                               class_names=classes, device="cuda")
-    model.load_state_dict(params_from_jax(random_jax_params(cfg.model, tree, seed=seed)))
-    return model, tree
-
-
 def train_batch(cfg, tree, seed: int = 1):
     """Two views of TRAIN_BATCH seeded images (float, the JAX step's layout)
     and their labels, on the card."""
@@ -961,15 +1169,17 @@ WATCHED = ("head.add_on_kernel", "head.cls_weight", "head.proto_presence",
            "backbone.stage3_block2.mlp_in.weight", "backbone.down2_conv.weight")
 
 
-def training_phase(card: str, fuse: bool, fused_backbone: bool = False):
-    """One training path at full width: warm-up steps, then timed steps with
-    the kernels' launch counts, then the profiler and a breakdown."""
+def training_phase(card: str, setup: Setup, fuse: bool, fused_backbone: bool = False):
+    """One training path of ``setup`` at full width: warm-up steps, then
+    timed steps with the kernels' launch counts, then the profiler and a
+    breakdown."""
     from pipnet_tpu_torch.train import init_train_state
     name = ("C (K4 backbone, K1, pf materialised)" if fused_backbone else
             "B (K2, fuse_align_pf)" if fuse else "A (K1, pf materialised)")
+    name = " ".join([setup.name] * bool(setup.name) + [name])
     t0 = time.perf_counter()
-    cfg = flagship_run_config(align_eps_unset=fuse, fused_backbone=fused_backbone)
-    model, tree = flagship_model(cfg)
+    cfg = run_config(setup, align_eps_unset=fuse, fused_backbone=fused_backbone)
+    model, tree, _ = build_model(setup, cfg)
     xs1, xs2, ys = train_batch(cfg, tree)
     step, scalars = train_step(cfg, model, tree, fuse)
     state = init_train_state(model, seed=0)
@@ -1093,14 +1303,15 @@ def train_breakdown(cfg, model, tree, state, xs1, xs2, ys, fuse, step_ms):
     return parts
 
 
-def cross_checks(card: str):
-    """From the same parameters and batch, with align_eps unset: path A's
-    and path B's first-step losses; then the head gradients through the
-    kernels against autograd through the plain composition, on the step's
-    own features, for both paths, in bf16 and in f32 (TF32 off)."""
+def cross_checks(card: str, setup: Setup):
+    """From the same parameters and batch of ``setup``, with align_eps unset:
+    path A's and path B's first-step losses; then the head gradients
+    through the kernels against autograd through the plain composition, on
+    the step's own features, for both paths, in bf16 and in f32 (TF32
+    off)."""
     from pipnet_tpu_torch.train import init_train_state
-    cfg = flagship_run_config(align_eps_unset=True)
-    model, tree = flagship_model(cfg)
+    cfg = run_config(setup, align_eps_unset=True)
+    model, tree, _ = build_model(setup, cfg)
     batch = train_batch(cfg, tree)
     snapshot = {k: v.clone() for k, v in model.state_dict().items()}
     loss = {}
@@ -1125,14 +1336,15 @@ def cross_checks(card: str):
         for fuse in (False, True):
             key = f"{'nopf' if fuse else 'fused'}_{_dtype_name(dtype)}"
             rec["grads"][key] = head_grad_check(feats.to(dtype), kernel.to(dtype), tree, fuse)
-    say(f"cross-checks: {json.dumps(rec)} [{card}]")
+    say(f"{', '.join(['cross-checks'] + [setup.name] * bool(setup.name))}: "
+        f"{json.dumps(rec)} [{card}]")
     del model
     torch.cuda.empty_cache()
     return rec
 
 
-def fused_backbone_checks(card: str):
-    """From the same parameters and batch: path A's and path C's first-step
+def fused_backbone_checks(card: str, setup: Setup):
+    """From the same parameters and batch of ``setup``: path A's and path C's first-step
     losses; then one stage-3 block's gradients (its input and nine
     parameters) through ``FusedCNBlock`` (K4 forward, the unfused
     composition's VJP by recompute) against autograd through
@@ -1141,8 +1353,8 @@ def fused_backbone_checks(card: str):
     from pipnet_tpu_torch.train import init_train_state
     batch, loss = None, {}
     for fused in (False, True):
-        cfg = flagship_run_config(align_eps_unset=False, fused_backbone=fused)
-        model, tree = flagship_model(cfg)
+        cfg = run_config(setup, fused_backbone=fused)
+        model, tree, _ = build_model(setup, cfg)
         if batch is None:
             batch = train_batch(cfg, tree)
         step, scalars = train_step(cfg, model, tree, fuse=False)
@@ -1264,6 +1476,7 @@ def main(argv=None) -> int:
                     help="an older checkout of this repository whose K1 and K2 are timed "
                          "in turns with this one's in the kernel phase")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
         return 1
@@ -1276,6 +1489,8 @@ def main(argv=None) -> int:
         f"{torch.cuda.device_count()} visible)")
     say(card)                 # name, power limit: as nvidia-smi prints them
 
+    sys.path.insert(0, FIXTURES)
+    flagship, flat = flagship_setup(), flat_setup()
     seconds = build(KERNEL_SOURCES)
     say(f"build: {json.dumps(seconds)} s into {BUILD_DIR}")
     for src in KERNEL_SOURCES:
@@ -1289,24 +1504,37 @@ def main(argv=None) -> int:
     dw, blocks = block_kernel_phase(card, baseline)
 
     paths = {"depthwise conv op": dwconv_op_path(card),
-             "serving": serving_phase(card, fused=False),
-             "serving, fused backbone": serving_phase(card, fused=True)}
-    train_a = training_phase(card, fuse=False)
+             "serving": serving_phase(card, flagship),
+             "serving, fused backbone": serving_phase(card, flagship, fused=True),
+             "serving, flat": serving_phase(card, flat)}
+    train_a = training_phase(card, flagship, fuse=False)
     check_launches("training path A", train_a["launches"], {
         **NO_LAUNCHES, "fused_head": TIMED_STEPS, "head_backward": TIMED_STEPS})
-    cross_checks(card)
-    train_b = training_phase(card, fuse=True)
+    cross_checks(card, flagship)
+    train_b = training_phase(card, flagship, fuse=True)
     check_launches("training path B", train_b["launches"], {
         **NO_LAUNCHES, "fused_head": TIMED_STEPS, "head_backward": TIMED_STEPS,
         "fused_head_nopf": TIMED_STEPS})
-    fused_backbone_checks(card)
-    train_c = training_phase(card, fuse=False, fused_backbone=True)
+    fused_backbone_checks(card, flagship)
+    train_c = training_phase(card, flagship, fuse=False, fused_backbone=True)
     n_blocks = sum(CONVNEXT_TINY_DEPTHS)
     check_launches("training path C", train_c["launches"], {
         **NO_LAUNCHES, "fused_head": TIMED_STEPS, "head_backward": TIMED_STEPS,
         "cnblock": n_blocks * TIMED_STEPS})
+    # flat PIP-Net: K1 and K1b run its 768-wide node as parts, two launches
+    # each a call (row statistics, then the pass that writes), K2 three (its
+    # third adds each row's parts and takes the log sums)
+    train_fa = training_phase(card, flat, fuse=False)
+    check_launches("training path A, flat", train_fa["launches"], {
+        **NO_LAUNCHES, "fused_head": 2 * TIMED_STEPS, "head_backward": 2 * TIMED_STEPS})
+    cross_checks(card, flat)
+    train_fb = training_phase(card, flat, fuse=True)
+    check_launches("training path B, flat", train_fb["launches"], {
+        **NO_LAUNCHES, "fused_head": 2 * TIMED_STEPS, "head_backward": 2 * TIMED_STEPS,
+        "fused_head_nopf": 3 * TIMED_STEPS})
     paths.update({"training A": train_a["launches"], "training B": train_b["launches"],
-                  "training C": train_c["launches"]})
+                  "training C": train_c["launches"], "training A, flat": train_fa["launches"],
+                  "training B, flat": train_fb["launches"]})
     total = {k: sum(p[k] for p in paths.values()) for k in NO_LAUNCHES}
     say(f"launches by path: {json.dumps(paths)}")
 
@@ -1329,6 +1557,10 @@ def main(argv=None) -> int:
         entry("cnblock", "cnblock.cu", "pipnet_tpu/ops/pallas_convnext.py:54", blocks,
               "stage3_bf16", ("max_abs_err",)),
     ]
+    jax_modules = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "pipnet_tpu"))
+    if jax_modules:
+        fail(f"the run loaded JAX or the JAX package: {jax_modules}")
+    say(f"total: {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}),

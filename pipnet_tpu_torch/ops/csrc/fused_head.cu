@@ -44,6 +44,14 @@
 // f32 keeps the SIMT tile (head_tile namespace): one block per (column group
 // <= 128 columns, image), FMA products (TF32 would miss 1e-5), the softmax in
 // shared memory.
+//
+// Nodes wider than the tile (flat PIP-Net's 768 prototypes) come as parts
+// (head_tile.cuh): a STATS launch over the parts writes each row's (max, sum)
+// per part, then a FINAL launch recomputes the product and writes the
+// node-wide softmax, its column max and pf; groups of whole nodes take the
+// WHOLE launch (the design above).  The product of the parts is computed twice
+// (at the flat shape, B=128, 2 x 102 GFLOP); a design that keeps a row's
+// node in registers cannot hold 768 f32 accumulators a row.
 
 #include "head_tile.cuh"
 
@@ -52,25 +60,30 @@ namespace {
 // K1's wgmma width: two column groups of up to 128 columns side by side
 using K1Plan = hopper::Plan<2 * hopper::HALF, 1>;
 
-// groups: G triples (col_start, ncols, width); width 0 marks the padded tail.
+// groups: G records of GF ints (head_tile.cuh); width 0 marks the padded
+// tail.  STATS and FINAL run over parts of wide nodes, with their (max, sum)
+// a row and part in stats (B * HW, G).
+template <int MODE>
 __global__ void __launch_bounds__(head_tile::THREADS)
 fused_head_f32(const float* __restrict__ F, const float* __restrict__ K,
                const uint8_t* __restrict__ valid, const int* __restrict__ groups,
-               float* __restrict__ pf, float* __restrict__ pooled, int HW, int D, int P,
-               float tau) {
+               float2* __restrict__ stats, float* __restrict__ pf, float* __restrict__ pooled,
+               int HW, int D, int P, int G, float tau) {
   using namespace head_tile;
   // the z tile aliases the product's staging tiles: they are dead by then
   __shared__ __align__(16) unsigned char smem[STAGE_BYTES > Z_BYTES ? STAGE_BYTES : Z_BYTES];
   __shared__ uint8_t valid_s[TN];
   float* Z = reinterpret_cast<float*>(smem);
 
-  const int tid = threadIdx.x;
-  const int c0 = groups[3 * blockIdx.x], ncols = groups[3 * blockIdx.x + 1];
-  const int width = groups[3 * blockIdx.x + 2];
+  const int tid = threadIdx.x, g = blockIdx.x;
+  const int* rec = groups + GF * g;
+  const int c0 = rec[0], ncols = rec[1];
+  const int width = MODE == WHOLE ? rec[2] : rec[2] ? ncols : 0;   // a part: one segment
   const int b = blockIdx.y;
   float* pfb = pf + (size_t)b * HW * P;
 
   if (width == 0) {   // padded tail beyond the last bucket
+    if (MODE == STATS) return;
     for (int idx = tid; idx < HW * ncols; idx += THREADS)
       pfb[(size_t)(idx / ncols) * P + c0 + idx % ncols] = 0.f;
     if (tid < ncols) pooled[(size_t)b * P + c0 + tid] = 0.f;
@@ -87,8 +100,13 @@ fused_head_f32(const float* __restrict__ F, const float* __restrict__ K,
     z_tile(Fb, K, r0, HW, D, P, c0, ncols, tau, smem, Z);
     __syncthreads();
 
-    softmax_rows(Z, valid_s, rows, nodes, width);
+    if (MODE == WHOLE)
+      softmax_rows(Z, valid_s, rows, nodes, width);
+    else
+      wide_rows<MODE>(Z, valid_s, rows, ncols, stats + ((size_t)b * HW + r0) * G, G, g,
+                      g - rec[4], rec[5]);
     __syncthreads();
+    if (MODE == STATS) continue;   // the next tile's staging overwrites Z after this barrier
 
     for (int idx = tid; idx < rows * ncols; idx += THREADS) {
       const int r = idx / ncols, c = idx % ncols;
@@ -98,17 +116,19 @@ fused_head_f32(const float* __restrict__ F, const float* __restrict__ K,
       for (int r = 0; r < rows; ++r) colmax = fmaxf(colmax, Z[r * ZLD + tid]);
     __syncthreads();   // Z is overwritten by the next tile's staging
   }
-  if (tid < ncols) pooled[(size_t)b * P + c0 + tid] = colmax;
+  if (MODE != STATS && tid < ncols) pooled[(size_t)b * P + c0 + tid] = colmax;
 }
 
-// groups: G triples (col_start, ncols, width), each inside a 128-column
+// groups: G records of GF ints (head_tile.cuh), each inside a 128-column
 // tile that starts on a multiple of 8 columns, at most NMAX nodes; an item
 // is two consecutive groups (the second may be missing) of one image.
+// STATS and FINAL run over parts of wide nodes (stats as in fused_head_f32).
+template <int MODE>
 __global__ void __launch_bounds__(hopper::THREADS, 1)
 fused_head_bf16(const __grid_constant__ CUtensorMap tmF, const __grid_constant__ CUtensorMap tmK,
                 const uint8_t* __restrict__ valid, const int* __restrict__ groups,
-                __nv_bfloat16* __restrict__ pf, float* __restrict__ pooled, int B, int HW,
-                int P, int G, int KT, float inv_tau) {
+                float2* __restrict__ stats, __nv_bfloat16* __restrict__ pf,
+                float* __restrict__ pooled, int B, int HW, int P, int G, int KT, float inv_tau) {
   using namespace hopper;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = align1024(smem_raw);
@@ -130,7 +150,7 @@ fused_head_bf16(const __grid_constant__ CUtensorMap tmF, const __grid_constant__
   __syncthreads();
 
   // group g's (start, ncols, width); past the last group an empty one
-  auto group = [&](int g, int k) { return g < G ? groups[3 * g + k] : 0; };
+  auto group = [&](int g, int k) { return g < G ? groups[GF * g + k] : 0; };
   const int pairs = (G + 1) / 2, RT = (HW + BM - 1) / BM, items = pairs * B;
   if (wg == 2) {   // producer
     setmaxnreg_dec<24>();
@@ -171,7 +191,8 @@ fused_head_bf16(const __grid_constant__ CUtensorMap tmF, const __grid_constant__
         c0[hf] = group(g + hf, 0);
         ncols[hf] = group(g + hf, 1);
         width[hf] = group(g + hf, 2);
-        if (width[hf] == 0) {   // the padded tail beyond the last bucket, or no group
+        if (MODE != WHOLE && width[hf]) width[hf] = ncols[hf];   // a part: one segment
+        if (width[hf] == 0 && MODE != STATS) {   // the padded tail, or no group
           __nv_bfloat16* z = pf + (size_t)b * HW * P + c0[hf];
           for (int idx = tid; idx < HW * ncols[hf]; idx += CONSUMERS)
             z[(size_t)(idx / ncols[hf]) * P + idx % ncols[hf]] = __float2bfloat16(0.f);
@@ -184,7 +205,7 @@ fused_head_bf16(const __grid_constant__ CUtensorMap tmF, const __grid_constant__
       valid_s[tid] = width[hf_t] && c_t >= shift_t && c_t - shift_t < ncols[hf_t]
                          ? valid[c0[hf_t] - shift_t + c_t] : 0;
       if (c_t < NMAX && width[hf_t] && c_t < ncols[hf_t] / width[hf_t])
-        touch_s[hf_t * NMAX + c_t] = touch_mask(c_t, width[hf_t]);
+        touch_s[hf_t * NMAX + c_t] = touch_mask(c_t, width[hf_t], shift_t);
       named_bar(1, CONSUMERS);
       Frag fr[2];
       uint32_t magic[2];
@@ -214,8 +235,13 @@ fused_head_bf16(const __grid_constant__ CUtensorMap tmF, const __grid_constant__
         for (int hf = 0; hf < 2; ++hf) {
           if (width[hf] == 0) continue;
           float(&ah)[FR] = *reinterpret_cast<float(*)[FR]>(acc + hf * FR);
-          softmax_frag(ah, fr[hf], q, base[hf], magic[hf], rr0, part, comb, touch_s + hf * NMAX,
-                       ncols[hf] / width[hf], t, 2 + wg, inv_tau);
+          WideRows w{};
+          if (MODE != WHOLE)
+            w = {stats, G, g + hf, g + hf - group(g + hf, 4), group(g + hf, 5),
+                 (long long)b * HW + r_wg, HW - r_wg};
+          softmax_frag<MODE>(ah, fr[hf], q, base[hf], magic[hf], rr0, part, comb,
+                             touch_s + hf * NMAX, ncols[hf] / width[hf], t, 2 + wg, inv_tau, w);
+          if (MODE == STATS) continue;
           colmax_rows(ah, fr[hf], ok0, ok1, base[hf], lane, colmax_s + hf * HALF);
           // this thread's first column of each row (pairs are 4-byte aligned:
           // the tile starts on an even column)
@@ -225,7 +251,7 @@ fused_head_bf16(const __grid_constant__ CUtensorMap tmF, const __grid_constant__
         }
       }
       named_bar(1, CONSUMERS);
-      if (width[hf_t] && c_t < ncols[hf_t]) {
+      if (MODE != STATS && width[hf_t] && c_t < ncols[hf_t]) {
         pooled[(size_t)b * P + c0[hf_t] + c_t] = __uint_as_float(colmax_s[tid]);
         colmax_s[tid] = 0;
       }
@@ -233,40 +259,73 @@ fused_head_bf16(const __grid_constant__ CUtensorMap tmF, const __grid_constant__
   }
 }
 
+template <int MODE>
+cudaError_t launch_f32(const void* features, const void* kernel, const void* valid,
+                       const int* groups, int G, float2* stats, void* pf, void* pooled, int B,
+                       int HW, int D, int P, float tau, cudaStream_t s) {
+  fused_head_f32<MODE><<<dim3(G, B), head_tile::THREADS, 0, s>>>(
+      static_cast<const float*>(features), static_cast<const float*>(kernel),
+      static_cast<const uint8_t*>(valid), groups, stats, static_cast<float*>(pf),
+      static_cast<float*>(pooled), HW, D, P, G, tau);
+  return cudaGetLastError();
+}
+
+template <int MODE>
+cudaError_t launch_bf16(const CUtensorMap& tmF, const CUtensorMap& tmK, const void* valid,
+                        const int* groups, int G, float2* stats, void* pf, void* pooled, int B,
+                        int HW, int D, int P, float tau, cudaStream_t s) {
+  int grid = 0;
+  cudaError_t err =
+      hopper::persistent_grid<fused_head_bf16<MODE>>(K1Plan::BYTES, (G + 1) / 2 * B, &grid);
+  if (err != cudaSuccess) return err;
+  fused_head_bf16<MODE><<<grid, hopper::THREADS, K1Plan::BYTES, s>>>(
+      tmF, tmK, static_cast<const uint8_t*>(valid), groups, stats,
+      static_cast<__nv_bfloat16*>(pf), static_cast<float*>(pooled), B, HW, P, G,
+      (D + hopper::BK - 1) / hopper::BK, 1.0f / tau);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32 (groups of <= 128 columns), 1 = bfloat16 (groups of
-// <= 16 nodes, each inside a 128-column tile that starts on a multiple of 8
-// columns; D and P multiples of 8, 16-byte aligned features and kernel, for
-// TMA).  Launches on `stream`; returns the CUDA
+// whole (Gw groups of whole nodes and maybe the padded tail) and wide (Gp
+// parts of wide nodes, maybe the tail) are plans of GF ints a group
+// (ops/fused_head.py::split_plan); either may be empty.  stats: (B * HW,
+// Gp) float2 scratch for the parts' row statistics.  dtype: 0 = float32
+// (groups of <= 128 columns), 1 = bfloat16 (groups of <= 16 nodes, each
+// inside a 128-column tile that starts on a multiple of 8 columns; D and P
+// multiples of 8, 16-byte aligned features and kernel, for TMA).  Launches
+// on `stream` (STATS, FINAL over the parts, then WHOLE); returns the CUDA
 // error code so a refused launch is reported to the caller.
 int pipnet_fused_head_forward(const void* features, const void* kernel, const void* valid,
-                              const void* groups, void* pf, void* pooled, int B, int HW,
-                              int D, int P, int G, float tau, int dtype, void* stream) {
+                              const void* whole, int Gw, const void* wide, int Gp, void* stats,
+                              void* pf, void* pooled, int B, int HW, int D, int P, float tau,
+                              int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* gw = static_cast<const int*>(whole);
+  const int* gp = static_cast<const int*>(wide);
+  float2* st = static_cast<float2*>(stats);
+  cudaError_t err = cudaSuccess;
   if (dtype == 0) {
-    fused_head_f32<<<dim3(G, B), head_tile::THREADS, 0, s>>>(
-        static_cast<const float*>(features), static_cast<const float*>(kernel),
-        static_cast<const uint8_t*>(valid), static_cast<const int*>(groups),
-        static_cast<float*>(pf), static_cast<float*>(pooled), HW, D, P, tau);
-    return static_cast<int>(cudaGetLastError());
+    if (Gp) err = launch_f32<STATS>(features, kernel, valid, gp, Gp, st, pf, pooled, B, HW, D, P, tau, s);
+    if (Gp && err == cudaSuccess)
+      err = launch_f32<FINAL>(features, kernel, valid, gp, Gp, st, pf, pooled, B, HW, D, P, tau, s);
+    if (Gw && err == cudaSuccess)
+      err = launch_f32<WHOLE>(features, kernel, valid, gw, Gw, st, pf, pooled, B, HW, D, P, tau, s);
+    return static_cast<int>(err);
   }
   if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tmF, tmK;
-  cudaError_t err = hopper::bf16_map(&tmF, features, D, (uint64_t)B * HW, hopper::BK,
-                                     hopper::BM);
+  err = hopper::bf16_map(&tmF, features, D, (uint64_t)B * HW, hopper::BK, hopper::BM);
   if (err == cudaSuccess) err = hopper::bf16_map(&tmK, kernel, P, D, 64, hopper::BK);
-  int grid = 0;
-  if (err == cudaSuccess)
-    err = hopper::persistent_grid(fused_head_bf16, K1Plan::BYTES, (G + 1) / 2 * B, &grid);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  fused_head_bf16<<<grid, hopper::THREADS, K1Plan::BYTES, s>>>(
-      tmF, tmK, static_cast<const uint8_t*>(valid), static_cast<const int*>(groups),
-      static_cast<__nv_bfloat16*>(pf), static_cast<float*>(pooled), B, HW, P, G,
-      (D + hopper::BK - 1) / hopper::BK, 1.0f / tau);
-  return static_cast<int>(cudaGetLastError());
+  if (Gp && err == cudaSuccess)
+    err = launch_bf16<STATS>(tmF, tmK, valid, gp, Gp, st, pf, pooled, B, HW, D, P, tau, s);
+  if (Gp && err == cudaSuccess)
+    err = launch_bf16<FINAL>(tmF, tmK, valid, gp, Gp, st, pf, pooled, B, HW, D, P, tau, s);
+  if (Gw && err == cudaSuccess)
+    err = launch_bf16<WHOLE>(tmF, tmK, valid, gw, Gw, st, pf, pooled, B, HW, D, P, tau, s);
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

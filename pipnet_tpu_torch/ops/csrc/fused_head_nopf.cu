@@ -37,6 +37,14 @@
 // f32 keeps the SIMT tile of head_tile.cuh: one block per (column group
 // <= 128 columns, pair), both views' softmaxed tiles in 66 KB of dynamic
 // shared memory.
+//
+// Nodes wider than the tile (flat PIP-Net's 768 prototypes) come as parts
+// (head_tile.cuh).  A STATS launch writes both views' (max, sum) a row and
+// part; a FINAL launch recomputes the products, normalises both views by the
+// merged node statistics, takes the column maxima and writes each row's
+// inner product over the part to `ip` (B * HW, G); a third launch
+// (nopf_wide_logsum) adds a row's parts, takes the log and sums the rows in
+// a fixed order.  Groups of whole nodes take the WHOLE launch.
 
 #include "head_tile.cuh"
 
@@ -49,13 +57,18 @@ constexpr int F32_SMEM = head_tile::Z_BYTES + (head_tile::STAGE_BYTES > head_til
                                                    ? head_tile::STAGE_BYTES
                                                    : head_tile::Z_BYTES);
 
-// groups: G triples (col_start, ncols, width); width 0 marks the padded tail.
+// groups: G records of GF ints (head_tile.cuh); width 0 marks the padded
+// tail.  STATS and FINAL run over parts of wide nodes: stats (2B * HW, G)
+// holds each view-image row's (max, sum) a part, ip (B * HW, G) each pair
+// row's inner product over a part.
+template <int MODE>
 __global__ void __launch_bounds__(head_tile::THREADS)
 fused_head_nopf_f32(const float* __restrict__ F, const float* __restrict__ K,
                     const uint8_t* __restrict__ valid, const int* __restrict__ groups,
-                    const int* __restrict__ proto_node, float* __restrict__ pooled,
-                    float* __restrict__ logsum, int B, int HW, int D, int P, int N, float tau,
-                    float eps) {
+                    const int* __restrict__ proto_node, float2* __restrict__ stats,
+                    float* __restrict__ ip_parts, float* __restrict__ pooled,
+                    float* __restrict__ logsum, int B, int HW, int D, int P, int N, int G,
+                    float tau, float eps) {
   using namespace head_tile;
   extern __shared__ __align__(16) unsigned char dyn[];
   float* Z1 = reinterpret_cast<float*>(dyn);        // view 1's softmaxed tile
@@ -63,17 +76,20 @@ fused_head_nopf_f32(const float* __restrict__ F, const float* __restrict__ K,
   float* Z2 = reinterpret_cast<float*>(stage);      // view 2's tile aliases them
   __shared__ uint8_t valid_s[TN];
 
-  const int tid = threadIdx.x;
-  const int c0 = groups[3 * blockIdx.x], ncols = groups[3 * blockIdx.x + 1];
-  const int width = groups[3 * blockIdx.x + 2];
+  const int tid = threadIdx.x, g = blockIdx.x;
+  const int* rec = groups + GF * g;
+  const int c0 = rec[0], ncols = rec[1];
+  const int width = MODE == WHOLE ? rec[2] : rec[2] ? ncols : 0;   // a part: one segment
   const int b = blockIdx.y;
   float* pooled1 = pooled + (size_t)b * P + c0;
   float* pooled2 = pooled + (size_t)(B + b) * P + c0;
 
   if (width == 0) {   // padded tail beyond the last bucket
-    if (tid < ncols) pooled1[tid] = pooled2[tid] = 0.f;
+    if (MODE != STATS && tid < ncols) pooled1[tid] = pooled2[tid] = 0.f;
     return;
   }
+  // a part's statistics: view 1's rows of image b, view 2's of image B + b
+  const int g0 = g - rec[4], parts = rec[5];
 
   if (tid < TN) valid_s[tid] = tid < ncols ? valid[c0 + tid] : 0;
   const int nodes = ncols / width;
@@ -86,11 +102,20 @@ fused_head_nopf_f32(const float* __restrict__ F, const float* __restrict__ K,
     const int rows = min(TM, HW - r0);
     z_tile(F1, K, r0, HW, D, P, c0, ncols, tau, stage, Z1);
     __syncthreads();
-    softmax_rows(Z1, valid_s, rows, nodes, width);
+    if (MODE == WHOLE)
+      softmax_rows(Z1, valid_s, rows, nodes, width);
+    else
+      wide_rows<MODE>(Z1, valid_s, rows, ncols, stats + ((size_t)b * HW + r0) * G, G, g, g0,
+                      parts);
     z_tile(F2, K, r0, HW, D, P, c0, ncols, tau, stage, Z2);   // syncs inside
     __syncthreads();
-    softmax_rows(Z2, valid_s, rows, nodes, width);
+    if (MODE == WHOLE)
+      softmax_rows(Z2, valid_s, rows, nodes, width);
+    else
+      wide_rows<MODE>(Z2, valid_s, rows, ncols, stats + ((size_t)(B + b) * HW + r0) * G, G, g,
+                      g0, parts);
     __syncthreads();
+    if (MODE == STATS) continue;   // the next tile's staging overwrites Z2 after this barrier
 
     if (tid < ncols)
       for (int r = 0; r < rows; ++r) {
@@ -99,6 +124,15 @@ fused_head_nopf_f32(const float* __restrict__ F, const float* __restrict__ K,
       }
     __syncthreads();   // the log terms below overwrite Z1
 
+    if (MODE == FINAL) {   // each row's inner product over the part
+      for (int r = tid; r < rows; r += THREADS) {
+        float ip = 0.f;
+        for (int s = 0; s < ncols; ++s) ip += Z1[r * ZLD + s] * Z2[r * ZLD + s];
+        ip_parts[((size_t)b * HW + r0 + r) * G + g] = ip;
+      }
+      __syncthreads();
+      continue;
+    }
     for (int q = tid; q < rows * nodes; q += THREADS) {
       const int off = (q / nodes) * ZLD + (q % nodes) * width;
       float ip = 0.f;
@@ -110,19 +144,22 @@ fused_head_nopf_f32(const float* __restrict__ F, const float* __restrict__ K,
       for (int r = 0; r < rows; ++r) node_log += Z1[r * ZLD + tid * width];
     __syncthreads();   // Z1 and Z2 are refilled by the next row tile
   }
-  if (tid < ncols) {
+  if (MODE != STATS && tid < ncols) {
     pooled1[tid] = colmax1;
     pooled2[tid] = colmax2;
   }
-  if (tid < nodes) logsum[(size_t)b * N + proto_node[c0 + tid * width]] = node_log;
+  if (MODE == WHOLE && tid < nodes) logsum[(size_t)b * N + proto_node[c0 + tid * width]] = node_log;
 }
 
-// groups: G triples (col_start, ncols, width), each inside a 128-column
-// tile that starts on a multiple of 8 columns, at most NMAX nodes.
+// groups: G records of GF ints (head_tile.cuh), each inside a 128-column
+// tile that starts on a multiple of 8 columns, at most NMAX nodes.  STATS
+// and FINAL run over parts of wide nodes (stats, ip as in fused_head_nopf_f32).
+template <int MODE>
 __global__ void __launch_bounds__(hopper::THREADS, 1)
 fused_head_nopf_bf16(const __grid_constant__ CUtensorMap tmF,
                      const __grid_constant__ CUtensorMap tmK, const uint8_t* __restrict__ valid,
                      const int* __restrict__ groups, const int* __restrict__ proto_node,
+                     float2* __restrict__ stats, float* __restrict__ ip_parts,
                      float* __restrict__ pooled, float* __restrict__ logsum, int B, int HW,
                      int P, int N, int G, int KT, float inv_tau, float eps) {
   using namespace hopper;
@@ -154,8 +191,8 @@ fused_head_nopf_bf16(const __grid_constant__ CUtensorMap tmF,
       Ring ring;
       for (int it = blockIdx.x; it < items; it += gridDim.x) {
         const int b = it / G, g = it - b * G;
-        if (groups[3 * g + 2] == 0) continue;
-        const int c0 = groups[3 * g] & ~7;   // TMA: a 16-byte aligned start
+        if (groups[GF * g + 2] == 0) continue;
+        const int c0 = groups[GF * g] & ~7;   // TMA: a 16-byte aligned start
         for (int rt = 0; rt < RT; ++rt)
           for (int kt = 0; kt < KT; ++kt) {
             mbar_wait(&empty[ring.stage], ring.phase ^ 1);
@@ -182,8 +219,11 @@ fused_head_nopf_bf16(const __grid_constant__ CUtensorMap tmF,
     float acc1[FR], acc2[FR];
     for (int it = blockIdx.x; it < items; it += gridDim.x) {
       const int b = it / G, g = it - b * G;
-      const int c0 = groups[3 * g], ncols = groups[3 * g + 1], width = groups[3 * g + 2];
+      const int* rec = groups + GF * g;
+      const int c0 = rec[0], ncols = rec[1];
+      const int width = MODE == WHOLE ? rec[2] : rec[2] ? ncols : 0;   // a part: one segment
       if (width == 0) {   // padded tail beyond the last bucket
+        if (MODE == STATS) continue;
         if (tid < ncols) pooled[(size_t)b * P + c0 + tid] = 0.f;
         else if (tid >= 128 && tid - 128 < ncols) pooled[(size_t)(B + b) * P + c0 + tid - 128] = 0.f;
         continue;
@@ -191,7 +231,7 @@ fused_head_nopf_bf16(const __grid_constant__ CUtensorMap tmF,
       const int nodes = ncols / width, shift = c0 & 7;
       if (tid < K2Plan::NB * 64)
         valid_s[tid] = tid >= shift && tid - shift < ncols ? valid[c0 - shift + tid] : 0;
-      if (tid < nodes) touch_s[tid] = touch_mask(tid, width);
+      if (tid < nodes) touch_s[tid] = touch_mask(tid, width, shift);
       named_bar(1, CONSUMERS);
       const uint32_t magic = node_magic(width);
       const int base = 2 * q - shift;
@@ -215,10 +255,18 @@ fused_head_nopf_bf16(const __grid_constant__ CUtensorMap tmF,
         if (r_wg >= HW) continue;   // the warpgroup's rows all lie past HW
         fence_regs(acc1);
         fence_regs(acc2);
-        softmax_frag(acc1, fr, q, base, magic, rr0, part, comb, touch_s, nodes, t, 2 + wg,
-                     inv_tau);
-        softmax_frag(acc2, fr, q, base, magic, rr0, part, comb, touch_s, nodes, t, 2 + wg,
-                     inv_tau);
+        // a part's statistics: view 1's rows of image b, view 2's of image B + b
+        WideRows w1{}, w2{};
+        if (MODE != WHOLE) {
+          w1 = {stats, G, g, g - rec[4], rec[5], (long long)b * HW + r_wg, HW - r_wg};
+          w2 = w1;
+          w2.row0 = (long long)(B + b) * HW + r_wg;
+        }
+        softmax_frag<MODE>(acc1, fr, q, base, magic, rr0, part, comb, touch_s, nodes, t,
+                           2 + wg, inv_tau, w1);
+        softmax_frag<MODE>(acc2, fr, q, base, magic, rr0, part, comb, touch_s, nodes, t,
+                           2 + wg, inv_tau, w2);
+        if (MODE == STATS) continue;
         const bool ok0 = r_wg + rr0 < HW, ok1 = r_wg + rr0 + 8 < HW;
         colmax_rows(acc1, fr, ok0, ok1, base, lane, colmax_s);
         colmax_rows(acc2, fr, ok0, ok1, base, lane, colmax_s + HALF);
@@ -233,6 +281,19 @@ fused_head_nopf_bf16(const __grid_constant__ CUtensorMap tmF,
                             base, col_off(b2), magic, part0 + 8 * h * PLD * 4);
         }
         named_bar(2 + wg, 128);
+        if (MODE == FINAL) {   // each row's inner product over the part
+          if (t < 64 && r_wg + t < HW) {
+            const float* p = part + t * PLD;
+            const uint32_t tm = touch_s[0];
+            float ip = 0.f;
+#pragma unroll
+            for (int qq = 0; qq < 4; ++qq)
+              if ((tm >> qq) & 1) ip += p[qq];
+            ip_parts[((size_t)b * HW + r_wg + t) * G + g] = ip;
+          }
+          named_bar(2 + wg, 128);   // the next tile's scans rewrite the partials
+          continue;
+        }
         // each (row, node)'s log term; rows past HW add nothing
         for (int idx = t; idx < 64 * nodes; idx += 128) {
           const int r = idx / nodes, n = idx - r * nodes;
@@ -252,6 +313,7 @@ fused_head_nopf_bf16(const __grid_constant__ CUtensorMap tmF,
         }
       }
       named_bar(1, CONSUMERS);
+      if (MODE == STATS) continue;
       if (tid < ncols) {
         pooled[(size_t)b * P + c0 + tid] = __uint_as_float(colmax_s[tid]);
         colmax_s[tid] = 0;
@@ -259,7 +321,7 @@ fused_head_nopf_bf16(const __grid_constant__ CUtensorMap tmF,
         pooled[(size_t)(B + b) * P + c0 + tid - 128] = __uint_as_float(colmax_s[tid]);
         colmax_s[tid] = 0;
       }
-      if (tid < nodes) {
+      if (MODE == WHOLE && tid < nodes) {
         logsum[(size_t)b * N + proto_node[c0 + tid * width]] = nodesum[tid] + nodesum[NMAX + tid];
         nodesum[tid] = nodesum[NMAX + tid] = 0.f;
       }
@@ -267,47 +329,126 @@ fused_head_nopf_bf16(const __grid_constant__ CUtensorMap tmF,
   }
 }
 
+// logsum[b, n] = sum_hw log(sum_k ip[b, hw, part k of n] + eps) for every wide
+// node n (one block per node's first part and pair; other groups exit), the
+// rows added in a fixed order, so logsum is the same on every run.
+constexpr int REDUCE_THREADS = 256;
+
+__global__ void __launch_bounds__(REDUCE_THREADS)
+nopf_wide_logsum(const int* __restrict__ groups, const int* __restrict__ proto_node,
+                 const float* __restrict__ ip_parts, float* __restrict__ logsum, int HW, int N,
+                 int G, float eps) {
+  __shared__ float red[REDUCE_THREADS];
+  const int* rec = groups + GF * blockIdx.x;
+  if (rec[2] == 0 || rec[4] != 0) return;   // the padded tail, or not a node's first part
+  const int b = blockIdx.y, parts = rec[5], tid = threadIdx.x;
+  float acc = 0.f;
+  for (int r = tid; r < HW; r += REDUCE_THREADS) {
+    const float* row = ip_parts + ((size_t)b * HW + r) * G + blockIdx.x;
+    float ip = 0.f;
+    for (int k = 0; k < parts; ++k) ip += row[k];
+    acc += logf(ip + eps);
+  }
+  red[tid] = acc;
+  __syncthreads();
+  for (int s = REDUCE_THREADS / 2; s > 0; s >>= 1) {
+    if (tid < s) red[tid] += red[tid + s];
+    __syncthreads();
+  }
+  if (tid == 0) logsum[(size_t)b * N + proto_node[rec[0]]] = red[0];
+}
+
+template <int MODE>
+cudaError_t launch_f32(const void* features, const void* kernel, const void* valid,
+                       const int* groups, int G, const int* proto_node, float2* stats, float* ip,
+                       void* pooled, void* logsum, int B, int HW, int D, int P, int N, float tau,
+                       float eps, cudaStream_t s) {
+  auto k = fused_head_nopf_f32<MODE>;
+  cudaError_t err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, F32_SMEM);
+  if (err != cudaSuccess) return err;
+  k<<<dim3(G, B), head_tile::THREADS, F32_SMEM, s>>>(
+      static_cast<const float*>(features), static_cast<const float*>(kernel),
+      static_cast<const uint8_t*>(valid), groups, proto_node, stats, ip,
+      static_cast<float*>(pooled), static_cast<float*>(logsum), B, HW, D, P, N, G, tau, eps);
+  return cudaGetLastError();
+}
+
+template <int MODE>
+cudaError_t launch_bf16(const CUtensorMap& tmF, const CUtensorMap& tmK, const void* valid,
+                        const int* groups, int G, const int* proto_node, float2* stats, float* ip,
+                        void* pooled, void* logsum, int B, int HW, int D, int P, int N, float tau,
+                        float eps, cudaStream_t s) {
+  int grid = 0;
+  cudaError_t err = hopper::persistent_grid<fused_head_nopf_bf16<MODE>>(K2Plan::BYTES, G * B,
+                                                                         &grid);
+  if (err != cudaSuccess) return err;
+  fused_head_nopf_bf16<MODE><<<grid, hopper::THREADS, K2Plan::BYTES, s>>>(
+      tmF, tmK, static_cast<const uint8_t*>(valid), groups, proto_node, stats, ip,
+      static_cast<float*>(pooled), static_cast<float*>(logsum), B, HW, P, N, G,
+      (D + hopper::BK - 1) / hopper::BK, 1.0f / tau, eps);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// B is the number of image pairs (features hold 2B images).  dtype: 0 =
-// float32 (groups of <= 128 columns), 1 = bfloat16 (groups of <= 16 nodes,
-// each inside a 128-column tile that starts on a multiple of 8 columns; D
-// and P multiples of 8, 16-byte aligned features and kernel, for TMA).  Launches on `stream`; returns the CUDA error code so
-// a refused launch is reported to the caller.
+// B is the number of image pairs (features hold 2B images).  whole (Gw
+// groups of whole nodes, maybe the padded tail) and wide (Gp parts of wide
+// nodes, maybe the tail) are plans of GF ints a group (ops/fused_head.py::
+// split_plan); either may be empty.  stats (2B * HW, Gp) float2 and ip
+// (B * HW, Gp) f32 are scratch for the parts.  dtype: 0 = float32 (groups
+// of <= 128 columns), 1 = bfloat16 (groups of <= 16 nodes, each inside a
+// 128-column tile that starts on a multiple of 8 columns; D and P multiples
+// of 8, 16-byte aligned features and kernel, for TMA).  Launches on `stream`
+// (STATS, FINAL and the log sums over the parts, then WHOLE); returns the
+// CUDA error code so a refused launch is reported to the caller.
 int pipnet_fused_head_nopf_forward(const void* features, const void* kernel,
-                                   const void* valid, const void* groups,
-                                   const void* proto_node, void* pooled, void* logsum,
-                                   int B, int HW, int D, int P, int N, int G, float tau,
-                                   float eps, int dtype, void* stream) {
+                                   const void* valid, const void* whole, int Gw,
+                                   const void* wide, int Gp, const void* proto_node,
+                                   void* stats, void* ip, void* pooled, void* logsum, int B,
+                                   int HW, int D, int P, int N, float tau, float eps, int dtype,
+                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* gw = static_cast<const int*>(whole);
+  const int* gp = static_cast<const int*>(wide);
+  const int* pn = static_cast<const int*>(proto_node);
+  float2* st = static_cast<float2*>(stats);
+  float* ipp = static_cast<float*>(ip);
+  cudaError_t err = cudaSuccess;
   if (dtype == 0) {
-    cudaError_t err = cudaFuncSetAttribute(fused_head_nopf_f32,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, F32_SMEM);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    fused_head_nopf_f32<<<dim3(G, B), head_tile::THREADS, F32_SMEM, s>>>(
-        static_cast<const float*>(features), static_cast<const float*>(kernel),
-        static_cast<const uint8_t*>(valid), static_cast<const int*>(groups),
-        static_cast<const int*>(proto_node), static_cast<float*>(pooled),
-        static_cast<float*>(logsum), B, HW, D, P, N, tau, eps);
-    return static_cast<int>(cudaGetLastError());
+    if (Gp)
+      err = launch_f32<STATS>(features, kernel, valid, gp, Gp, pn, st, ipp, pooled, logsum, B,
+                              HW, D, P, N, tau, eps, s);
+    if (Gp && err == cudaSuccess)
+      err = launch_f32<FINAL>(features, kernel, valid, gp, Gp, pn, st, ipp, pooled, logsum, B,
+                              HW, D, P, N, tau, eps, s);
+    if (Gw && err == cudaSuccess)
+      err = launch_f32<WHOLE>(features, kernel, valid, gw, Gw, pn, st, ipp, pooled, logsum, B,
+                              HW, D, P, N, tau, eps, s);
+  } else if (dtype == 1) {
+    CUtensorMap tmF, tmK;
+    err = hopper::bf16_map(&tmF, features, D, (uint64_t)2 * B * HW, hopper::BK, hopper::BM);
+    if (err == cudaSuccess) err = hopper::bf16_map(&tmK, kernel, P, D, 64, hopper::BK);
+    if (Gp && err == cudaSuccess)
+      err = launch_bf16<STATS>(tmF, tmK, valid, gp, Gp, pn, st, ipp, pooled, logsum, B, HW, D,
+                               P, N, tau, eps, s);
+    if (Gp && err == cudaSuccess)
+      err = launch_bf16<FINAL>(tmF, tmK, valid, gp, Gp, pn, st, ipp, pooled, logsum, B, HW, D,
+                               P, N, tau, eps, s);
+    if (Gw && err == cudaSuccess)
+      err = launch_bf16<WHOLE>(tmF, tmK, valid, gw, Gw, pn, st, ipp, pooled, logsum, B, HW, D,
+                               P, N, tau, eps, s);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap tmF, tmK;
-  cudaError_t err = hopper::bf16_map(&tmF, features, D, (uint64_t)2 * B * HW, hopper::BK,
-                                     hopper::BM);
-  if (err == cudaSuccess) err = hopper::bf16_map(&tmK, kernel, P, D, 64, hopper::BK);
-  int grid = 0;
-  if (err == cudaSuccess)
-    err = hopper::persistent_grid(fused_head_nopf_bf16, K2Plan::BYTES, G * B, &grid);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  fused_head_nopf_bf16<<<grid, hopper::THREADS, K2Plan::BYTES, s>>>(
-      tmF, tmK, static_cast<const uint8_t*>(valid), static_cast<const int*>(groups),
-      static_cast<const int*>(proto_node), static_cast<float*>(pooled),
-      static_cast<float*>(logsum), B, HW, P, N, G, (D + hopper::BK - 1) / hopper::BK,
-      1.0f / tau, eps);
-  return static_cast<int>(cudaGetLastError());
+  if (Gp && err == cudaSuccess) {
+    nopf_wide_logsum<<<dim3(Gp, B), REDUCE_THREADS, 0, s>>>(gp, pn, ipp,
+                                                           static_cast<float*>(logsum), HW, N,
+                                                           Gp, eps);
+    err = cudaGetLastError();
+  }
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

@@ -43,6 +43,14 @@
 //   spans a fixed set of lanes, so the chain lengths are set once).  No
 //   shared memory and no barrier in pass 2.
 //
+// Nodes wider than the window (flat PIP-Net's 768 prototypes) come as
+// parts of it (head_tile.cuh).  The column reduction (pass 1) never crosses
+// columns, so a part runs it alone; the row reduction spans the node, so it
+// is split: a STATS launch writes each row's sum of g_tot * pf over each
+// part to `inner` (B * HW, G), and a FINAL launch adds the node's parts'
+// sums and writes dz.  Both launches run pass 1, and pf and g_pf are read
+// twice; groups of whole nodes take the WHOLE launch (the design above).
+//
 // What the previous design (scalar loads, pf read twice, a serial walk per
 // node with three barriers per 32-row tile) lost, from clock64() timers on
 // an H100 (PERF.md): 59% of a block's time in pass 2's loads and 23%
@@ -97,11 +105,14 @@ __device__ __forceinline__ void store_vec(T* dst, const float (&v)[VEC], int lo,
 // a float's bits as an int that orders as the float does (its own inverse)
 __device__ __forceinline__ int ordered(int bits) { return bits >= 0 ? bits : bits ^ 0x7fffffff; }
 
-template <typename T, bool RESIDENT>
+// groups: G records of GF ints (head_tile.cuh); STATS and FINAL run over
+// parts of wide nodes, with their row sums in inner (B * HW, G).
+template <typename T, bool RESIDENT, int MODE>
 __global__ void __launch_bounds__(THREADS)
 head_backward_kernel(const T* __restrict__ pf, const T* __restrict__ g_pf,
                      const float* __restrict__ g_pooled, const int* __restrict__ groups,
-                     T* __restrict__ dz, int HW, int P, int sv, float inv_tau) {
+                     float* __restrict__ inner, T* __restrict__ dz, int HW, int P, int G, int sv,
+                     float inv_tau) {
   constexpr int VEC = 16 / sizeof(T);      // columns per 16-byte vector
   extern __shared__ __align__(16) uint8_t smem[];
   const int ws = sv * VEC;                 // window columns, the slice's row stride
@@ -117,14 +128,16 @@ head_backward_kernel(const T* __restrict__ pf, const T* __restrict__ g_pf,
   const int slot = tid % 32 / sv, lane = tid % 32 % sv;
   const bool in_row = slot < per_warp;
   const int row0 = tid / 32 * per_warp + slot, rows_step = WARPS * per_warp;
-  const int c0 = groups[3 * blockIdx.x], ncols = groups[3 * blockIdx.x + 1];
-  const int width = groups[3 * blockIdx.x + 2];
+  const int* rec = groups + GF * blockIdx.x;
+  const int c0 = rec[0], ncols = rec[1];
+  const int width = MODE == WHOLE ? rec[2] : rec[2] ? ncols : 0;   // a part: one segment
   const int b = blockIdx.y;
   const int a0 = c0 - c0 % VEC, off = c0 - a0;        // window start; the group sits `off` in
   const int nvec = (off + ncols + VEC - 1) / VEC;     // vectors of the window the group touches
   const size_t base = (size_t)b * HW * P + a0;
 
   if (width == 0) {   // padded tail beyond the last bucket: zeros
+    if (MODE == STATS) return;
     const float z[VEC] = {};
     for (int idx = tid; idx < HW * nvec; idx += THREADS) {
       const int r = idx / nvec, v = idx % nvec;
@@ -225,6 +238,12 @@ head_backward_kernel(const T* __restrict__ pf, const T* __restrict__ g_pf,
   // pass 2: g_tot, the per-(row, node) sums and dz
   const T* gb = g_pf ? g_pf + base : nullptr;
   T* dzb = dz + base;
+  // a part of a wide node: its rows' sums in inner[row * G + g], the node's
+  // parts g0 .. g0 + parts - 1; the part's first lane writes them
+  float* inner_b = MODE == WHOLE ? nullptr : inner + (size_t)b * HW * G;
+  const int g_self = blockIdx.x, g0 = MODE == WHOLE ? 0 : g_self - rec[4];
+  const int parts = MODE == WHOLE ? 1 : rec[5];
+  const bool first_lane = lane == off / VEC;
   // g_pf (and pf, when it is not resident) of the next UNROLL rows is in
   // flight while these are computed
   constexpr int PF = RESIDENT ? 1 : UNROLL;
@@ -276,10 +295,21 @@ head_backward_kernel(const T* __restrict__ pf, const T* __restrict__ g_pf,
         if (k <= right_len) right += x;
         if (k <= left_len) left += y;
       }
+      if constexpr (MODE == STATS) {
+        // the part is one segment: its first lane's sum is s_lo plus the
+        // partials to its right
+        if (active && first_lane && r < HW) inner_b[(size_t)r * G + g_self] = s_lo + right;
+        continue;
+      }
+      float node_sum = 0.f;     // FINAL: the sum over every part of the node
+      if constexpr (MODE == FINAL)
+        if (active && r < HW)
+          for (int k = 0; k < parts; ++k) node_sum += inner_b[(size_t)r * G + g0 + k];
       float d[VEC];
 #pragma unroll
       for (int i = 0; i < VEC; ++i) {
-        const float sum = tot[i] + (node[i] == n_lo ? left : 0.f) + (node[i] == n_hi ? right : 0.f);
+        const float sum = MODE == FINAL ? node_sum
+                          : tot[i] + (node[i] == n_lo ? left : 0.f) + (node[i] == n_hi ? right : 0.f);
         d[i] = p[i] * (g[i] - sum) * inv_tau;
       }
       if (active && r < HW) store_vec<T, VEC>(dzb + (size_t)r * P + v0, d, lo, hi);
@@ -300,11 +330,11 @@ size_t smem_bytes(int HW, int sv, bool resident) {
 
 constexpr size_t SMEM_MAX = 232448;   // a block's shared memory on sm_90
 
-template <typename T, bool RESIDENT>
+template <typename T, bool RESIDENT, int MODE>
 cudaError_t launch_kernel(const void* pf, const void* g_pf, const float* g_pooled,
-                          const int* groups, void* dz, int B, int HW, int P, int G, int sv,
-                          float inv_tau, cudaStream_t s) {
-  auto kernel = head_backward_kernel<T, RESIDENT>;
+                          const int* groups, int G, float* inner, void* dz, int B, int HW, int P,
+                          int sv, float inv_tau, cudaStream_t s) {
+  auto kernel = head_backward_kernel<T, RESIDENT, MODE>;
   const size_t bytes = smem_bytes<T>(HW, sv, RESIDENT);
   if (bytes > 48 * 1024) {           // above 48 KB only once allowed, on the current device;
     // the whole carveout as shared memory, so that two resident slices share an SM
@@ -316,20 +346,37 @@ cudaError_t launch_kernel(const void* pf, const void* g_pf, const float* g_poole
     if (err != cudaSuccess) return err;
   }
   kernel<<<dim3(G, B), THREADS, bytes, s>>>(static_cast<const T*>(pf),
-                                            static_cast<const T*>(g_pf), g_pooled, groups,
-                                            static_cast<T*>(dz), HW, P, sv, inv_tau);
+                                            static_cast<const T*>(g_pf), g_pooled, groups, inner,
+                                            static_cast<T*>(dz), HW, P, G, sv, inv_tau);
   return cudaGetLastError();
 }
 
 // pf kept in shared memory where its slice fits, else read twice
-template <typename T>
-cudaError_t launch(const void* pf, const void* g_pf, const float* g_pooled, const int* groups,
-                   void* dz, int B, int HW, int P, int G, int sv, float inv_tau,
-                   cudaStream_t s) {
-  if (sv < 1 || sv > 32) return cudaErrorInvalidValue;
+template <typename T, int MODE>
+cudaError_t launch_mode(const void* pf, const void* g_pf, const float* g_pooled,
+                        const int* groups, int G, float* inner, void* dz, int B, int HW, int P,
+                        int sv, float inv_tau, cudaStream_t s) {
   if (smem_bytes<T>(HW, sv, true) <= SMEM_MAX)
-    return launch_kernel<T, true>(pf, g_pf, g_pooled, groups, dz, B, HW, P, G, sv, inv_tau, s);
-  return launch_kernel<T, false>(pf, g_pf, g_pooled, groups, dz, B, HW, P, G, sv, inv_tau, s);
+    return launch_kernel<T, true, MODE>(pf, g_pf, g_pooled, groups, G, inner, dz, B, HW, P, sv,
+                                        inv_tau, s);
+  return launch_kernel<T, false, MODE>(pf, g_pf, g_pooled, groups, G, inner, dz, B, HW, P, sv,
+                                       inv_tau, s);
+}
+
+// STATS and FINAL over the parts of wide nodes, then WHOLE over the rest
+template <typename T>
+cudaError_t launch(const void* pf, const void* g_pf, const float* g_pooled, const int* whole,
+                   int Gw, const int* wide, int Gp, float* inner, void* dz, int B, int HW, int P,
+                   int sv, float inv_tau, cudaStream_t s) {
+  if (sv < 1 || sv > 32) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSuccess;
+  if (Gp)
+    err = launch_mode<T, STATS>(pf, g_pf, g_pooled, wide, Gp, inner, dz, B, HW, P, sv, inv_tau, s);
+  if (Gp && err == cudaSuccess)
+    err = launch_mode<T, FINAL>(pf, g_pf, g_pooled, wide, Gp, inner, dz, B, HW, P, sv, inv_tau, s);
+  if (Gw && err == cudaSuccess)
+    err = launch_mode<T, WHOLE>(pf, g_pf, g_pooled, whole, Gw, inner, dz, B, HW, P, sv, inv_tau, s);
+  return err;
 }
 
 }  // namespace
@@ -337,24 +384,29 @@ cudaError_t launch(const void* pf, const void* g_pf, const float* g_pooled, cons
 extern "C" {
 
 // pf, g_pf, dz (B, HW, P) with P * sizeof(dtype) a multiple of 16 and
-// 16-byte aligned bases; groups (G, 3) from ops/fused_head.py::
-// backward_plan, whose groups each fit `sv` 16-byte vectors from the
-// boundary at or below their start (1 <= sv <= 32).  dtype: 0 = float32,
-// 1 = bfloat16; g_pf may be null.  Launches on `stream`; returns
-// cudaGetLastError() so a refused launch is reported.
+// 16-byte aligned bases; whole (Gw groups) and wide (Gp parts of wide
+// nodes) from ops/fused_head.py::backward_plan and split_plan, whose groups
+// each fit `sv` 16-byte vectors from the boundary at or below their start
+// (1 <= sv <= 32); inner: (B * HW, Gp) f32 scratch.  dtype: 0 = float32,
+// 1 = bfloat16; g_pf may be null.  Launches on `stream`; returns the CUDA
+// error code so a refused launch is reported.
 int pipnet_head_backward(const void* pf, const void* g_pf, const void* g_pooled,
-                         const void* groups, void* dz, int B, int HW, int P, int G, int sv,
-                         float tau, int dtype, void* stream) {
+                         const void* whole, int Gw, const void* wide, int Gp, void* inner,
+                         void* dz, int B, int HW, int P, int sv, float tau, int dtype,
+                         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* gp = static_cast<const float*>(g_pooled);
-  const int* gr = static_cast<const int*>(groups);
-  if (B == 0 || HW == 0 || G == 0) return 0;
+  const int* gw = static_cast<const int*>(whole);
+  const int* gx = static_cast<const int*>(wide);
+  float* in = static_cast<float*>(inner);
+  if (B == 0 || HW == 0 || Gw + Gp == 0) return 0;
   const float inv_tau = 1.0f / tau;
   if (dtype == 0)
-    return static_cast<int>(launch<float>(pf, g_pf, gp, gr, dz, B, HW, P, G, sv, inv_tau, s));
+    return static_cast<int>(
+        launch<float>(pf, g_pf, gp, gw, Gw, gx, Gp, in, dz, B, HW, P, sv, inv_tau, s));
   if (dtype == 1)
     return static_cast<int>(
-        launch<__nv_bfloat16>(pf, g_pf, gp, gr, dz, B, HW, P, G, sv, inv_tau, s));
+        launch<__nv_bfloat16>(pf, g_pf, gp, gw, Gw, gx, Gp, in, dz, B, HW, P, sv, inv_tau, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -36,6 +36,15 @@
 //      block's in shared memory.
 //    What still bounds it: the epilogue (about 1.5 times the depth loop's
 //    time a row tile) does not overlap the product (PERF.md).
+//
+// Nodes wider than a column tile (flat PIP-Net: one node of 768 prototypes)
+// are cut into parts, groups of one node's consecutive columns
+// (ops/fused_head.py::column_groups).  A kernel runs over such parts twice:
+// STATS writes each row's max and sum over each part, FINAL merges them into
+// the node's max and sum (merge_parts) and normalises by those, so every
+// value is the node-wide softmax and the column max is taken on it.  The
+// product is computed in both launches; groups of whole nodes take the
+// WHOLE instantiation in a launch of their own.
 #pragma once
 
 #include <cuda.h>
@@ -46,6 +55,35 @@
 
 #include <mutex>
 #include <type_traits>
+
+// A kernel's column plan holds GF ints a group (ops/fused_head.py::
+// plan_parts): col_start, ncols, width (0: the padded tail), node_off (the
+// node's column at which the group starts), part, parts.  A group with
+// parts > 1 is part `part` of a node wider than the kernel's tile, and its
+// node's parts are the `parts` consecutive groups from index g - part on.
+constexpr int GF = 6;
+
+// What a launch does with its groups: WHOLE groups of whole nodes (and the
+// padded tail); over the parts of wide nodes, STATS writes each row's
+// (max, sum) per part and FINAL computes the node-wide softmax from them.
+enum Mode { WHOLE = 0, STATS = 1, FINAL = 2 };
+
+// A row's node statistics from its node's parts' (max, sum) pairs `row[k]`,
+// each sum taken after a shift by its own part's max: the node max m and
+// S = max(sum_k s_k exp((m_k - m) * scale), 1e-18), `scale` turning the
+// stored maxima into the exponent's units.  A part clips its exponents at -80
+// below its own max, so a slot more than 80 below the node max adds under
+// exp(-80) to S where the plain softmax adds exactly exp(-80); S >= 1 (the max
+// slot adds 1), so the two differ by under P exp(-80) relative, far below f32
+// resolution, and the values are then taken against the true node max.  A
+// part with no valid slot has m_k = -inf and s_k = 0 and adds nothing.
+__device__ __forceinline__ float2 merge_parts(const float2* row, int parts, float scale) {
+  float m = -INFINITY;
+  for (int k = 0; k < parts; ++k) m = fmaxf(m, row[k].x);
+  float s = 0.f;
+  for (int k = 0; k < parts; ++k) s += row[k].y * expf((row[k].x - m) * scale);
+  return make_float2(m, fmaxf(s, 1e-18f));
+}
 
 namespace head_tile {
 
@@ -151,6 +189,34 @@ __device__ __forceinline__ void softmax_rows(float* Z, const uint8_t* valid_s, i
     }
     const float denom = fmaxf(sum, 1e-18f);
     for (int s = 0; s < width; ++s) zr[s] = zr[s] / denom;
+  }
+}
+
+// The STATS and FINAL steps of the f32 tile for a part of a wide node: for
+// each of `rows` rows of Z (z = acc / tau) over the part's `ncols` columns,
+// STATS writes (max, sum of exp(clip(z - max, -80, 60))) over the valid
+// slots to stats[r * ld + gi]; FINAL replaces z by the node-wide softmax from
+// the node's parts' statistics stats[r * ld + g0 .. g0 + parts), invalid
+// slots 0.  One thread a row.
+template <int MODE>
+__device__ __forceinline__ void wide_rows(float* Z, const uint8_t* valid_s, int rows, int ncols,
+                                          float2* stats, int ld, int gi, int g0, int parts) {
+  for (int r = threadIdx.x; r < rows; r += THREADS) {
+    float* zr = Z + r * ZLD;
+    float2* srow = stats + (size_t)r * ld;
+    if (MODE == STATS) {
+      float m = -INFINITY;
+      for (int s = 0; s < ncols; ++s)
+        if (valid_s[s]) m = fmaxf(m, zr[s]);
+      float sum = 0.f;
+      for (int s = 0; s < ncols; ++s)
+        if (valid_s[s]) sum += expf(fminf(fmaxf(zr[s] - m, -80.f), 60.f));
+      srow[gi] = make_float2(m, sum);
+    } else {
+      const float2 st = merge_parts(srow + g0, parts, 1.f);
+      for (int s = 0; s < ncols; ++s)
+        zr[s] = valid_s[s] ? expf(fminf(fmaxf(zr[s] - st.x, -80.f), 60.f)) / st.y : 0.f;
+    }
   }
 }
 
@@ -402,11 +468,12 @@ __device__ __forceinline__ Frag make_frag(int base, int shift, int ncols, uint32
   return {in, valid, start, in & ((start >> 1) | ~(in >> 1))};
 }
 
-// which quad lanes hold columns of node n (every lane when width >= 8)
-__device__ __forceinline__ uint8_t touch_mask(int n, int width) {
+// which quad lanes hold columns of node n (every lane when width >= 8); the
+// group sits in its tile from column `shift` on
+__device__ __forceinline__ uint8_t touch_mask(int n, int width, int shift) {
   if (width >= 8) return 0xF;
   uint8_t m = 0;
-  for (int c = n * width; c < (n + 1) * width; ++c) m |= 1u << ((c & 7) >> 1);
+  for (int c = n * width; c < (n + 1) * width; ++c) m |= 1u << (((c + shift) & 7) >> 1);
   return m;
 }
 
@@ -496,16 +563,56 @@ __device__ __forceinline__ void combine(const float* part, float* comb, const ui
   }
 }
 
+// Where a warpgroup's rows of a part of a wide node keep their statistics
+// (STATS, FINAL): stats[(row0 + r) * ld + gi] for its rows r < rows (those
+// below HW); the node's parts are groups g0 .. g0 + parts - 1.
+struct WideRows {
+  float2* stats;
+  int ld, gi, g0, parts;
+  long long row0;
+  int rows;
+};
+
+// After a combine of a part of a wide node (one segment a row, so thread
+// t < 64 holds row t's entry): STATS stores the part's max (MAX) or sum (its
+// reciprocal is what combine left); FINAL puts the node's max, then the
+// reciprocal of its sum, in the row's entry, merged from every part's
+// statistics (merge_parts; the maxima are raw accumulators, so the exponent's
+// scale is 1 / tau).  Rows at or past HW take harmless values; they are
+// never stored.
+template <int MODE, bool MAX>
+__device__ __forceinline__ void wide_comb(float* comb, int t, const WideRows& w, float inv_tau) {
+  if (MODE == WHOLE || t >= 64) return;
+  float* e = comb + t * CLD;
+  if (MODE == STATS) {
+    if (t < w.rows) {
+      float* st = reinterpret_cast<float*>(w.stats + (w.row0 + t) * w.ld + w.gi);
+      st[MAX ? 0 : 1] = MAX ? e[0] : 1.f / e[0];
+    }
+  } else if (MAX) {
+    const float2 s = t < w.rows ? merge_parts(w.stats + (w.row0 + t) * w.ld + w.g0, w.parts,
+                                              inv_tau)
+                                : make_float2(0.f, 1.f);
+    e[0] = s.x;
+    e[1] = 1.f / s.y;     // the entry of node 1, unused: a part is one segment
+  } else {
+    e[0] = e[1];
+  }
+}
+
 // Per-node softmax of one warpgroup's 64 x 128 tile of one group in place:
 // z = acc / tau shifted by its node's max over valid slots, exponent clipped
 // at -80 (the shifted value is <= 0, so the upper clip at 60 never binds),
 // divided by the sum floored at 1e-18; invalid slots and columns outside the
 // group come out 0.  `part`, `comb` are the warpgroup's tables; `bar` its
-// named barrier.
+// named barrier.  For a part of a wide node (MODE STATS or FINAL, `w` its
+// rows) the tile is one segment a row, and wide_comb stores or replaces the
+// per-row max and sum (STATS leaves the tile normalised by the part's own).
+template <int MODE = WHOLE>
 __device__ __forceinline__ void softmax_frag(float (&acc)[FR], const Frag& fr, int q, int base,
                                              uint32_t magic, int rr0, float* part, float* comb,
                                              const uint8_t* touch_s, int nodes, int t, int bar,
-                                             float inv_tau) {
+                                             float inv_tau, const WideRows& w = WideRows{}) {
   const uint32_t part0 = smem_u32(part + rr0 * PLD + q), comb0 = smem_u32(comb + rr0 * CLD);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -519,6 +626,7 @@ __device__ __forceinline__ void softmax_frag(float (&acc)[FR], const Frag& fr, i
   }
   named_bar(bar, 128);
   combine<true>(part, comb, touch_s, nodes, t);
+  wide_comb<MODE, true>(comb, t, w, inv_tau);
   named_bar(bar, 128);
   const float scale = inv_tau * LOG2E;
 #pragma unroll
@@ -542,6 +650,7 @@ __device__ __forceinline__ void softmax_frag(float (&acc)[FR], const Frag& fr, i
   }
   named_bar(bar, 128);
   combine<false>(part, comb, touch_s, nodes, t);
+  wide_comb<MODE, false>(comb, t, w, inv_tau);
   named_bar(bar, 128);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -713,9 +822,10 @@ inline cudaError_t bf16_map(CUtensorMap* out, const void* ptr, uint64_t inner, u
 }
 
 // the grid of a persistent kernel: one block per SM, at most one per item;
-// the dynamic shared-memory limit is raised once per device
-template <typename Kernel>
-inline cudaError_t persistent_grid(Kernel kernel, int bytes, int items, int* grid) {
+// the dynamic shared-memory limit is raised once per device and kernel (the
+// flags are the template's own, one set per kernel)
+template <auto KERNEL>
+inline cudaError_t persistent_grid(int bytes, int items, int* grid) {
   static bool raised[64] = {};
   static int sms[64] = {};
   int dev = 0;
@@ -723,7 +833,7 @@ inline cudaError_t persistent_grid(Kernel kernel, int bytes, int items, int* gri
   if (err != cudaSuccess) return err;
   if (dev >= 64) return cudaErrorInvalidDevice;
   if (!raised[dev]) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    err = cudaFuncSetAttribute(KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err == cudaSuccess)
       err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return err;

@@ -19,7 +19,7 @@ persistent block per SM, TMA tile loads into a ring of shared-memory stages,
 softmax, column max and pf stores on the accumulator registers; the
 epilogue, which does not overlap the product, is what holds it above its
 bound (``PERF.md``).  f32 keeps a SIMT tile (TF32 would miss 1e-5).  Each
-kernel plans its own column groups (``column_groups``, ``kernel_groups``):
+kernel plans its own column groups (``column_groups``, ``head_plan``):
 whole nodes of one bucket, so a node's softmax never crosses groups, and
 the max-pool needs no global atomics.  One launch covers every bucket of
 the tree.  K1b is bound by bytes (it reads pf and g_pf and writes dz): it
@@ -28,6 +28,15 @@ vectors, ending on 32-byte sectors where they can), keeps a block's pf slice
 in shared memory so pf is read once, and moves g_pf and dz as 16-byte
 vectors; see its source.
 
+A node wider than a kernel's tile (flat PIP-Net: one node of 768
+prototypes) is cut into parts, groups of its consecutive columns
+(``column_groups``, ``plan_parts``).  The kernels launch the parts apart
+from the whole-node groups (``split_plan``): K1 twice, once for each row's
+max and sum over each part and once for the node-wide softmax from those,
+its column max and pf; K1b twice, once for each row's sum of g_tot * pf
+over each part and once for dz.  A tree without such a node takes one
+launch of each kernel, over whole nodes.
+
 ``fused_head`` runs the kernel for CUDA tensors and the plain PyTorch
 version ``fused_head_reference`` for CPU tensors; there is no fallback from
 one to the other.  When autograd records, it goes through ``FusedHead``,
@@ -35,14 +44,14 @@ whose backward is K1b (``head_backward``; plain version
 ``head_backward_reference``) followed by ``dF = dz K^T`` and ``dK = F^T dz``
 as matrix products, as the JAX package leaves them to XLA.
 ``fused_head.launches`` and ``head_backward.launches`` count kernel
-launches.
+launches (``plan_launches``: two more for a tree with a wide node).
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -69,7 +78,25 @@ BACKWARD_VECTOR_BYTES = 16
 BACKWARD_MAX_VECTORS = 32
 BACKWARD_SLICE_BYTES = 110 * 1024
 SECTOR_BYTES = 32
+# the kernels' group record (csrc/head_tile.cuh GF): col_start, ncols,
+# width, node_off, part, parts (``plan_parts``)
+GROUP_FIELDS = 6
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _node_parts(start: int, width: int, tile_cols: int, align: int, sector: int) -> list:
+    """The parts of the node at columns ``[start, start + width)``: runs of
+    its columns, each fitting ``tile_cols - c0 % align`` columns from its
+    start ``c0`` and, where that leaves room, ending on a multiple of
+    ``sector`` columns.  One part (the whole node) when it fits."""
+    parts, a, end = [], start, start + width
+    while a < end:
+        b = min(end, a + tile_cols - a % align)
+        if b < end and b - b % sector > a:
+            b -= b % sector
+        parts.append((a, b - a, width))
+        a = b
+    return parts
 
 
 def column_groups(tree: TreeArrays, tile_cols: int, max_nodes: Optional[int] = None,
@@ -85,14 +112,22 @@ def column_groups(tree: TreeArrays, tile_cols: int, max_nodes: Optional[int] = N
     tile column ``c0 % align`` on, so the group fits ``tile_cols - c0 %
     align`` columns.  With ``sector`` (columns) a group that could hold
     more nodes than fill a whole number of sectors holds such a multiple, so
-    that groups of a bucket starting on a sector also end on one."""
+    that groups of a bucket starting on a sector also end on one.
+
+    A bucket whose nodes do not fit the tile from every start (``width >
+    tile_cols - (align - 1)``) is cut node by node into parts
+    (``_node_parts``): groups of fewer than ``width`` consecutive columns of
+    one node, in order, whose per-node statistics the kernels merge across
+    groups (``plan_parts``)."""
     groups = []
     covered = 0
     for b in tree.buckets:
+        covered = b.proto_offset + b.num_nodes * b.width
         if b.width > tile_cols - (align - 1):
-            raise ValueError(
-                f"bucket width {b.width} exceeds the fused head kernel's "
-                f"{tile_cols}-column tile; nodes that wide are not supported yet")
+            for n in range(b.num_nodes):
+                groups += _node_parts(b.proto_offset + n * b.width, b.width, tile_cols,
+                                      align, sector)
+            continue
         first = 0
         while first < b.num_nodes:
             start = b.proto_offset + first * b.width
@@ -104,22 +139,90 @@ def column_groups(tree: TreeArrays, tile_cols: int, max_nodes: Optional[int] = N
                 n -= n % whole
             groups.append((start, n * b.width, b.width))
             first += n
-        covered = b.proto_offset + b.num_nodes * b.width
     for start in range(covered, tree.num_protos_padded, tile_cols):
         groups.append((start, min(tile_cols, tree.num_protos_padded - start), 0))
     return np.asarray(groups, np.int32).reshape(-1, 3)
 
 
-def kernel_groups(tree: TreeArrays, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
-    """The column plan a head kernel runs on for ``dtype``, cached on the
-    device: the SIMT tile for f32; for bf16 the 128-column tile, at most
+def plan_parts(groups: np.ndarray) -> np.ndarray:
+    """(G, GROUP_FIELDS) int32: each group of ``column_groups`` with
+    (node_off, part, parts): the column of its node at which the group
+    starts, its index among its node's parts, and how many parts the node
+    has.  A group of whole nodes and the padded tail are (0, 0, 1)."""
+    out = np.zeros((len(groups), GROUP_FIELDS), np.int32)
+    out[:, :3] = groups
+    out[:, 5] = 1
+    i = 0
+    while i < len(groups):
+        width = int(groups[i, 2])
+        if width == 0 or groups[i, 1] >= width:
+            i += 1
+            continue
+        j, off = i, 0
+        while off < width:                   # the node's parts, in order
+            out[j, 3:5] = (off, j - i)
+            off += int(groups[j, 1])
+            j += 1
+        out[i:j, 5] = j - i
+        i = j
+    return out
+
+
+def split_plan(groups: np.ndarray, device: torch.device
+               ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """A column plan (``column_groups``) as the kernels launch it: ``(whole,
+    wide)``, each a (G, GROUP_FIELDS) int32 table on ``device`` or None.
+    ``whole`` holds the groups of whole nodes, ``wide`` the parts of nodes
+    wider than the tile (launched twice: the per-part row statistics, then
+    the pass that normalises by the merged node statistics); the padded tail
+    goes with ``whole`` unless only parts exist."""
+    plan = plan_parts(groups)
+    part = plan[:, 5] > 1
+    tail = plan[:, 2] == 0
+    whole = ~part & ~tail
+    if whole.any() or not part.any():
+        whole = whole | tail
+    else:
+        part = part | tail
+    return tuple(torch.as_tensor(plan[rows], device=device) if rows.any() else None
+                 for rows in (whole, part))
+
+
+def _cached_plan(tree: TreeArrays, key: tuple, device: torch.device, make: Callable):
+    """``make()``, cached on the tree per ``(key, device)``: the head
+    kernels' plans are made once per tree, kernel, dtype and device."""
+    cache = tree.__dict__.setdefault("_head_plan_cache", {})
+    key = key + (str(device),)
+    if key not in cache:
+        # normal tensors even when first asked for under inference_mode
+        with torch.inference_mode(False):
+            cache[key] = make()
+    return cache[key]
+
+
+def plan_launches(whole: Optional[torch.Tensor], wide: Optional[torch.Tensor],
+                  wide_launches: int) -> int:
+    """Kernel launches of one call on a split plan: one over the whole-node
+    groups, ``wide_launches`` over the parts of wide nodes."""
+    return (whole is not None) + (wide_launches if wide is not None else 0)
+
+
+def _head_tile(dtype: torch.dtype) -> Tuple[int, Optional[int], int]:
+    """(tile_cols, max_nodes, align) of the head kernels' column plan in
+    ``dtype``: the SIMT tile for f32; for bf16 the 128-column tile, at most
     MAX_GROUP_NODES nodes a group, tiles on 8-column boundaries."""
     if dtype == torch.float32:
-        plan = (SIMT_TILE_COLS, None, 1)
-    else:
-        plan = (BF16_TILE_COLS, MAX_GROUP_NODES, TMA_ALIGN_COLS)
-    return tree_tensor(tree, "head_groups_{}_{}_{}".format(*plan), column_groups(tree, *plan),
-                       device, torch.int32)
+        return SIMT_TILE_COLS, None, 1
+    return BF16_TILE_COLS, MAX_GROUP_NODES, TMA_ALIGN_COLS
+
+
+def head_plan(tree: TreeArrays, dtype: torch.dtype, device: torch.device
+              ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """The ``(whole, wide)`` plan (``split_plan``) K1 and K2 launch on for
+    ``dtype`` (``_head_tile``), cached on the tree."""
+    tile = _head_tile(dtype)
+    return _cached_plan(tree, ("head",) + tile, device,
+                        lambda: split_plan(column_groups(tree, *tile), device))
 
 
 def fused_head_reference(features: torch.Tensor, kernel: torch.Tensor,
@@ -161,28 +264,40 @@ def check_head_inputs(features: torch.Tensor, kernel: torch.Tensor, tree: TreeAr
                              f"16-byte aligned bf16 features and kernel, got D={D}, P={P}")
 
 
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def _rows(t: Optional[torch.Tensor]) -> int:
+    return 0 if t is None else t.shape[0]
+
+
 def _launch(features: torch.Tensor, kernel: torch.Tensor, tree: TreeArrays,
             tau: float) -> Tuple[torch.Tensor, torch.Tensor]:
     check_head_inputs(features, kernel, tree)
     B, H, W, D = features.shape
     P = tree.num_protos_padded
     dev = features.device
-    groups = kernel_groups(tree, features.dtype, dev)
+    whole, wide = head_plan(tree, features.dtype, dev)
     valid = tree_tensor(tree, "proto_valid_u8", tree.proto_valid, dev, torch.uint8)
     pf = torch.empty((B, H, W, P), dtype=features.dtype, device=dev)
     pooled = torch.empty((B, P), dtype=torch.float32, device=dev)
+    # each row's (max, sum) over each part of a wide node
+    stats = (torch.empty((B * H * W, wide.shape[0], 2), dtype=torch.float32, device=dev)
+             if wide is not None else None)
     lib, fn = kernel_entry("fused_head", "pipnet_fused_head_forward",
-                           [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                           [ctypes.c_void_p] * 3 + [ctypes.c_void_p, ctypes.c_int] * 2
+                           + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
                            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = fn(
             features.data_ptr(), kernel.data_ptr(), valid.data_ptr(),
-            groups.data_ptr(), pf.data_ptr(), pooled.data_ptr(),
-            B, H * W, D, P, groups.shape[0], float(tau),
+            _ptr(whole), _rows(whole), _ptr(wide), _rows(wide), _ptr(stats),
+            pf.data_ptr(), pooled.data_ptr(), B, H * W, D, P, float(tau),
             _DTYPE_CODES[features.dtype], stream)
     check_cuda(lib, code, "fused head launch")
-    fused_head.launches += 1
+    fused_head.launches += plan_launches(whole, wide, 2)
     return pf, pooled
 
 
@@ -258,31 +373,42 @@ def _check_backward(pf, g_pf, g_pooled, tree):
         raise ValueError("head backward needs contiguous pf and cotangents")
 
 
+def _backward_groups(tree: TreeArrays, dtype: torch.dtype, hw: int
+                     ) -> Tuple[int, int, np.ndarray]:
+    """K1b's (sv, tile columns, (G, 3) ``column_groups`` plan) for ``hw``
+    patch rows (``backward_plan``)."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    vec = BACKWARD_VECTOR_BYTES // es
+    window = BACKWARD_MAX_VECTORS * vec
+    needs = [-(-(b.width + vec - 1) // vec) * vec for b in tree.buckets]
+    need = max((n for n in needs if n <= window), default=vec)
+    budget = BACKWARD_SLICE_BYTES // (hw * es) // vec * vec
+    tile = min(max(budget, need), window)
+    plan = column_groups(tree, tile, None, vec, sector=SECTOR_BYTES // es)
+    nodes = plan[plan[:, 2] > 0]
+    span = int(max((c0 % vec + n for c0, n, _ in nodes), default=vec))
+    return -(-span // vec), tile, plan
+
+
 def backward_plan(tree: TreeArrays, dtype: torch.dtype, hw: int, device: torch.device
-                  ) -> Tuple[int, torch.Tensor]:
-    """K1b's plan for ``hw`` patch rows in ``dtype``: ``(sv, groups)``.
+                  ) -> Tuple[int, Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """K1b's plan for ``hw`` patch rows in ``dtype``: ``(sv, whole, wide)``,
+    cached on the tree.
 
     Groups are whole nodes of one bucket, at most as many columns as two
     blocks' pf slices (``hw`` rows, ``BACKWARD_SLICE_BYTES`` each) leave
     room for, whole 32-byte sectors of nodes where they fit (no sector of
     dz is written by two blocks; ``column_groups``' ``sector``), each seen
-    from the 16-byte boundary at or below its start.  ``sv`` is the most
-    16-byte vectors a group so seen needs (a row's lanes in the kernel, and
-    the slice's row), ``groups`` the (G, 3) plan, cached on the device."""
-    es = torch.tensor([], dtype=dtype).element_size()
-    vec = BACKWARD_VECTOR_BYTES // es
-    widest = max((b.width for b in tree.buckets), default=1)
-    need = -(-(widest + vec - 1) // vec) * vec
-    if need > BACKWARD_MAX_VECTORS * vec:
-        raise ValueError(f"bucket width {widest} exceeds K1b's {BACKWARD_MAX_VECTORS * vec}-column "
-                         f"window in {dtype}; nodes that wide are not supported yet")
-    budget = BACKWARD_SLICE_BYTES // (hw * es) // vec * vec
-    tile = min(max(budget, need), BACKWARD_MAX_VECTORS * vec)
-    key = f"backward_groups_{tile}_{vec}"
-    plan = column_groups(tree, tile, None, vec, sector=SECTOR_BYTES // es)
-    nodes = plan[plan[:, 2] > 0]
-    span = int(max((c0 % vec + n for c0, n, _ in nodes), default=vec))
-    return -(-span // vec), tree_tensor(tree, key, plan, device, torch.int32)
+    from the 16-byte boundary at or below its start; a node wider than that
+    tile (or than the window of ``BACKWARD_MAX_VECTORS`` vectors) is cut
+    into parts of it, ending on sectors.  ``sv`` is the most 16-byte
+    vectors a group so seen needs (a row's lanes in the kernel, and the
+    slice's row); ``whole`` and ``wide`` are the plan as ``split_plan``
+    gives it."""
+    def make():
+        sv, _, groups = _backward_groups(tree, dtype, hw)
+        return (sv, *split_plan(groups, device))
+    return _cached_plan(tree, ("backward", str(dtype), hw), device, make)
 
 
 def _launch_backward(pf, g_pf, g_pooled, tree, tau):
@@ -292,19 +418,22 @@ def _launch_backward(pf, g_pf, g_pooled, tree, tau):
                       for t in (pf, g_pf) if t is not None):
         raise ValueError(f"head backward on the card reads 16-byte vectors: it needs P a "
                          f"multiple of {vec} and 16-byte aligned pf and g_pf, got P={P}")
-    sv, groups = backward_plan(tree, pf.dtype, H * W, pf.device)
+    sv, whole, wide = backward_plan(tree, pf.dtype, H * W, pf.device)
     dz = torch.empty_like(pf)
+    # each row's sum of g_tot * pf over each part of a wide node
+    inner = (torch.empty((B * H * W, wide.shape[0]), dtype=torch.float32, device=pf.device)
+             if wide is not None else None)
     lib, fn = kernel_entry("head_backward", "pipnet_head_backward",
-                           [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                           [ctypes.c_void_p] * 3 + [ctypes.c_void_p, ctypes.c_int] * 2
+                           + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
                            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     with torch.cuda.device(pf.device):
         stream = torch.cuda.current_stream(pf.device).cuda_stream
-        code = fn(pf.data_ptr(), None if g_pf is None else g_pf.data_ptr(),
-                  g_pooled.data_ptr(), groups.data_ptr(), dz.data_ptr(),
-                  B, H * W, P, groups.shape[0], sv, float(tau),
-                  _DTYPE_CODES[pf.dtype], stream)
+        code = fn(pf.data_ptr(), _ptr(g_pf), g_pooled.data_ptr(),
+                  _ptr(whole), _rows(whole), _ptr(wide), _rows(wide), _ptr(inner),
+                  dz.data_ptr(), B, H * W, P, sv, float(tau), _DTYPE_CODES[pf.dtype], stream)
     check_cuda(lib, code, "head backward launch")
-    head_backward.launches += 1
+    head_backward.launches += plan_launches(whole, wide, 2)
     return dz
 
 

@@ -21,6 +21,11 @@ products run on the accumulator registers, and the per-node log sums are
 added in row order, so logsum does not depend on the run.  As for K1 the
 epilogue, not overlapped with the products, holds it above its bound.
 
+A node wider than the column tile (flat PIP-Net) is cut into parts
+(``fused_head.split_plan``) and takes three launches: both views' row
+statistics per part, the node-wide softmax with each row's inner product
+per part, and the per-node log sums over the parts.
+
 ``fused_head_nopf`` runs the kernel for CUDA tensors and the plain PyTorch
 version ``fused_head_nopf_reference`` for CPU tensors, with no fallback
 between them; ``fused_head_nopf.launches`` counts kernel launches.  When
@@ -39,8 +44,8 @@ import torch
 
 from ..tree.compile import TreeArrays
 from .build import check_cuda, kernel_entry
-from .fused_head import (_DTYPE_CODES, _forward, check_head_inputs, head_backward,
-                         kernel_groups, projection_grads)
+from .fused_head import (_DTYPE_CODES, _forward, _ptr, _rows, check_head_inputs, head_backward,
+                         head_plan, plan_launches, projection_grads)
 from .segment import _node_onehot, segment_softmax, segment_sum_to_nodes, tree_tensor
 
 
@@ -66,22 +71,30 @@ def _launch(features, kernel, tree, tau, eps):
     B2, H, W, D = features.shape
     P, N = tree.num_protos_padded, tree.num_nodes
     dev = features.device
-    groups = kernel_groups(tree, features.dtype, dev)
+    whole, wide = head_plan(tree, features.dtype, dev)
     valid = tree_tensor(tree, "proto_valid_u8", tree.proto_valid, dev, torch.uint8)
     proto_node = tree_tensor(tree, "proto_node_i32", tree.proto_node, dev, torch.int32)
     pooled = torch.empty((B2, P), dtype=torch.float32, device=dev)
     logsum = torch.empty((B2 // 2, N), dtype=torch.float32, device=dev)
+    # for the parts of wide nodes: each view-image row's (max, sum) a part,
+    # and each pair row's inner product over a part
+    stats = ip = None
+    if wide is not None:
+        stats = torch.empty((B2 * H * W, wide.shape[0], 2), dtype=torch.float32, device=dev)
+        ip = torch.empty((B2 // 2 * H * W, wide.shape[0]), dtype=torch.float32, device=dev)
     lib, fn = kernel_entry("fused_head_nopf", "pipnet_fused_head_nopf_forward",
-                           [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+                           [ctypes.c_void_p] * 3 + [ctypes.c_void_p, ctypes.c_int] * 2
+                           + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                            + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = fn(features.data_ptr(), kernel.data_ptr(), valid.data_ptr(),
-                  groups.data_ptr(), proto_node.data_ptr(), pooled.data_ptr(),
-                  logsum.data_ptr(), B2 // 2, H * W, D, P, N, groups.shape[0],
-                  float(tau), float(eps), _DTYPE_CODES[features.dtype], stream)
+                  _ptr(whole), _rows(whole), _ptr(wide), _rows(wide), proto_node.data_ptr(),
+                  _ptr(stats), _ptr(ip), pooled.data_ptr(), logsum.data_ptr(),
+                  B2 // 2, H * W, D, P, N, float(tau), float(eps),
+                  _DTYPE_CODES[features.dtype], stream)
     check_cuda(lib, code, "no-pf head launch")
-    fused_head_nopf.launches += 1
+    fused_head_nopf.launches += plan_launches(whole, wide, 3)
     return pooled, logsum
 
 

@@ -16,11 +16,22 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_util import MULTI_NEWICK, budget, compiled_pair, flagship_roots
+from torch_port_util import (MIXED_NEWICK, MULTI_NEWICK, budget, compiled_pair, flagship_roots,
+                             flat_tree_port, port_tree)
 
 TINY = ("((((cub_001_A:1,cub_002_B:1):1,cub_003_C:2):2,((cub_004_D:1.5,"
         "cub_005_E:1.5):1,cub_006_F:2.5):1.5):1,(cub_007_G:2,cub_008_H:2):3);")
-BF16_PF_ATOL = 2.0 ** -8      # one bf16 ulp below 1.0
+
+
+def assert_pf_close(pf, pf_r, dtype):
+    """pf against its plain version: f32 within 1e-5; bf16 within one bf16
+    ulp of each plain value (2^-7 of it: an ulp is 2^-8 to 2^-7 of a
+    value), beyond a floor at f32's least normal (exponentials of slots at
+    the clip, flushed to zero)."""
+    if dtype == "float32":
+        torch.testing.assert_close(pf.float(), pf_r.float(), atol=1e-5, rtol=0)
+    else:
+        torch.testing.assert_close(pf.float(), pf_r.float(), atol=2.0 ** -126, rtol=2.0 ** -7)
 
 
 @pytest.fixture
@@ -39,8 +50,11 @@ def _tree(name):
         from pipnet_tpu_torch.tree import compile_tree
         _, root, classes = flagship_roots()
         return compile_tree(budget(root, 10), class_names=classes, protopool=False)
-    newick, per = {"multi_bucket": (MULTI_NEWICK, (2, 3)), "tiny": (TINY, (10, 0))}[name]
-    return compiled_pair(newick, *per)[1]
+    if name.startswith("flat"):
+        return flat_tree_port(200, int(name[4:]))
+    newick, per = {"multi_bucket": (MULTI_NEWICK, (2, 3)), "tiny": (TINY, (10, 0)),
+                   "mixed": (MIXED_NEWICK, (10, 0))}[name]
+    return port_tree(newick, *per)
 
 
 # (tree, shape (B, H, W, D), tau): several bucket widths (6, 9, 15, 30: none
@@ -52,6 +66,16 @@ def _tree(name):
 KERNEL_CASES = [("multi_bucket", (4, 9, 11, 72), 0.5), ("tiny", (2, 13, 13, 64), 1.0),
                 ("flagship", (4, 26, 26, 768), 1.0), ("multi_bucket", (2, 9, 11, 72), 0.5),
                 ("flagship", (2, 26, 26, 768), 0.5)]
+# nodes wider than every kernel's column tile, cut into parts: flat PIP-Net
+# (one node of 768 prototypes, at the flat model's per-image shape), a
+# node of 300 (its last part ends inside a 16-byte vector; a padded tail
+# follows), of 130 (a last part of 2 columns, held by one lane of a quad)
+# and of 2000 (16 parts in bf16, 25 and 50 in K1b), and a tree mixing a
+# narrow bucket with a node of 300 starting at column 60 (its first bf16
+# part sits 4 columns into its TMA tile)
+WIDE_CASES = [("flat768", (2, 26, 26, 768), 1.0), ("flat300", (4, 9, 11, 72), 0.5),
+              ("flat130", (2, 9, 11, 72), 1.0), ("flat2000", (2, 9, 11, 72), 1.0),
+              ("mixed", (4, 9, 11, 72), 0.5)]
 
 
 def _inputs(tree, B, H, W, D, seed, dtype, scale=0.3):
@@ -69,7 +93,7 @@ def _inputs(tree, B, H, W, D, seed, dtype, scale=0.3):
     ("tiny", (2, 13, 13, 64), 1.0),            # rows not a multiple of the row tile
     ("multi_bucket", (1, 9, 11, 72), 0.5),     # one image
     ("flagship", (1, 26, 26, 768), 0.5),       # a group narrower than the bf16 tile
-])
+] + WIDE_CASES)
 def test_fused_head_kernel_matches_plain(card, dtype, tree_name, shape, tau):
     from pipnet_tpu_torch.ops.fused_head import fused_head, fused_head_reference
     tree = _tree(tree_name)
@@ -80,8 +104,7 @@ def test_fused_head_kernel_matches_plain(card, dtype, tree_name, shape, tau):
         torch.cuda.synchronize()
         pf_r, pooled_r = fused_head_reference(f, k, tree, tau=tau)
     assert pf.dtype == dt and pooled.dtype == torch.float32
-    atol = 1e-5 if dtype == "float32" else BF16_PF_ATOL
-    torch.testing.assert_close(pf.float(), pf_r.float(), atol=atol, rtol=0)
+    assert_pf_close(pf, pf_r, dtype)
     torch.testing.assert_close(pooled, pooled_r, atol=1e-5, rtol=0)
     invalid = torch.from_numpy(~tree.proto_valid).cuda()
     assert (pf[..., invalid] == 0).all() and (pooled[:, invalid] == 0).all()
@@ -119,7 +142,7 @@ def test_fused_head_counts_launches_and_checks_inputs(card):
 # K1b's own edges besides: one image (a single group row of blocks), and a
 # map of 80x80 patches whose pf slice does not fit a block's shared memory
 # (pf is read from device memory in both passes)
-BACKWARD_CASES = KERNEL_CASES + [("multi_bucket", (1, 9, 11, 72), 0.5),
+BACKWARD_CASES = KERNEL_CASES + WIDE_CASES + [("multi_bucket", (1, 9, 11, 72), 0.5),
                                  ("flagship", (1, 26, 26, 768), 1.0),
                                  ("flagship", (1, 80, 80, 64), 1.0)]
 
@@ -200,7 +223,7 @@ def test_head_backward_splits_ties(card):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("tree_name,shape,tau", KERNEL_CASES)
+@pytest.mark.parametrize("tree_name,shape,tau", KERNEL_CASES + WIDE_CASES)
 def test_fused_head_nopf_kernel_matches_plain(card, dtype, tree_name, shape, tau):
     """K2 against its plain version: pooled and logsum are f32 in both and
     the products sum exact bf16 products in f32, so both dtypes agree to
@@ -259,6 +282,78 @@ def test_training_heads_count_launches_and_check_inputs(card):
         with pytest.raises(ValueError):
             fused_head_nopf(f.transpose(1, 2), k, tree)        # not contiguous
     assert counts() == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("tree_name", ["flat768", "mixed"])
+def test_wide_node_logits_spread_beyond_the_clip(card, dtype, tree_name):
+    """Logits falling 0.6 a column across every node (460 across the flat
+    node, 180 across the mixed tree's node of 300, 77 across a 128-column
+    part): the slots more than 80 below their node's max take exp(-80) in
+    the plain softmax, and each part's own sum is taken against its own
+    max, so K1 and K2 must shift by the node max and merge the parts' sums
+    to match the plain versions at their usual tolerances."""
+    from pipnet_tpu_torch.ops.fused_head import fused_head, fused_head_reference
+    from pipnet_tpu_torch.ops.fused_head_nopf import (fused_head_nopf,
+                                                      fused_head_nopf_reference)
+    tree = _tree(tree_name)
+    dt = getattr(torch, dtype)
+    f, k = _inputs(tree, 4, 9, 11, 72, seed=13, dtype=torch.float32, scale=0.1)
+    f[..., 0] = 1.0
+    col = torch.from_numpy(np.arange(tree.num_protos_padded)
+                           - tree.node_proto_offset[np.maximum(tree.proto_node, 0)])
+    k[0] = -0.6 * col.float().cuda()
+    f, k = f.to(dt), k.to(dt)
+    with torch.inference_mode():
+        pf, pooled = fused_head(f, k, tree)
+        pooled2, logsum = fused_head_nopf(f, k, tree, eps=1e-12)
+        torch.cuda.synchronize()
+        pf_r, pooled_r = fused_head_reference(f, k, tree)
+        pooled2_r, logsum_r = fused_head_nopf_reference(f, k, tree, eps=1e-12)
+    # some slots sit at the clip: exp(-80) over a sum of at least 1
+    assert ((pf_r.float() > 0) & (pf_r.float() < 2e-35)).any()
+    assert_pf_close(pf, pf_r, dtype)
+    torch.testing.assert_close(pooled, pooled_r, atol=1e-5, rtol=0)
+    torch.testing.assert_close(pooled2, pooled2_r, atol=1e-5, rtol=0)
+    torch.testing.assert_close(logsum, logsum_r, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("tree_name,launches", [("flat768", (2, 2, 3)), ("mixed", (3, 3, 4))])
+def test_wide_trees_launch_the_kernels_only(card, dtype, tree_name, launches):
+    """A tree with a wide node runs K1 as two launches over its parts (the
+    row statistics, then the normalised pass) and one over its narrow
+    groups, K1b likewise, and K2 as three over the parts (statistics,
+    normalised pass, log sums) plus one; no call reaches a plain version."""
+    import pipnet_tpu_torch.ops.fused_head as fh
+    import pipnet_tpu_torch.ops.fused_head_nopf as fn
+    from pipnet_tpu_torch.ops.fused_head import fused_head, head_backward
+    from pipnet_tpu_torch.ops.fused_head_nopf import fused_head_nopf
+    tree = _tree(tree_name)
+    assert tree_name == "flat768" or tree.node_proto_offset[-1] % 8   # a shifted first part
+    f, k = _inputs(tree, 4, 9, 11, 72, seed=14, dtype=getattr(torch, dtype))
+    counts = lambda: (fused_head.launches, head_backward.launches, fused_head_nopf.launches)
+
+    def plain(*args, **kwargs):
+        raise AssertionError("a plain version ran for CUDA tensors")
+    with pytest.MonkeyPatch.context() as mp:
+        for mod, name in ((fh, "fused_head_reference"), (fh, "head_backward_reference"),
+                          (fh, "segment_softmax"), (fn, "fused_head_nopf_reference"),
+                          (fn, "segment_softmax")):
+            mp.setattr(mod, name, plain)
+        before = counts()
+        fg = f.clone().requires_grad_()
+        pf, pooled = fused_head(fg, k, tree)
+        (pf.float().sum() + pooled.sum()).backward()
+        torch.cuda.synchronize()
+        assert [a - b for a, b in zip(counts(), before)] == [launches[0], launches[1], 0]
+        with torch.inference_mode():
+            fused_head_nopf(f, k, tree)
+        torch.cuda.synchronize()
+        assert [a - b for a, b in zip(counts(), before)] == list(launches)
+    assert torch.isfinite(fg.grad.float()).all()
 
 
 @pytest.mark.cuda

@@ -174,20 +174,16 @@ def test_column_groups_cap_nodes_per_group():
 
 
 def test_kernel_groups_pick_each_kernels_plan(tiny_newick):
-    from pipnet_tpu_torch.ops.fused_head import column_groups, kernel_groups
+    """K1 and K2 launch each dtype's own plan (``head_plan``), one table of
+    whole-node groups on a tree without a wide node."""
+    from pipnet_tpu_torch.ops.fused_head import column_groups, head_plan
     _, tt = compiled_pair(tiny_newick, 10, 0)
     cpu = torch.device("cpu")
     for dtype, want in ((torch.float32, column_groups(tt, 128)),
                         (torch.bfloat16, column_groups(tt, 128, 16, 8))):
-        got = kernel_groups(tt, dtype, cpu)
-        assert got.dtype == torch.int32 and np.array_equal(got.numpy(), want)
-
-
-def test_column_groups_reject_nodes_wider_than_a_tile(tiny_newick):
-    from pipnet_tpu_torch.ops.fused_head import column_groups
-    _, tt = compiled_pair(tiny_newick, 70, 0)
-    with pytest.raises(ValueError, match="exceeds"):
-        column_groups(tt, 128)
+        got, wide = head_plan(tt, dtype, cpu)
+        assert wide is None
+        assert got.dtype == torch.int32 and np.array_equal(got[:, :3].numpy(), want)
 
 
 # K1b's own plan (``backward_plan``) at the flagship train step's 26x26
@@ -215,8 +211,9 @@ def test_backward_plan_covers_every_column_once_in_whole_nodes(tiny_newick, dtyp
     dt = getattr(torch, dtype)
     es = torch.tensor([], dtype=dt).element_size()
     vec = 16 // es
-    sv, groups = backward_plan(tt, dt, hw, torch.device("cpu"))
-    g = groups.numpy()
+    sv, groups, wide = backward_plan(tt, dt, hw, torch.device("cpu"))
+    g = groups[:, :3].numpy()
+    assert wide is None
     assert groups.dtype == torch.int32 and 1 <= sv <= BACKWARD_MAX_VECTORS
     _check_groups(tt, g, int(g[:, 1].max()), None, vec)
     nodes = g[g[:, 2] > 0]
@@ -237,18 +234,11 @@ def test_backward_plan_flagship_groups_end_on_sectors(dtype, sv, full):
     tt = compile_tree(budget(rt, 10), class_names=classes, protopool=False)
     dt = getattr(torch, dtype)
     es = torch.tensor([], dtype=dt).element_size()
-    got_sv, groups = backward_plan(tt, dt, 676, torch.device("cpu"))
-    g = groups.numpy()
+    got_sv, groups, wide = backward_plan(tt, dt, 676, torch.device("cpu"))
+    g = groups[:, :3].numpy()
+    assert wide is None
     assert got_sv == sv
     runs = g[(g[:, 1] == full) & (g[:, 2] == 20)]
     assert len(runs) == 189 // (full // 20)           # all nodes but the odd last one
     assert ((runs[:, 0] * es) % 32 == 0).all() and (((runs[:, 0] + runs[:, 1]) * es) % 32 == 0).all()
     assert g[-1, 2] == 0
-
-
-def test_backward_plan_rejects_nodes_wider_than_its_window(tiny_newick):
-    from pipnet_tpu_torch.ops.fused_head import backward_plan
-    _, tt = compiled_pair(tiny_newick, 70, 0)
-    assert max(b.width for b in tt.buckets) > 125
-    with pytest.raises(ValueError, match="exceeds"):
-        backward_plan(tt, torch.float32, 676, torch.device("cpu"))

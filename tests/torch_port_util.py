@@ -24,6 +24,13 @@ MULTI_NEWICK = (
     "(cub_009_I:1,cub_010_J:1):1);"
 )
 
+# a tree mixing a narrow bucket (two nodes of 3 children) with a node of 30
+# children: at 10 prototypes a child, 300 columns starting at column 60 (off
+# an 8-column boundary), wider than every head kernel's column tile and
+# than K1b's window in both dtypes
+MIXED_NEWICK = ("((" + ",".join(f"cub_{i:03d}_W:1" for i in range(1, 31)) + "):1,"
+                "(cub_031_A:1,cub_032_B:1,cub_033_C:1):1,cub_034_D:1);")
+
 SMALL_DEPTHS = (1, 1, 2, 1)
 SMALL_DIMS = (8, 16, 32, 64)
 # stride thresholds that give the small widths the 26 / 13 / 7 surgery
@@ -71,6 +78,45 @@ def compiled_pair(newick, per_child=10, per_desc=0, protopool=False,
     kw = dict(class_names=class_names, protopool=protopool, weighted=weighted)
     return (jax_compile(budget(rj, per_child, per_desc), **kw),
             torch_compile(budget(rt, per_child, per_desc), **kw))
+
+
+def port_tree(newick, per_child=10, per_desc=0):
+    """The port's compiled tree of ``newick`` alone, budgeted as ``budget``
+    does (no JAX package: the card's host runs this)."""
+    import pipnet_tpu_torch.tree as tt
+    root = tt.construct_phylo_tree(phylo=tt.Phylogeny(newick=newick))
+    root.assign_all_descendents()
+    return tt.compile_tree(budget(root, per_child, per_desc), protopool=False)
+
+
+def flat_classes(n):
+    """Generated class names of a flat run (no dataset needed)."""
+    return [f"cub_{i:03d}" for i in range(1, n + 1)]
+
+
+def flat_root(module, num_classes, num_protos):
+    """The original flat PIP-Net tree of ``module`` (either package's
+    ``tree``): one node of ``num_protos`` prototypes over every class,
+    budgeted as ``build_pipnet`` does with ``num_features`` set and no
+    per-child budget."""
+    root = module.flat_tree(flat_classes(num_classes), num_protos)
+    root.set_num_protos(num_protos_per_descendant=0, num_protos_per_child=0,
+                        min_protos=num_protos, split_protos=True)
+    return root
+
+
+def flat_pair(num_classes, num_protos):
+    """The flat tree compiled by both packages."""
+    import pipnet_tpu.tree as jt
+    import pipnet_tpu_torch.tree as tt
+    return tuple(mod.compile_tree(flat_root(mod, num_classes, num_protos), protopool=False)
+                 for mod in (jt, tt))
+
+
+def flat_tree_port(num_classes, num_protos):
+    """The port's compiled flat tree alone (the card's host has no JAX)."""
+    import pipnet_tpu_torch.tree as tt
+    return tt.compile_tree(flat_root(tt, num_classes, num_protos), protopool=False)
 
 
 @contextlib.contextmanager
