@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``pipnet_tpu_torch``) on one CUDA card.
 
-    python3 chip_smoke.py [--baseline CHECKOUT]
+    python3 chip_smoke.py [--baseline CHECKOUT] [--only blocks]
 
 Phases, each of which fails the run loudly:
 
@@ -15,9 +15,11 @@ Phases, each of which fails the run loudly:
    off and in bf16) and on a small tree with several bucket widths and a
    padded tail; the depthwise conv K3 and the fused block K4 at the four
    ConvNeXt-tiny-26 stage maps at B=128 (and K4 at the serving B=8), in f32
-   and bf16, on small ragged shapes, and K3's gradient against cuDNN's; with
-   the kernel's time, its plain version's, one PyTorch library call's where
-   one computes the same function, and the card's bound; K1 and K2 also at
+   and bf16, on small ragged shapes, and K3's gradient against cuDNN's (in
+   bf16 K4's three launches also one by one against their plain pieces,
+   each timed beside its bound); with the kernel's time, its plain
+   version's, one PyTorch library call's where one computes the same
+   function, and the card's bound; K1 and K2 also at
    the edges of their bf16 tiling (99 rows, D = 72, bucket widths that do
    not divide the tile, one image, tau = 0.5); K1, K1b and K2 on flat
    PIP-Net's node of 768 prototypes (K1 at B=8 in both dtypes and at 128 in
@@ -50,10 +52,10 @@ Phases, each of which fails the run loudly:
    parameters and batch, and the head gradients through the kernels
    against autograd through the plain composition on the step's features;
 8. training, path C: path A's step in the fused-backbone configuration
-   (K4 18, K1 1, K1b 1 per step); before it, path A's and path C's
-   first-step losses from the same parameters and batch, and one stage-3
-   block's gradients through ``FusedCNBlock`` against autograd through the
-   unfused composition;
+   (K4 54, three launches for each of the 18 blocks; K1 1, K1b 1 per
+   step); before it, path A's and path C's first-step losses from the
+   same parameters and batch, and one stage-3 block's gradients through
+   ``FusedCNBlock`` against autograd through the unfused composition;
 9. flat PIP-Net (the flagship config with ``num_features`` 768 and no
    per-child budget, one node of 768 prototypes over 200 generated classes;
    seeded weights, the add-on kernel scaled so the softmax over 768 peaks):
@@ -62,7 +64,9 @@ Phases, each of which fails the run loudly:
    per step), the path A / B cross-checks, and path B (K2 3, K1 2, K1b 2).
 
 The last two lines of standard output are the ``{"kernels": [...]}``
-record and ``{"ok": true, "device": {...}}``.  Without a CUDA card, or
+record and ``{"ok": true, "device": {...}}``.  ``--only blocks`` runs
+phases 1, 2 and the K3 and K4 checks of phase 3, then stops without
+either line: it cannot pass for a full run.  Without a CUDA card, or
 without the rest of the repository beside it, it exits non-zero before
 printing either.
 """
@@ -743,31 +747,56 @@ def _block_inputs(shape, dtype, seed):
 
 def check_cnblock(shape, dtype, fast_gelu, seed, timed=False):
     """K4 against its plain version (the Pallas kernel's rounding order) on
-    the card.  No PyTorch call computes the branch (``library_ms`` None);
-    ``unfused_ms`` is the eager composition K4 replaces."""
-    from pipnet_tpu_torch.ops.cnblock import (cnblock_branch, cnblock_branch_reference,
-                                              cnblock_branch_unfused)
+    the card; in bf16 also each of its three launches (``cnblock_dwln``,
+    ``cnblock_up``, ``cnblock_down``) against its plain piece on the same
+    inputs, at the same bar.  No PyTorch call computes the branch
+    (``library_ms`` None); ``unfused_ms`` is the eager composition K4
+    replaces; ``parts_ms`` and ``parts_bound_ms`` time each launch alone."""
+    from pipnet_tpu_torch.ops import cnblock as cb
     args = _block_inputs(shape, dtype, seed)
+    x, dwk, dwb, lns, lnb, w1, b1, w2, b2, ls = args
     rec = {"shape": list(shape), "dtype": _dtype_name(dtype),
            "gelu": "tanh" if fast_gelu else "erf"}
     with torch.inference_mode():
-        out = cnblock_branch(*args, fast_gelu=fast_gelu)
+        out = cb.cnblock_branch(*args, fast_gelu=fast_gelu)
         torch.cuda.synchronize()
         _rel_check("fused block (K4)", out,
-                   cnblock_branch_reference(*args, fast_gelu=fast_gelu), BLOCK_REL[dtype], rec)
+                   cb.cnblock_branch_reference(*args, fast_gelu=fast_gelu), BLOCK_REL[dtype], rec)
+        if dtype == torch.bfloat16:
+            z = cb.cnblock_dwln_reference(x, dwk, dwb, lns, lnb)
+            h1 = cb.cnblock_up_reference(z, w1, b1, fast_gelu=fast_gelu)
+            parts = {"dwln": (lambda: cb.cnblock_dwln(x, dwk, dwb, lns, lnb), z),
+                     "up": (lambda: cb.cnblock_up(z, w1, b1, fast_gelu=fast_gelu), h1),
+                     "down": (lambda: cb.cnblock_down(h1, w2, b2, ls),
+                              cb.cnblock_down_reference(h1, w2, b2, ls))}
+            rec["parts"] = {}
+            for name, (launch, want) in parts.items():
+                rec["parts"][name] = {}
+                _rel_check(f"K4's {name} launch", launch(), want, BLOCK_REL[dtype],
+                           rec["parts"][name])
         if timed:
-            rec["ms"] = time_ms(lambda: cnblock_branch(*args, fast_gelu=fast_gelu))
-            rec["plain_ms"] = time_ms(lambda: cnblock_branch_reference(
+            rec["ms"] = time_ms(lambda: cb.cnblock_branch(*args, fast_gelu=fast_gelu))
+            rec["plain_ms"] = time_ms(lambda: cb.cnblock_branch_reference(
                 *args, fast_gelu=fast_gelu), iters=5)
-            rec["unfused_ms"] = time_ms(lambda: cnblock_branch_unfused(
+            rec["unfused_ms"] = time_ms(lambda: cb.cnblock_branch_unfused(
                 *args, fast_gelu=fast_gelu))
             rec["library_ms"] = None       # no single PyTorch call computes the branch
-            x = args[0]
             npix, C = x.numel() // shape[-1], shape[-1]
-            nbytes = (2 * x.numel() + sum(a.numel() for a in args[1:])) * x.element_size()
+            es = x.element_size()
+            nbytes = (2 * x.numel() + sum(a.numel() for a in args[1:])) * es
             # the two products on the tensor cores (bf16) or SIMT units (f32),
             # the 49 depthwise taps in f32
             rec.update(bound(nbytes, 16.0 * npix * C * C, dtype, f32_ops=2.0 * 49 * npix * C))
+            if dtype == torch.bfloat16:
+                rec["parts_ms"] = {name: time_ms(launch) for name, (launch, _) in parts.items()}
+                product = 8.0 * npix * C * C
+                rec["parts_bound_ms"] = {
+                    "dwln": bound((2 * x.numel() + 52 * C) * es, 0.0, dtype,
+                                  f32_ops=2.0 * 49 * npix * C)["bound_ms"],
+                    "up": bound((5 * npix * C + 4 * C * C + 4 * C) * es, product,
+                                dtype)["bound_ms"],
+                    "down": bound((5 * npix * C + 4 * C * C + 2 * C) * es, product,
+                                  dtype)["bound_ms"]}
     return rec
 
 
@@ -775,7 +804,8 @@ def block_kernel_phase(card: str, baseline=None):
     """K3 and K4 against their plain versions (TF32 off, as ``kernel_phase``
     left it): the four stage maps at B=128 in bf16 (timed), f32 shapes,
     small ragged shapes (odd H and W, C not a multiple of the channel tile,
-    a ragged last pixel tile), K4 at the serving B=8, and K3's gradient."""
+    a ragged last pixel tile), K4 at every map of fused serving (B=8), and
+    K3's gradient."""
     last = STAGES[-1]
     dw = {}
     for i, hwc in enumerate(STAGES):
@@ -797,8 +827,11 @@ def block_kernel_phase(card: str, baseline=None):
     for i, hwc in enumerate(STAGES):
         blocks[f"stage{i}_bf16"] = check_cnblock((STEP_IMAGES, *hwc), torch.bfloat16, True,
                                                  40 + i, timed=True)
-    blocks["stage3_b8_bf16"] = check_cnblock((SERVE_IMAGES, *last), torch.bfloat16, True, 44,
-                                             timed=True)
+    # every map fused serving gives K4 (B=8; stages 2 and 3 leave a ragged
+    # last row tile of the products)
+    for i, hwc in enumerate(STAGES):
+        blocks[f"stage{i}_b8_bf16"] = check_cnblock((SERVE_IMAGES, *hwc), torch.bfloat16, True,
+                                                    (47, 48, 49, 44)[i], timed=True)
     for fast_gelu in (True, False):
         g = "tanh" if fast_gelu else "erf"
         blocks[f"stage3_b8_f32_{g}"] = check_cnblock((SERVE_IMAGES, *last), torch.float32,
@@ -994,13 +1027,14 @@ def serving_phase(card: str, setup: Setup, fused: bool = False):
         f"answered; kernel launches during the requests: {launches}")
     # per served forward: one K1 launch (on a wide node two, the row
     # statistics over its parts, then the normalised pass), and with the
-    # fused backbone one K4 launch per block; nothing of the training
-    # kernels, no K3
+    # fused backbone three K4 launches per block (bf16: depthwise +
+    # LayerNorm, then the two products); nothing of the training kernels,
+    # no K3
     forwards = len(single) + 1
     blocks = sum(pred.model.backbone.depths) if fused else 0
     k1 = 2 if setup.wide_node else 1
     check_launches(label, launches, {**NO_LAUNCHES, "fused_head": k1 * forwards,
-                                     "cnblock": blocks * forwards})
+                                     "cnblock": 3 * blocks * forwards})
     answers = [body for _, body in served] + served_b
 
     # the same images through the backbone in the batches the server formed
@@ -1475,6 +1509,9 @@ def main(argv=None) -> int:
     ap.add_argument("--baseline", metavar="CHECKOUT",
                     help="an older checkout of this repository whose K1 and K2 are timed "
                          "in turns with this one's in the kernel phase")
+    ap.add_argument("--only", choices=["blocks"],
+                    help="blocks: build, check and time K3 and K4 only, then stop without "
+                         "the kernels record or the ok line")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1500,6 +1537,10 @@ def main(argv=None) -> int:
                 say(f"ptxas {src}: {line.strip()}")
 
     baseline = baseline_kernels(args.baseline) if args.baseline else None
+    if args.only == "blocks":
+        block_kernel_phase(card, baseline)
+        say(f"--only blocks: done in {time.perf_counter() - t_start:.1f} s; no full run")
+        return 0
     records, backward, nopf = kernel_phase(card, baseline)
     dw, blocks = block_kernel_phase(card, baseline)
 
@@ -1520,7 +1561,7 @@ def main(argv=None) -> int:
     n_blocks = sum(CONVNEXT_TINY_DEPTHS)
     check_launches("training path C", train_c["launches"], {
         **NO_LAUNCHES, "fused_head": TIMED_STEPS, "head_backward": TIMED_STEPS,
-        "cnblock": n_blocks * TIMED_STEPS})
+        "cnblock": 3 * n_blocks * TIMED_STEPS})
     # flat PIP-Net: K1 and K1b run its 768-wide node as parts, two launches
     # each a call (row statistics, then the pass that writes), K2 three (its
     # third adds each row's parts and takes the log sums)

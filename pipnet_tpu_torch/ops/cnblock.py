@@ -1,16 +1,21 @@
 """K4: one ConvNeXt block branch (depthwise 7x7 + bias -> LayerNorm -> Linear
-C->4C -> GELU -> Linear 4C->C -> layer-scale) fused into one hand-written
-CUDA kernel for Hopper, with its exact gradient by recompute.
+C->4C -> GELU -> Linear 4C->C -> layer-scale) as hand-written CUDA kernels
+for Hopper, with its exact gradient by recompute.
 
 Replaces ``pipnet_tpu/ops/pallas_convnext.py::_cnblock_kernel`` (behind
-``make_fused_cnblock``); its kernel is ``csrc/cnblock.cu``, built for
+``make_fused_cnblock``); its kernels are in ``csrc/cnblock.cu``, built for
 ``sm_90a`` at first use (``ops/build.py``) and bound with ``ctypes``.  Its
 depthwise stage is K3's device code (``csrc/dwconv_tile.cuh``).
 
 What bounds K4 on an H100: the two products, 16 * pixels * C^2 operations
 (817 GFLOP at B=128 and stage 3, 0.83 ms at the 989 TFLOP/s bf16 peak),
-above its input and output bytes (266 MB, 79 us).  A block owns 32 pixels
-and all C channels; z and h1 stay in shared memory.  See the source.
+above its input and output bytes (266 MB, 79 us).  In bf16 it is three
+launches, each with a plain version here: ``cnblock_dwln`` (depthwise +
+LayerNorm, z to device memory), ``cnblock_up`` (h1 = GELU(z W1 + b1)) and
+``cnblock_down`` ((h1 W2 + b2) * layer_scale), the last two one TMA +
+``wgmma`` product kernel with a fused epilogue whose tiling is
+``gemm_plan``; h1 makes one round trip through device memory.  In f32 it is
+one launch that keeps z and h1 in shared memory.  See the source.
 
 Three functions of the same inputs, in the JAX package's layout (x
 (B, H, W, C), dw_kernel (7, 7, C), w1 (C, 4C), w2 (4C, C), vectors):
@@ -20,26 +25,28 @@ Three functions of the same inputs, in the JAX package's layout (x
   K4's backward;
 * ``cnblock_branch_reference``: the plain version of K4 in the Pallas
   kernel's rounding order (f32 taps, LayerNorm with its scale and bias in
-  f32, f32 accumulation and GELU, one cast of the output), which differs
-  from the unfused composition's in bf16;
+  f32, f32 accumulation and GELU, one cast each of z, h1 and the output),
+  which differs from the unfused composition's in bf16: the composition of
+  ``cnblock_dwln_reference``, ``cnblock_up_reference`` and
+  ``cnblock_down_reference``;
 * ``cnblock_branch``: the wrapper.  CUDA tensors go through K4 (or raise),
   CPU tensors through ``cnblock_branch_reference``; ``cnblock_branch.
-  launches`` counts kernel launches.  With autograd recording and an input
-  that needs a gradient it goes through ``FusedCNBlock``, which saves only
-  its inputs and recomputes the unfused composition in its backward.
+  launches`` counts kernel launches (3 a call in bf16, 1 in f32).  With
+  autograd recording and an input that needs a gradient it goes through
+  ``FusedCNBlock``, which saves only its inputs and recomputes the unfused
+  composition in its backward.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from .build import check_cuda, kernel_entry
 from .dwconv import dwconv7x7_taps_f32
-from .fused_head import _DTYPE_CODES
 
 MAX_CHANNELS = 768          # MAX_C in csrc/cnblock.cu
 
@@ -68,21 +75,59 @@ def cnblock_branch_unfused(x, dw_kernel, dw_bias, ln_scale, ln_bias, w1, b1, w2,
     return h * layer_scale
 
 
-def cnblock_branch_reference(x, dw_kernel, dw_bias, ln_scale, ln_bias, w1, b1, w2, b2,
-                             layer_scale, *, fast_gelu: bool) -> torch.Tensor:
-    """Plain PyTorch version of K4, in the Pallas kernel's rounding order
-    (``pallas_convnext.py:72-97``): depthwise taps and bias in f32 from x
-    cast to f32; LayerNorm (centred variance) with its scale and bias in
-    f32, cast to the dtype; each product accumulates in f32; b1 and GELU in
-    f32, cast; b2 and layer-scale in f32, and one cast of the output."""
-    dt = x.dtype
+def cnblock_dwln_reference(x, dw_kernel, dw_bias, ln_scale, ln_bias) -> torch.Tensor:
+    """Plain version of K4's first launch: depthwise taps and bias in f32
+    from x cast to f32, LayerNorm (centred variance, eps 1e-6) with its
+    scale and bias in f32, z cast to x's dtype: (B, H, W, C)."""
     f = lambda t: t.float()  # noqa: E731
     h = dwconv7x7_taps_f32(x, dw_kernel) + f(dw_bias)
     mu = h.mean(-1, keepdim=True)
     var = ((h - mu) ** 2).mean(-1, keepdim=True)
-    z = ((h - mu) * torch.rsqrt(var + 1e-6) * f(ln_scale) + f(ln_bias)).to(dt)
-    h1 = _gelu(f(z) @ f(w1) + f(b1), fast_gelu).to(dt)
-    return ((f(h1) @ f(w2) + f(b2)) * f(layer_scale)).to(dt)
+    return ((h - mu) * torch.rsqrt(var + 1e-6) * f(ln_scale) + f(ln_bias)).to(x.dtype)
+
+
+def cnblock_up_reference(z, w1, b1, *, fast_gelu: bool) -> torch.Tensor:
+    """Plain version of the second launch: h1 = GELU(z w1 + b1), the product
+    accumulated in f32, b1 and GELU in f32, cast to z's dtype: (..., 4C)."""
+    return _gelu(z.float() @ w1.float() + b1.float(), fast_gelu).to(z.dtype)
+
+
+def cnblock_down_reference(h1, w2, b2, layer_scale) -> torch.Tensor:
+    """Plain version of the third launch: ((h1 w2) + b2) * layer_scale in
+    f32, cast once to h1's dtype: (..., C)."""
+    return ((h1.float() @ w2.float() + b2.float()) * layer_scale.float()).to(h1.dtype)
+
+
+def cnblock_branch_reference(x, dw_kernel, dw_bias, ln_scale, ln_bias, w1, b1, w2, b2,
+                             layer_scale, *, fast_gelu: bool) -> torch.Tensor:
+    """Plain PyTorch version of K4, in the Pallas kernel's rounding order
+    (``pallas_convnext.py:72-97``): the three pieces above, z and h1 each
+    rounded once to the dtype."""
+    z = cnblock_dwln_reference(x, dw_kernel, dw_bias, ln_scale, ln_bias)
+    h1 = cnblock_up_reference(z, w1, b1, fast_gelu=fast_gelu)
+    return cnblock_down_reference(h1, w2, b2, layer_scale)
+
+
+class GemmPlan(NamedTuple):
+    """The tiling of one product launch (``csrc/cnblock.cu::cnblock_gemm``):
+    output tiles of 128 rows x ``bn`` columns, ``grid_m`` x ``grid_n`` of
+    them (column tiles the fastest grid index), and ``k_steps`` depth
+    stages of 64 (TMA fills zeros past every edge)."""
+    bn: int
+    grid_m: int
+    grid_n: int
+    k_steps: int
+
+
+GEMM_ROWS, GEMM_DEPTH = 128, 64     # BM and BK of csrc/head_tile.cuh::hopper
+
+
+def gemm_plan(M: int, N: int, K: int) -> GemmPlan:
+    """The plan of an (M, K) x (K, N) product: 256-column tiles where they
+    divide N (a 64 x 256 f32 accumulator is 128 registers a thread), else
+    128 (N = 96 and 192 leave part of one tile empty)."""
+    bn = 256 if N % 256 == 0 else 128
+    return GemmPlan(bn, -(-M // GEMM_ROWS), -(-N // bn), -(-K // GEMM_DEPTH))
 
 
 def check_cnblock_inputs(x, dw_kernel, dw_bias, ln_scale, ln_bias, w1, b1, w2, b2,
@@ -108,16 +153,32 @@ def check_cnblock_inputs(x, dw_kernel, dw_bias, ln_scale, ln_bias, w1, b1, w2, b
             raise ValueError(f"x on {x.device}, {name} on {t.device}")
         if t.dtype != x.dtype:
             raise TypeError(f"{name} is {t.dtype}, x is {x.dtype}: one dtype throughout")
-    if x.dtype not in _DTYPE_CODES:
+    if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"the fused block kernel takes float32 or bfloat16, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("the fused block kernel needs a contiguous x")
 
 
-def _launch(x, dw_kernel, dw_bias, ln_scale, ln_bias, w1, b1, w2, b2, layer_scale,
-            fast_gelu: bool) -> torch.Tensor:
-    check_cnblock_inputs(x, dw_kernel, dw_bias, ln_scale, ln_bias, w1, b1, w2, b2,
-                         layer_scale)
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _check_bf16_part(what: str, first: torch.Tensor, *rest: torch.Tensor) -> None:
+    """Raise unless every tensor is bfloat16 on ``first``'s CUDA device and
+    ``first`` is contiguous and 16-byte aligned (TMA reads it)."""
+    if first.device.type != "cuda":
+        raise ValueError(f"{what} launches on cuda, not {first.device}")
+    for t in (first, *rest):
+        if t.device != first.device:
+            raise ValueError(f"{what}: inputs on {first.device} and {t.device}")
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"{what} takes bfloat16 (f32 runs the fused launch), got {t.dtype}")
+    if not first.is_contiguous() or first.data_ptr() % 16:
+        raise ValueError(f"{what} needs a contiguous, 16-byte aligned input")
+
+
+def _launch_f32(x, dw_kernel, dw_bias, ln_scale, ln_bias, w1, b1, w2, b2, layer_scale,
+                fast_gelu: bool) -> torch.Tensor:
     B, H, W, C = x.shape
     # the kernel reads W1 and W2 transposed, as nn.Linear keeps them: for a
     # w1 that is a Linear weight's .t() view, .t().contiguous() copies nothing
@@ -126,24 +187,100 @@ def _launch(x, dw_kernel, dw_bias, ln_scale, ln_bias, w1, b1, w2, b2, layer_scal
             b2.contiguous(), layer_scale.contiguous()]
     params = (ctypes.c_void_p * 10)(*[t.data_ptr() for t in keep])
     out = torch.empty_like(x)
-    lib, fn = kernel_entry("cnblock", "pipnet_cnblock_forward",
-                           [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    lib, fn = kernel_entry("cnblock", "pipnet_cnblock_f32",
+                           [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
         code = fn(ctypes.cast(params, ctypes.c_void_p), out.data_ptr(), B, H, W, C,
-                  int(fast_gelu), _DTYPE_CODES[x.dtype], stream)
+                  int(fast_gelu), _stream(x.device))
     check_cuda(lib, code, "fused block launch")
     cnblock_branch.launches += 1
     return out
 
 
-def _forward(*args, fast_gelu: bool) -> torch.Tensor:
-    x = args[0]
+def cnblock_dwln(x, dw_kernel, dw_bias, ln_scale, ln_bias) -> torch.Tensor:
+    """K4's first launch in bf16: z (B, H, W, C) = LayerNorm(depthwise(x) +
+    dw_bias) * ln_scale + ln_bias; CPU tensors take its plain version."""
+    if x.device.type == "cpu":
+        return cnblock_dwln_reference(x, dw_kernel, dw_bias, ln_scale, ln_bias)
+    _check_bf16_part("the depthwise + LayerNorm launch", x, dw_kernel, dw_bias, ln_scale, ln_bias)
+    B, H, W, C = x.shape
+    if C % 8 or not 0 < C <= MAX_CHANNELS or tuple(dw_kernel.shape) != (7, 7, C):
+        raise ValueError(f"the depthwise + LayerNorm launch takes C a multiple of 8 up to "
+                         f"{MAX_CHANNELS} and a (7, 7, C) kernel, got {tuple(x.shape)} and "
+                         f"{tuple(dw_kernel.shape)}")
+    keep = [t.contiguous() for t in (dw_kernel, dw_bias, ln_scale, ln_bias)]
+    z = torch.empty_like(x)
+    lib, fn = kernel_entry("cnblock", "pipnet_cnblock_dwln",
+                           [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    with torch.cuda.device(x.device):
+        code = fn(x.data_ptr(), *[t.data_ptr() for t in keep], z.data_ptr(), B, H, W, C,
+                  _stream(x.device))
+    check_cuda(lib, code, "depthwise + LayerNorm launch")
+    cnblock_branch.launches += 1
+    return z
+
+
+_GELU_BIAS, _BIAS_SCALE = 0, 1      # the epilogues of csrc/cnblock.cu::cnblock_gemm
+
+
+def _gemm(a, w, bias, scale: Optional[torch.Tensor], epilogue: int,
+          fast_gelu: bool) -> torch.Tensor:
+    """One product launch: epilogue(a (..., K) @ w (K, N)), w in the JAX
+    layout (the kernel reads w^T, nn.Linear's layout, K-major)."""
+    what = "the block's product launch"
+    _check_bf16_part(what, a, w, bias, *([] if scale is None else [scale]))
+    K, N = w.shape
+    wt = w.t().contiguous()          # a Linear weight's .t() view: no copy
+    if a.shape[-1] != K or K % 8 or N % 8 or wt.data_ptr() % 16 or tuple(bias.shape) != (N,) \
+            or (scale is not None and tuple(scale.shape) != (N,)):
+        raise ValueError(f"{what}: a {tuple(a.shape)}, w {tuple(w.shape)}, bias "
+                         f"{tuple(bias.shape)}: K and N multiples of 8, a 16-byte aligned w")
+    rows = a.numel() // K
+    plan = gemm_plan(rows, N, K)
+    keep = [bias.contiguous(), (bias if scale is None else scale).contiguous()]
+    if any(t.data_ptr() % 4 for t in keep):
+        raise ValueError(f"{what}: bias and scale are read as pairs, 4-byte aligned")
+    out = torch.empty((*a.shape[:-1], N), dtype=a.dtype, device=a.device)
+    lib, fn = kernel_entry("cnblock", "pipnet_cnblock_gemm",
+                           [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+    with torch.cuda.device(a.device):
+        code = fn(a.data_ptr(), wt.data_ptr(), keep[0].data_ptr(), keep[1].data_ptr(),
+                  out.data_ptr(), rows, N, K, *plan, epilogue, int(fast_gelu),
+                  _stream(a.device))
+    check_cuda(lib, code, "block product launch")
+    cnblock_branch.launches += 1
+    return out
+
+
+def cnblock_up(z, w1, b1, *, fast_gelu: bool) -> torch.Tensor:
+    """K4's second launch in bf16: h1 = GELU(z w1 + b1), (..., 4C); CPU
+    tensors take its plain version."""
+    if z.device.type == "cpu":
+        return cnblock_up_reference(z, w1, b1, fast_gelu=fast_gelu)
+    return _gemm(z, w1, b1, None, _GELU_BIAS, fast_gelu)
+
+
+def cnblock_down(h1, w2, b2, layer_scale) -> torch.Tensor:
+    """K4's third launch in bf16: (h1 w2 + b2) * layer_scale, (..., C); CPU
+    tensors take its plain version."""
+    if h1.device.type == "cpu":
+        return cnblock_down_reference(h1, w2, b2, layer_scale)
+    return _gemm(h1, w2, b2, layer_scale, _BIAS_SCALE, False)
+
+
+def _forward(x, dw_kernel, dw_bias, ln_scale, ln_bias, w1, b1, w2, b2, layer_scale, *,
+             fast_gelu: bool) -> torch.Tensor:
+    args = (x, dw_kernel, dw_bias, ln_scale, ln_bias, w1, b1, w2, b2, layer_scale)
     if x.device.type == "cpu":
         return cnblock_branch_reference(*args, fast_gelu=fast_gelu)
     if x.device.type != "cuda":
         raise ValueError(f"the fused block runs on cuda or cpu, not {x.device}")
-    return _launch(*args, fast_gelu)
+    check_cnblock_inputs(*args)
+    if x.dtype == torch.float32:
+        return _launch_f32(*args, fast_gelu)
+    z = cnblock_dwln(x, dw_kernel, dw_bias, ln_scale, ln_bias)
+    h1 = cnblock_up(z, w1, b1, fast_gelu=fast_gelu)
+    return cnblock_down(h1, w2, b2, layer_scale)
 
 
 def cnblock_branch(x, dw_kernel, dw_bias, ln_scale, ln_bias, w1, b1, w2, b2, layer_scale,

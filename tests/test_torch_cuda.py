@@ -473,6 +473,57 @@ def test_cnblock_kernel_matches_plain(card, dtype, fast_gelu, shape):
     assert (got.float() - want.float()).abs().max() <= bar
 
 
+# K4's bf16 product launches at the shapes the model gives them: each stage
+# at the serving B=8 (stage 0: C = 96, a depth of 1.5 swizzle atoms and a
+# 96-column output in a 128-column tile), stage 3 at the training B=128,
+# and a ragged map with C = 40 (one depth stage, N = 160, 198 rows)
+BLOCK_PART_SHAPES = [(8, 56, 56, 96), (8, 28, 28, 192), (8, 27, 27, 384), (8, 26, 26, 768),
+                     (128, 26, 26, 768), (2, 9, 11, 40)]
+
+
+def _bf16_within_one_ulp_of_scale(got, want):
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    scale = want.float().abs().max()
+    assert (got.float() - want.float()).abs().max() <= 2.0 ** -7 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fast_gelu", [True, False])
+@pytest.mark.parametrize("shape", BLOCK_PART_SHAPES)
+def test_cnblock_products_match_plain(card, shape, fast_gelu):
+    """K4's second and third launches (``cnblock_up``, ``cnblock_down``: the
+    TMA + wgmma product with its epilogue) against their plain pieces on the
+    same inputs, bf16 within one bf16 ulp of the output's scale (one
+    rounding of f32 sums taken in another order)."""
+    from pipnet_tpu_torch.ops import cnblock as cb
+    x, dwk, dwb, lns, lnb, w1, b1, w2, b2, ls = _cnblock_inputs(shape, seed=sum(shape),
+                                                                  dtype=torch.bfloat16)
+    with torch.inference_mode():
+        z = cb.cnblock_dwln_reference(x, dwk, dwb, lns, lnb)
+        h1 = cb.cnblock_up_reference(z, w1, b1, fast_gelu=fast_gelu)
+        got_h1 = cb.cnblock_up(z, w1, b1, fast_gelu=fast_gelu)
+        got_out = cb.cnblock_down(h1, w2, b2, ls)
+        torch.cuda.synchronize()
+        want_out = cb.cnblock_down_reference(h1, w2, b2, ls)
+    _bf16_within_one_ulp_of_scale(got_h1, h1)
+    _bf16_within_one_ulp_of_scale(got_out, want_out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 9, 11, 40), (8, 56, 56, 96), (8, 26, 26, 768),
+                                   (1, 3, 5, 16)])
+def test_cnblock_dwln_matches_plain(card, shape):
+    """K4's first launch (depthwise + LayerNorm, z in bf16) against
+    ``cnblock_dwln_reference``: within one bf16 ulp of z's scale."""
+    from pipnet_tpu_torch.ops import cnblock as cb
+    x, dwk, dwb, lns, lnb = _cnblock_inputs(shape, seed=sum(shape), dtype=torch.bfloat16)[:5]
+    with torch.inference_mode():
+        got = cb.cnblock_dwln(x, dwk, dwb, lns, lnb)
+        torch.cuda.synchronize()
+        want = cb.cnblock_dwln_reference(x, dwk, dwb, lns, lnb)
+    _bf16_within_one_ulp_of_scale(got, want)
+
+
 def _cnblock_inputs(shape, seed, dtype):
     """x and the ten branch inputs in the JAX layout (w1 (C, 4C), w2 (4C, C)),
     at the scales of ``random_jax_params``."""
@@ -490,10 +541,11 @@ def _cnblock_inputs(shape, seed, dtype):
 
 @pytest.mark.cuda
 def test_dwconv_and_cnblock_count_launches_and_check_inputs(card):
-    """Autograd through K3 launches it once forward and once for dx; the
-    backward of ``FusedCNBlock`` recomputes the unfused composition and
-    launches no K4.  Bad inputs raise before any launch."""
-    from pipnet_tpu_torch.ops.cnblock import cnblock_branch
+    """Autograd through K3 launches it once forward and once for dx; K4 is
+    one launch in f32 and three in bf16 (depthwise + LayerNorm, then the two
+    products); the backward of ``FusedCNBlock`` recomputes the unfused
+    composition and launches no K4.  Bad inputs raise before any launch."""
+    from pipnet_tpu_torch.ops.cnblock import cnblock_branch, cnblock_up
     from pipnet_tpu_torch.ops.dwconv import dwconv7x7
     counts = lambda: (dwconv7x7.launches, cnblock_branch.launches)  # noqa: E731
     x, k = _dw_inputs((2, 6, 7, 16), seed=1, dtype=torch.float32)
@@ -512,6 +564,11 @@ def test_dwconv_and_cnblock_count_launches_and_check_inputs(card):
     out.sum().backward()
     assert [a - b for a, b in zip(counts(), before)] == [3, 1]
     assert args[0].grad is not None and args[5].grad is None
+    bf = [a.detach().bfloat16().requires_grad_(i == 0) for i, a in enumerate(args)]
+    out = cnblock_branch(*bf, fast_gelu=True)
+    assert [a - b for a, b in zip(counts(), before)] == [3, 4]
+    out.float().sum().backward()
+    assert [a - b for a, b in zip(counts(), before)] == [3, 4]
     before = counts()
     plain = [a.detach() for a in args]
     with torch.inference_mode():
@@ -532,4 +589,6 @@ def test_dwconv_and_cnblock_count_launches_and_check_inputs(card):
         x12 = _cnblock_inputs((1, 4, 4, 12), seed=3, dtype=torch.float32)
         with pytest.raises(ValueError):
             cnblock_branch(*x12, fast_gelu=True)                        # C % 8 != 0
+        with pytest.raises(TypeError):                                  # f32 launches fused
+            cnblock_up(plain[0].reshape(-1, 16), plain[5], plain[6], fast_gelu=True)
     assert counts() == before
