@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``pipnet_tpu_torch``) on one CUDA card.
 
-    python3 chip_smoke.py [--baseline CHECKOUT] [--only blocks]
+    python3 chip_smoke.py [--baseline CHECKOUT] [--only blocks|data]
 
 Phases, each of which fails the run loudly:
 
@@ -56,7 +56,20 @@ Phases, each of which fails the run loudly:
    step); before it, path A's and path C's first-step losses from the
    same parameters and batch, and one stage-3 block's gradients through
    ``FusedCNBlock`` against autograd through the unfused composition;
-9. flat PIP-Net (the flagship config with ``num_features`` 768 and no
+9. training from data: the flagship run's dataset (``synthetic:190:48:s1``)
+   generated by the port at 8 images a class, its loaders as the JAX
+   package's CLI builds them (batch 64, the flagship's leave-out list,
+   device geometric), the tree built from the fixture's phylogeny and
+   checked against the flagship's (189 nodes, 3780 prototypes), the
+   device-resident uint8 cache of the 232^2 bases, and path A's step fed
+   ``cache.fetch(rows)`` of the epoch's index batches (device transform1
+   and transform2 inside the step): warm-up and timed steps with their
+   exact launches (K1 1, K1b 1 per step), step time, images/s and busy
+   share; then one batch's augmentation timed on the card and held to the
+   same functions on the CPU for the same draws (within one grey level),
+   and the eval cache's normalized batch held to the host
+   ``EvalTransform`` (within 2e-6);
+10. flat PIP-Net (the flagship config with ``num_features`` 768 and no
    per-child budget, one node of 768 prototypes over 200 generated classes;
    seeded weights, the add-on kernel scaled so the softmax over 768 peaks):
    a run directory served as in 5 (K1 twice per forward: the row statistics
@@ -65,8 +78,9 @@ Phases, each of which fails the run loudly:
 
 The last two lines of standard output are the ``{"kernels": [...]}``
 record and ``{"ok": true, "device": {...}}``.  ``--only blocks`` runs
-phases 1, 2 and the K3 and K4 checks of phase 3, then stops without
-either line: it cannot pass for a full run.  Without a CUDA card, or
+phases 1, 2 and the K3 and K4 checks of phase 3, ``--only data`` phases
+1, 2 and 9, then each stops without either line: neither can pass for a
+full run.  Without a CUDA card, or
 without the rest of the repository beside it, it exits non-zero before
 printing either.
 """
@@ -151,6 +165,9 @@ STAGES = ((56, 56, 96), (28, 28, 192), (27, 27, 384), (26, 26, 768))
 STEP_IMAGES, SERVE_IMAGES = 128, 8
 # the flagship train step (bench.py:114-130, the flagship run config)
 TRAIN_BATCH, WARMUP_STEPS, TIMED_STEPS = 64, 3, 10
+# training from data: the flagship run's dataset (synthetic:190:48:s1) cut
+# from 48 to 8 images a class (1520 train images) to fit the run's time
+DATA_FIXTURE = "synthetic:190:8:s1"
 
 
 def say(*parts) -> None:
@@ -1156,6 +1173,7 @@ def breakdown(pred, card: str, label: str) -> None:
         rec["kernels_per_forward"] = sum(e.count for e in kernels) / n
         top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
         rec["top_kernels_ms"] = {e.key[:60]: e.self_device_time_total / 1e3 / n for e in top}
+    rec["host_waits_per_step"] = host_waits(prof, n)
     say(f"{label} breakdown B={pred.batch_size}: {json.dumps(rec)} [{card}]")
 
 
@@ -1274,6 +1292,7 @@ def training_phase(card: str, setup: Setup, fuse: bool, fused_backbone: bool = F
         rec["kernels_per_step"] = sum(e.count for e in kernels) / n
         top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
         rec["top_kernels_ms"] = {e.key[:60]: e.self_device_time_total / 1e3 / n for e in top}
+    rec["host_waits_per_step"] = host_waits(prof, n)
     rec["breakdown_ms"] = train_breakdown(cfg, model, tree, state, xs1, xs2, ys, fuse, step_ms)
     say(f"training path {name}: {json.dumps(rec)} [{card}]")
     del model, state, step, acc
@@ -1335,6 +1354,192 @@ def train_breakdown(cfg, model, tree, state, xs1, xs2, ys, fuse, step_ms):
         ("losses_fwd_bwd", losses), ("optimiser", optimiser))}
     parts["rest_host_gaps_metrics"] = step_ms - sum(parts.values())
     return parts
+
+
+def profile_ms(fn, n: int = 3, top: int = 8) -> dict:
+    """Device time of ``fn`` by the profiler, per call: the kernels' total,
+    their count, and the largest by name."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        return {"kernel_ms": "not measured"}
+    big = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]
+    return {"kernel_ms": sum(e.self_device_time_total for e in kernels) / 1e3 / n,
+            "kernels": sum(e.count for e in kernels) / n,
+            "top_ms": {e.key[:60]: e.self_device_time_total / 1e3 / n for e in big}}
+
+
+def host_waits(prof, n: int) -> dict:
+    """Where the host waited for the card in a profile of ``n`` steps: the
+    count and host ms of each kind of wait, per step.  A stream wait drains
+    the queue the host had run ahead with."""
+    return {e.key: {"count": e.count / n, "ms": e.cpu_time_total / 1e3 / n}
+            for e in prof.key_averages()
+            if e.key in ("cudaStreamSynchronize", "cudaEventSynchronize",
+                         "aten::_local_scalar_dense")}
+
+
+def sync_points(fn) -> list:
+    """The source lines at which ``fn`` makes a synchronizing CUDA call
+    (``torch.cuda.set_sync_debug_mode``'s warnings)."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sorted({f"{os.path.relpath(w.filename, REPO)}:{w.lineno}" for w in caught
+                   if "synchroniz" in str(w.message)})
+
+
+def data_phase(card: str):
+    """Training from data: the flagship's synthetic dataset cut to
+    ``DATA_FIXTURE``, its loaders as the JAX package's CLI builds them, the
+    device-resident uint8 cache, and path A's step fed the cache's 232^2
+    bases (device transform1 and transform2 in the step); then the
+    augmentation on the card against the same functions on the CPU for the
+    same draws, and the eval cache against the host ``EvalTransform``."""
+    from PIL import Image
+    from pipnet_tpu_torch.data import EvalTransform, build_device_cache, build_loaders
+    from pipnet_tpu_torch.datasets import resolve_dataset
+    from pipnet_tpu_torch.device import host_to_device
+    from pipnet_tpu_torch.models import build_pipnet, params_from_jax, random_jax_params
+    from pipnet_tpu_torch.ops.device_augment import two_view_transform2
+    from pipnet_tpu_torch.ops.device_geometric import transform1_batch
+    from pipnet_tpu_torch.train import augment_views, init_train_state, sample_augment
+    from pipnet_tpu_torch.tree import build_tree_from_config
+    rec = {"dataset": DATA_FIXTURE, "batch": TRAIN_BATCH, "views": 2,
+           "timed_steps": TIMED_STEPS}
+    t0 = time.perf_counter()
+    train_dir, test_dir, _, dkw = resolve_dataset(DATA_FIXTURE)
+    rec["fixture_s"] = time.perf_counter() - t0
+    cfg = run_config(flagship_setup())
+    S = cfg.model.image_size
+    with open(os.path.join(REPO, cfg.leave_out_classes)) as f:
+        leave_out = [line.strip() for line in f if line.strip()]
+    # as pipnet_tpu/main.py builds them, with --device_augment full (its default)
+    loaders = build_loaders(
+        train_dir, test_dir, image_size=S, batch_size=TRAIN_BATCH,
+        batch_size_pretrain=cfg.train.batch_size_pretrain, seed=cfg.train.seed,
+        weighted=cfg.weighted_sampler, leave_out_classes=leave_out,
+        disable_transform2=cfg.disable_transform2, validation_size=cfg.validation_size,
+        num_workers=cfg.num_workers, device_photometric=True, device_geometric=True)
+    with open(os.path.join(FLAGSHIP_META, "classes.json")) as f:
+        if loaders.classes != json.load(f):
+            fail("the fixture's classes differ from the flagship's metadata/classes.json")
+    model, tree = build_pipnet(build_tree_from_config(dkw["phylo_path"], None), cfg.model,
+                               weighted=cfg.train.loss.weighted_ce,
+                               class_names=loaders.classes, device="cuda")
+    flagship, _ = flagship_tree()
+    rec["tree"] = {"nodes": tree.num_nodes, "prototypes": int(tree.node_num_protos.sum())}
+    same = (tree.node_names == flagship.node_names
+            and np.array_equal(tree.node_num_protos, flagship.node_num_protos)
+            and np.array_equal(tree.leaf_child_slot, flagship.leaf_child_slot))
+    if rec["tree"] != {"nodes": 189, "prototypes": 3780} or not same:
+        fail(f"the fixture's phylogeny is not the flagship's tree: {rec['tree']}")
+    model.load_state_dict(params_from_jax(random_jax_params(cfg.model, tree, seed=0)))
+
+    t1 = time.perf_counter()
+    cache = build_device_cache(loaders.train, device="cuda")
+    torch.cuda.synchronize()
+    rec.update(cache_build_s=time.perf_counter() - t1, cache_gb=cache.nbytes / 1e9,
+               cache_images=int(cache.array.shape[0]), base=int(cache.array.shape[1]),
+               train_batches_per_epoch=len(loaders.train))
+    batches = list(loaders.train.epoch_index_batches(20))[:WARMUP_STEPS + TIMED_STEPS]
+    step, scalars = train_step(cfg, model, tree, fuse=False)
+    state = init_train_state(model, seed=0)
+    for rows, ys in batches[:WARMUP_STEPS]:
+        state, _ = step(state, cache.fetch(rows), None, host_to_device(ys, "cuda"), scalars)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    acc = None
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    zero_counts()
+    t2 = time.perf_counter()
+    start.record()
+    for rows, ys in batches[WARMUP_STEPS:]:
+        state, acc = step(state, cache.fetch(rows), None, host_to_device(ys, "cuda"), scalars,
+                          acc=acc)
+    end.record()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t2
+    rec["launches"] = counts()
+    rec.update(step_ms=start.elapsed_time(end) / TIMED_STEPS,
+               images_per_s=TRAIN_BATCH * TIMED_STEPS / host_s,
+               host_step_ms=host_s * 1e3 / TIMED_STEPS,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               mean_losses={k: float(v) / TIMED_STEPS for k, v in acc.items()
+                            if k == "loss" or k.startswith("loss/")})
+    if not all(np.isfinite(v) for v in rec["mean_losses"].values()):
+        fail(f"training from data: non-finite losses {rec}")
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    rows, ys = batches[-1]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(3):
+            state, _ = step(state, cache.fetch(rows), None, host_to_device(ys, "cuda"), scalars)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / 3
+    rec["kernel_ms_per_step"] = busy_ms if kernels else "not measured"
+    if kernels:
+        rec["busy_share"] = busy_ms / rec["step_ms"]
+    rec["host_waits_per_step"] = host_waits(prof, 3)
+    rec["sync_points"] = sync_points(lambda: step(state, cache.fetch(rows), None,
+                                                  host_to_device(ys, "cuda"), scalars))
+
+    # the augmentation alone, and on the card against the CPU for the same draws
+    x = cache.fetch(batches[0][0])
+    draws = sample_augment(TRAIN_BATCH, x.shape[1], S, torch.Generator(device="cuda")
+                           .manual_seed(11))
+    v1, v2 = augment_views(x, S, draws)
+    rec["views_differ_share"] = (v1 != v2).float().mean().item()
+    if not rec["views_differ_share"] > 0.5:
+        fail(f"the two views of a batch do not differ: {rec}")
+    rec["augment_ms"] = time_ms(lambda: augment_views(x, S, draws), iters=10)
+    rec["transform1_ms"] = time_ms(lambda: transform1_batch(x, draws.geometric, S + 4),
+                                   iters=10)
+    shared = transform1_batch(x, draws.geometric, S + 4)
+    rec["transform2_ms"] = time_ms(lambda: two_view_transform2(shared, S, draws.views,
+                                                               counts=draws.op_counts),
+                                   iters=10)
+    rec["augment_profile"] = profile_ms(lambda: augment_views(x, S, draws))
+    shared_cpu = transform1_batch(x.cpu(), draws.geometric.to("cpu"), S + 4)
+    rec["transform1_max_grey_err"] = (shared.cpu() - shared_cpu).abs().max().item()
+    std = torch.tensor([0.229, 0.224, 0.225]) * 255.0
+    views = two_view_transform2(shared_cpu.cuda(), S, draws.views)
+    views_cpu = two_view_transform2(shared_cpu, S, [d.to("cpu") for d in draws.views])
+    rec["transform2_max_grey_err"] = max(((g.cpu() - c) * std).abs().max().item()
+                                         for g, c in zip(views, views_cpu))
+    # one grey level: the bound of the RRC's rounding (device_geometric's
+    # float64 products make the card and the CPU agree exactly) and of the
+    # photometric ops' f32 blends
+    if not (rec["transform1_max_grey_err"] <= 1.0 and rec["transform2_max_grey_err"] <= 1.0 + 1e-3):
+        fail(f"the augmentation on the card disagrees with the CPU on the same draws: {rec}")
+
+    eval_cache = build_device_cache(loaders.test, device="cuda")
+    rows = np.arange(0, len(loaders.test.dataset), 7)[:16]
+    want = np.stack([EvalTransform(S)(Image.open(loaders.test.dataset.folder.samples[i][0])
+                                      .convert("RGB")) for i in rows])
+    rec["eval_cache_max_abs_err"] = float(np.abs(eval_cache.fetch(rows).cpu().numpy()
+                                                 - want).max())
+    if not rec["eval_cache_max_abs_err"] <= 2e-6:
+        fail(f"the eval cache's normalized batch disagrees with EvalTransform: {rec}")
+    say(f"training from data: {json.dumps(rec)} [{card}]")
+    del model, state, step, acc, cache, eval_cache
+    torch.cuda.empty_cache()
+    return rec
 
 
 def cross_checks(card: str, setup: Setup):
@@ -1509,8 +1714,9 @@ def main(argv=None) -> int:
     ap.add_argument("--baseline", metavar="CHECKOUT",
                     help="an older checkout of this repository whose K1 and K2 are timed "
                          "in turns with this one's in the kernel phase")
-    ap.add_argument("--only", choices=["blocks"],
-                    help="blocks: build, check and time K3 and K4 only, then stop without "
+    ap.add_argument("--only", choices=["blocks", "data"],
+                    help="blocks: build, check and time K3 and K4 only; data: build, then "
+                         "run the training-from-data phase only; either stops without "
                          "the kernels record or the ok line")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
@@ -1528,8 +1734,11 @@ def main(argv=None) -> int:
 
     sys.path.insert(0, FIXTURES)
     flagship, flat = flagship_setup(), flat_setup()
-    seconds = build(KERNEL_SOURCES)
-    say(f"build: {json.dumps(seconds)} s into {BUILD_DIR}")
+    from pipnet_tpu_torch import native
+    t_native = time.perf_counter()
+    native_lib = native.build()          # g++, the data path's normalizer
+    seconds = {"native": time.perf_counter() - t_native, **build(KERNEL_SOURCES)}
+    say(f"build: {json.dumps(seconds)} s into {BUILD_DIR} and {native_lib.parent}")
     for src in KERNEL_SOURCES:
         log = library_path(src).with_name(library_path(src).name + ".log")
         for line in log.read_text().splitlines():
@@ -1540,6 +1749,11 @@ def main(argv=None) -> int:
     if args.only == "blocks":
         block_kernel_phase(card, baseline)
         say(f"--only blocks: done in {time.perf_counter() - t_start:.1f} s; no full run")
+        return 0
+    if args.only == "data":
+        check_launches("training from data", data_phase(card)["launches"], {
+            **NO_LAUNCHES, "fused_head": TIMED_STEPS, "head_backward": TIMED_STEPS})
+        say(f"--only data: done in {time.perf_counter() - t_start:.1f} s; no full run")
         return 0
     records, backward, nopf = kernel_phase(card, baseline)
     dw, blocks = block_kernel_phase(card, baseline)
@@ -1562,6 +1776,9 @@ def main(argv=None) -> int:
     check_launches("training path C", train_c["launches"], {
         **NO_LAUNCHES, "fused_head": TIMED_STEPS, "head_backward": TIMED_STEPS,
         "cnblock": 3 * n_blocks * TIMED_STEPS})
+    train_data = data_phase(card)
+    check_launches("training from data", train_data["launches"], {
+        **NO_LAUNCHES, "fused_head": TIMED_STEPS, "head_backward": TIMED_STEPS})
     # flat PIP-Net: K1 and K1b run its 768-wide node as parts, two launches
     # each a call (row statistics, then the pass that writes), K2 three (its
     # third adds each row's parts and takes the log sums)
@@ -1574,7 +1791,8 @@ def main(argv=None) -> int:
         **NO_LAUNCHES, "fused_head": 2 * TIMED_STEPS, "head_backward": 2 * TIMED_STEPS,
         "fused_head_nopf": 3 * TIMED_STEPS})
     paths.update({"training A": train_a["launches"], "training B": train_b["launches"],
-                  "training C": train_c["launches"], "training A, flat": train_fa["launches"],
+                  "training C": train_c["launches"], "training from data": train_data["launches"],
+                  "training A, flat": train_fa["launches"],
                   "training B, flat": train_fb["launches"]})
     total = {k: sum(p[k] for p in paths.values()) for k in NO_LAUNCHES}
     say(f"launches by path: {json.dumps(paths)}")

@@ -256,7 +256,7 @@ def overspecificity_losses(tc: TreeConsts, pooled: torch.Tensor, ys: torch.Tenso
         0, idx, pooled, "amax", include_self=False)                 # absent rows stay 0
     present = torch.zeros(L1, device=pooled.device).index_add(
         0, rows, torch.ones_like(rows, dtype=torch.float32)) > 0
-    present[tc.num_leaves] = False                                  # OOD row never counts
+    present[tc.num_leaves:].fill_(False)       # OOD row never counts (no host copy)
     maxs = torch.where(present[:, None], maxs, torch.zeros_like(maxs))
 
     vals = maxs if boost is None else (maxs * boost).clamp(max=1.0)

@@ -3,9 +3,10 @@
 A run directory holds ``metadata/config.json`` (the frozen configuration),
 ``metadata/classes.json`` (class names), ``metadata/tree.json`` (the exact
 trained topology) and ``checkpoints/<name>.pt``, the port's ``state_dict``
-saved with ``torch.save``.  Reading the JAX package's orbax checkpoints needs
-JAX and comes with a later conversion tool; ``models/convert.py`` maps a
-flax parameter tree that is already in memory.
+saved with ``torch.save``.  A run without the class names or the tree gets
+them from its dataset, resolved as in training.  Reading the JAX package's
+orbax checkpoints needs JAX and comes with a later conversion tool;
+``models/convert.py`` maps a flax parameter tree that is already in memory.
 """
 
 from __future__ import annotations
@@ -70,24 +71,53 @@ class RunBundle(NamedTuple):
 
 def load_run(run_dir: str, checkpoint: str = "net_trained_last",
              classes: Optional[List[str]] = None,
-             device: Union[str, torch.device] = "cuda") -> RunBundle:
+             device: Union[str, torch.device] = "cuda",
+             dataset: Optional[str] = None,
+             phylo_path: Optional[str] = None) -> RunBundle:
     """Run directory -> live model on ``device`` (the card unless the caller
-    asks for the CPU).  ``classes`` overrides ``metadata/classes.json``; the
-    tree is the exact trained topology in ``metadata/tree.json``."""
+    asks for the CPU).
+
+    Class names come from ``classes``, else ``metadata/classes.json``, else
+    the run's dataset (or ``dataset``), resolved (``datasets.resolve_dataset``)
+    and its class directories listed.  The tree is the exact trained
+    topology in ``metadata/tree.json``; for a run without one it is built
+    from ``phylo_path``, the dataset's bundled phylogeny, or the config's
+    ``phylo_config``, and with none of these it is the flat tree."""
+    from .datasets import resolve_dataset
+    from .tree import build_tree_from_config, flat_tree
+
     dev = resolve_device(device)
     cfg = load_run_config(run_dir)
     classes = classes or load_classes(run_dir)
-    if classes is None:
-        raise RuntimeError(
-            f"run {run_dir!r} has no metadata/classes.json; pass classes= "
-            "(resolving the training dataset is not ported)")
     tree_json = os.path.join(run_dir, "metadata", "tree.json")
-    if not os.path.exists(tree_json):
-        raise RuntimeError(
-            f"run {run_dir!r} has no metadata/tree.json (rebuilding the tree "
-            "from the run's phylogeny is not ported)")
-    with open(tree_json) as f:
-        root = Node.from_dict(json.load(f))
+    have_tree = os.path.exists(tree_json) or phylo_path is not None
+    # resolve the training dataset only when something is still missing:
+    # class names, or the bundled phylogeny of a run that recorded none
+    if classes is None or (not have_tree and cfg.phylo_config is None):
+        ds = dataset or cfg.dataset
+        try:
+            train_dir, _, _, dkw = resolve_dataset(ds, seed=cfg.train.seed)
+        except (OSError, ValueError) as e:
+            missing = ("metadata/classes.json", "class names") if classes is None else \
+                ("metadata/tree.json", "the hierarchy")
+            raise RuntimeError(
+                f"cannot rebuild run {run_dir!r}: it has no {missing[0]}, so "
+                f"{missing[1]} must come from the training dataset ({ds!r}), which "
+                f"failed to resolve on this host ({e}); pass dataset=, classes= or "
+                "phylo_path=") from e
+        if classes is None:
+            classes = sorted(e.name for e in os.scandir(train_dir) if e.is_dir())
+        phylo_path = phylo_path or dkw.get("phylo_path")
+
+    if os.path.exists(tree_json):
+        with open(tree_json) as f:
+            root = Node.from_dict(json.load(f))
+    elif phylo_path and str(phylo_path).endswith((".phy", ".tre")):
+        root = build_tree_from_config(phylo_path, None)
+    elif cfg.phylo_config:
+        root = _tree_from_phylo_config(run_dir, str(cfg.phylo_config))
+    else:
+        root = flat_tree(classes, cfg.model.num_features or 512)
 
     model, tree = build_pipnet(root, cfg.model,
                                weighted=cfg.train.loss.weighted_ce,
@@ -96,3 +126,24 @@ def load_run(run_dir: str, checkpoint: str = "net_trained_last",
     state = torch.load(path, map_location=dev, weights_only=True)
     model.load_state_dict(state)
     return RunBundle(cfg=cfg, model=model, tree=tree, classes=list(classes))
+
+
+def _tree_from_phylo_config(run_dir: str, phylo_config: str) -> Node:
+    """The tree of a run config's ``phylo_config``: a Newick file, or a YAML
+    file naming one (``phylogeny_path``, ``$VAR``s expanded) and its
+    ``phyloDistances_string``."""
+    from .tree import build_tree_from_config
+    if not os.path.exists(phylo_config):
+        raise RuntimeError(
+            f"run {run_dir!r} records phylogeny {phylo_config!r}, which does not "
+            "exist on this host; refusing to fall back to a flat tree (the "
+            "checkpoint shapes would not match).  Restore that file, or pass "
+            "phylo_path=")
+    if phylo_config.endswith((".phy", ".tre")):
+        return build_tree_from_config(phylo_config, None)
+    import yaml
+    with open(phylo_config) as f:
+        pc = yaml.safe_load(f)
+    d = pc.get("phyloDistances_string")
+    return build_tree_from_config(os.path.expandvars(pc["phylogeny_path"]),
+                                  None if d in ("None", None) else d)

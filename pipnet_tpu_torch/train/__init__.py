@@ -3,10 +3,10 @@
 
 from .optimizer import (AdamState, Phase, adam_init, adam_update, clip_gradients,
                         group_trainable, label_params, masks_and_lrs, phase_for_epoch)
-from .step import (Scalars, StepStatics, TrainState, init_train_state, make_train_step,
-                   reinit_optimizer)
+from .step import (AugmentDraws, Scalars, StepStatics, TrainState, augment_views,
+                   init_train_state, make_train_step, reinit_optimizer, sample_augment)
 
 __all__ = ["AdamState", "Phase", "adam_init", "adam_update", "clip_gradients",
            "group_trainable", "label_params", "masks_and_lrs", "phase_for_epoch",
-           "Scalars", "StepStatics", "TrainState", "init_train_state", "make_train_step",
-           "reinit_optimizer"]
+           "AugmentDraws", "Scalars", "StepStatics", "TrainState", "augment_views",
+           "init_train_state", "make_train_step", "reinit_optimizer", "sample_augment"]

@@ -11,13 +11,19 @@ not train in a phase becomes ``requires_grad_(False)`` on those parameters,
 so autograd builds no backward for them (with the stem and stages 0-1
 frozen, the backward stops at ``down2``).  Metrics stay on the card: they
 add into the caller's ``acc`` dict without a host sync.
+
+A uint8 batch (one shared view a sample, ``xs2`` None) is augmented on the
+device first, as the JAX step does: its spatial size picks the route
+(larger than ``image_size + 4``: the resized base, through transform1 and
+transform2; otherwise the host's geometric view, through transform2 only),
+with draws from the ``TrainState``'s generator.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -25,6 +31,8 @@ from ..config import RunConfig
 from ..losses import LossWeights, compute_total_loss, make_tree_consts
 from ..losses.catalog import label_rows
 from ..models.pipnet import PIPNet, joint_leaf_log_distribution
+from ..ops.device_augment import ViewDraws, op_counts, sample_view, two_view_transform2
+from ..ops.device_geometric import GeometricDraws, sample_transform1, transform1_batch
 from ..tree.compile import TreeArrays
 from .optimizer import (AdamState, Phase, adam_init, adam_update, clip_gradients,
                         cosine_annealing, cosine_warm_restarts, group_trainable,
@@ -36,8 +44,8 @@ Metrics = Dict[str, torch.Tensor]
 @dataclass
 class TrainState:
     """The model's parameters (the module's own tensors, updated in place),
-    the Adam state, and the generator that stochastic depth and the presence
-    Gumbel noise draw from."""
+    the Adam state, and the generator that the device augmentation,
+    stochastic depth and the presence Gumbel noise draw from."""
     params: Dict[str, torch.nn.Parameter]
     opt: AdamState
     generator: torch.Generator = field(repr=False)
@@ -70,6 +78,74 @@ class Scalars:
     tanh_weight: float
 
 
+@dataclass
+class AugmentDraws:
+    """The device augmentation's draws for one uint8 batch: transform1's
+    (None when the batch is the host's geometric view), each view's
+    transform2, and the views' op counts on the host (read with the draws;
+    None: read when the views are made)."""
+    geometric: Optional[GeometricDraws]
+    views: Tuple[ViewDraws, ViewDraws]
+    op_counts: Optional[List[List[int]]] = None
+
+    def tensors(self) -> List[torch.Tensor]:
+        parts = ([self.geometric] if self.geometric is not None else []) + list(self.views)
+        return [getattr(p, f.name) for p in parts for f in dataclasses.fields(p)]
+
+
+def sample_augment(batch: int, size: int, image_size: int, generator: torch.Generator,
+                   cars: bool = False) -> AugmentDraws:
+    """Draws for ``batch`` uint8 images of ``size``^2 (through transform1
+    to ``image_size + 4`` when ``size`` is larger, then two views of
+    transform2 at ``image_size``), with the views' op counts read on the
+    host.  On a card the draws are made on a high-priority stream of their
+    own, so that reading the counts waits for those few kernels only, not
+    for the work queued before them (the previous step): the host stays
+    ahead of the card."""
+    if size < image_size:
+        raise ValueError(f"uint8 input of {size}^2 is smaller than the image size "
+                         f"{image_size}")
+    dev = generator.device
+    if dev.type != "cuda":
+        draws = _draw(batch, size, image_size, generator, cars)
+        draws.op_counts = op_counts(draws.views, cars).tolist()
+        return draws
+    main, side = torch.cuda.current_stream(dev), torch.cuda.Stream(dev, priority=-1)
+    with torch.cuda.stream(side):
+        draws = _draw(batch, size, image_size, generator, cars)
+        counts = op_counts(draws.views, cars)
+        host = torch.empty(counts.shape, dtype=counts.dtype, pin_memory=True)
+        host.copy_(counts, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(side)
+    done.synchronize()
+    main.wait_stream(side)
+    for t in draws.tensors():
+        t.record_stream(main)       # made on the side stream, used on this one
+    draws.op_counts = host.tolist()
+    return draws
+
+
+def _draw(batch: int, size: int, image_size: int, generator: torch.Generator,
+          cars: bool) -> AugmentDraws:
+    geometric = None
+    if size > image_size + 4:
+        geometric = sample_transform1(batch, size, generator)
+        size = image_size + 4
+    views = tuple(sample_view(batch, size, image_size, generator, cars) for _ in range(2))
+    return AugmentDraws(geometric, views)
+
+
+def augment_views(x_u8: torch.Tensor, image_size: int, draws: AugmentDraws,
+                  cars: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The two normalized f32 views of a uint8 batch on its device."""
+    shared = x_u8
+    if draws.geometric is not None:
+        shared = transform1_batch(x_u8, draws.geometric, image_size + 4)
+    return two_view_transform2(shared, image_size, draws.views, cars=cars,
+                               counts=draws.op_counts)
+
+
 def init_train_state(model: PIPNet, seed: int = 0) -> TrainState:
     """Adam state for the model's parameters (as they stand: load them
     first) and a generator on the model's device seeded with ``seed``."""
@@ -88,16 +164,19 @@ def reinit_optimizer(state: TrainState) -> TrainState:
 def make_train_step(model: PIPNet, tree: TreeArrays, cfg: RunConfig,
                     statics: StepStatics, *, fuse_align_pf: bool = False) -> Callable:
     """The step function of one phase:
-    ``step(state, xs1, xs2, ys, scalars, acc=None, presence_noise=None)
-    -> (state, metrics)``.
+    ``step(state, xs1, xs2, ys, scalars, acc=None, presence_noise=None,
+    augment_draws=None) -> (state, metrics)``.
 
-    ``xs1``/``xs2`` are the two views (B, S, S, 3) float, ``ys`` (B,) the
-    fine labels.  ``fuse_align_pf`` runs the head through K2 (align_pf
+    ``xs1``/``xs2`` are the two views (B, S, S, 3) float, or ``xs1`` is one
+    uint8 batch (the resized base or the host's geometric view) and ``xs2``
+    None, augmented on the device (``augment_views``); ``ys`` (B,) the fine
+    labels.  ``fuse_align_pf`` runs the head through K2 (align_pf
     reduced in-kernel, pf never materialised); it needs align_pf on, the
     reference ``align_eps`` (None) and a phase that is not a finetune phase,
     and raises otherwise.  ``presence_noise`` (P, 2), when given, replaces
     the step's draw of the presence Gumbel noise (tests hand both packages
-    the same sample)."""
+    the same sample); ``augment_draws``, likewise, replaces the draws of
+    the device augmentation."""
     lcfg, ocfg, ph = cfg.train.loss, cfg.train.optim, statics.phase
     if statics.has_ood:
         raise NotImplementedError("the OOD losses are not ported yet")
@@ -124,11 +203,15 @@ def make_train_step(model: PIPNet, tree: TreeArrays, cfg: RunConfig,
 
     def step(state: TrainState, xs1: torch.Tensor, xs2: torch.Tensor, ys: torch.Tensor,
              scalars: Scalars, acc: Optional[Metrics] = None,
-             presence_noise: Optional[torch.Tensor] = None) -> Tuple[TrainState, Metrics]:
+             presence_noise: Optional[torch.Tensor] = None,
+             augment_draws: Optional[AugmentDraws] = None) -> Tuple[TrainState, Metrics]:
         if xs1.dtype == torch.uint8:
-            raise NotImplementedError(
-                "device-side augmentation (uint8 input) is not ported yet; pass "
-                "two float views")
+            if xs2 is not None:
+                raise ValueError("a uint8 batch is one shared view a sample: pass xs2=None")
+            S, cars = cfg.model.image_size, cfg.train.device_augment_cars
+            draws = augment_draws or sample_augment(xs1.shape[0], xs1.shape[1], S,
+                                                    state.generator, cars)
+            xs1, xs2 = augment_views(xs1, S, draws, cars)
         xs = torch.cat([xs1, xs2], dim=0)
         ys2 = torch.cat([ys, ys], dim=0)
         for n, p in state.params.items():

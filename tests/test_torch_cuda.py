@@ -592,3 +592,30 @@ def test_dwconv_and_cnblock_count_launches_and_check_inputs(card):
         with pytest.raises(TypeError):                                  # f32 launches fused
             cnblock_up(plain[0].reshape(-1, 16), plain[5], plain[6], fast_gelu=True)
     assert counts() == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cars", [False, True])
+def test_device_augmentation_on_card_matches_cpu(card, cars):
+    """The train step's augmentation (transform1, then both views of
+    transform2) on the card equals the same functions on the CPU for the
+    same draws, drawn by a generator on the card; the device cache gathers
+    the same bytes on both."""
+    from pipnet_tpu_torch.data import DeviceDataCache
+    from pipnet_tpu_torch.train import augment_views, sample_augment
+    base = np.random.default_rng(3).integers(0, 256, (20, 72, 72, 3), dtype=np.uint8)
+    caches = [DeviceDataCache(base, "u8base", device=d) for d in (card, "cpu")]
+    rows = np.asarray([4, 0, 19, 7, 7, 12])
+    x, x_cpu = (c.fetch(rows) for c in caches)
+    assert x.device.type == "cuda" and torch.equal(x.cpu(), x_cpu)
+    draws = sample_augment(len(rows), 72, 64, torch.Generator(device=card).manual_seed(1),
+                           cars)
+    cpu_draws = type(draws)(draws.geometric.to("cpu"), tuple(v.to("cpu") for v in draws.views))
+    # the op counts read with the draws (on a stream of their own) are theirs
+    n_ops = 9 if cars else 8
+    assert draws.op_counts == [torch.bincount(v.op, minlength=n_ops).tolist()
+                               for v in cpu_draws.views]
+    for got, want in zip(augment_views(x, 64, draws, cars),
+                         augment_views(x_cpu, 64, cpu_draws, cars)):
+        assert got.shape == (len(rows), 64, 64, 3)
+        torch.testing.assert_close(got.cpu(), want, atol=0, rtol=0)

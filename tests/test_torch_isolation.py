@@ -14,8 +14,13 @@ _IMPORT = re.compile(r"^\s*(?:from|import)\s+(jax|flax|optax|pipnet_tpu(?!_torch
 
 
 def test_importing_the_port_loads_no_jax():
+    """... and starts no process: no module builds its native library or a
+    kernel when imported (``native`` runs g++, ``ops.build`` nvcc, at first
+    use)."""
     code = (
-        "import importlib, pkgutil, sys\n"
+        "import importlib, pkgutil, subprocess, sys\n"
+        "def refuse(*a, **k): raise AssertionError(f'a process started at import: {a}')\n"
+        "subprocess.run = subprocess.Popen = refuse\n"
         "import pipnet_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(pipnet_tpu_torch.__path__, "
         "'pipnet_tpu_torch.')]\n"
@@ -23,9 +28,11 @@ def test_importing_the_port_loads_no_jax():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'pipnet_tpu'))\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 27, names\n"
+        "assert len(names) >= 39, names\n"
         "for m in ('ops.fused_head_nopf', 'ops.dwconv', 'ops.cnblock', 'losses.catalog', "
-        "'losses.aggregate', 'train.optimizer', 'train.step'):\n"
+        "'losses.aggregate', 'train.optimizer', 'train.step', 'data.loader', "
+        "'data.device_cache', 'ops.device_augment', 'ops.device_geometric', 'native', "
+        "'datasets'):\n"
         "    assert 'pipnet_tpu_torch.' + m in names, m\n"
         "print('ok', len(names))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -237,10 +237,15 @@ def test_fuse_align_pf_refuses_configs_it_cannot_run(runs):
 
 
 def test_uint8_input_raises(runs):
+    """A uint8 batch is one shared view a sample, augmented on the device
+    (``tests/test_torch_data_step.py``): with a second view, or smaller than
+    the image size, the step raises."""
     _, tcfg = runs["cfgs"]
     mt, tt = runs["models"]
     step = _Port.make_train_step(mt, tt, tcfg, _statics(_Port, tcfg, "train")[0])
     x = torch.zeros((B, S + 4, S + 4, 3), dtype=torch.uint8)
-    with pytest.raises(NotImplementedError, match="uint8"):
-        step(_Port.init_train_state(mt), x, None, torch.zeros(B, dtype=torch.long),
-             _Port.Scalars(0.0, 1.0, 0.0, 5.0, 2.0))
+    args = (torch.zeros(B, dtype=torch.long), _Port.Scalars(0.0, 1.0, 0.0, 5.0, 2.0))
+    with pytest.raises(ValueError, match="uint8"):
+        step(_Port.init_train_state(mt), x, x, *args)
+    with pytest.raises(ValueError, match="smaller than the image size"):
+        step(_Port.init_train_state(mt), x[:, :S - 1, :S - 1], None, *args)

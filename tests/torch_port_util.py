@@ -165,3 +165,58 @@ def to_jax(tree):
     import jax
     import jax.numpy as jnp
     return jax.tree_util.tree_map(jnp.asarray, tree)
+
+
+def _torch(a, dtype=None):
+    import torch
+    t = torch.from_numpy(np.asarray(a).copy())
+    return t if dtype is None else t.to(dtype)
+
+
+def jax_geometric_draws(key, batch, size):
+    """The draws the JAX package's ``transform1_batch(x, key, ...)`` makes,
+    split from ``key`` as it splits them, as the port's ``GeometricDraws``."""
+    import jax
+    import torch
+    from pipnet_tpu.ops import device_geometric as jg
+    from pipnet_tpu_torch.ops.device_geometric import GeometricDraws
+    r_ta, r_rrc = jax.random.split(key)
+    op, mag = jg.sample_geometric(r_ta, batch)
+    r_flip, r_box = jax.random.split(r_rrc)
+    box = jg.sample_rrc_box(r_box, batch, size)
+    flip = jax.random.bernoulli(r_flip, 0.5, (batch,))
+    return GeometricDraws(_torch(op, torch.long), _torch(mag),
+                          *(_torch(v, torch.long) for v in box), _torch(flip))
+
+
+def jax_view_draws(key, batch, size, out_size, cars=False):
+    """The draws the JAX package's ``two_view_transform2(x, key, out_size)``
+    makes on a ``size``^2 batch, as the port's two ``ViewDraws``."""
+    import jax
+    import torch
+    from pipnet_tpu.ops import device_augment as ja
+    from pipnet_tpu_torch.ops.device_augment import ViewDraws
+    r1, r2, c1, c2 = jax.random.split(key, 4)
+    views = []
+    for r, c in ((r1, c1), (r2, c2)):
+        op, mag = ja.sample_photometric(r, batch, cars)
+        ry, rx = jax.random.split(c)
+        y, x = (jax.random.randint(k, (batch,), 0, size - out_size + 1) for k in (ry, rx))
+        views.append(ViewDraws(_torch(op, torch.long), _torch(mag),
+                               _torch(y, torch.long), _torch(x, torch.long)))
+    return tuple(views)
+
+
+def jax_step_augment_draws(state_key, batch, size, image_size, cars=False):
+    """The device augmentation draws of the JAX package's train step on a
+    uint8 batch (its ``aug_rng`` split from the state's key), as the port's
+    ``AugmentDraws``."""
+    import jax
+    from pipnet_tpu_torch.train import AugmentDraws
+    _, _, _, aug = jax.random.split(state_key, 4)
+    geometric = None
+    if size > image_size + 4:
+        aug, geo = jax.random.split(aug)
+        geometric = jax_geometric_draws(geo, batch, size)
+        size = image_size + 4
+    return AugmentDraws(geometric, jax_view_draws(aug, batch, size, image_size, cars))
