@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``pipnet_tpu_torch``) on one CUDA card.
 
-    python3 chip_smoke.py [--baseline CHECKOUT] [--only blocks|data]
+    python3 chip_smoke.py [--baseline CHECKOUT] [--only blocks|data|trainer]
 
 Phases, each of which fails the run loudly:
 
@@ -74,13 +74,29 @@ Phases, each of which fails the run loudly:
    seeded weights, the add-on kernel scaled so the softmax over 768 peaks):
    a run directory served as in 5 (K1 twice per forward: the row statistics
    over the node's parts, then the pass that writes), path A (K1 2, K1b 2
-   per step), the path A / B cross-checks, and path B (K2 3, K1 2, K1b 2).
+   per step), the path A / B cross-checks, and path B (K2 3, K1 2, K1b 2);
+11. training through the CLI: ``pipnet_tpu_torch.main.run_pipnet`` in this
+   process with the flags of ``scripts/runs/run_lou_190.sh``, changed only
+   to the data phase's fixture, 2 epochs after 1 of pretraining and an
+   evaluation every epoch (its leave-out list as an absolute path, a
+   temporary ``--log_dir``), then ``--resume --epochs 3`` on the same
+   directory: every epoch and evaluation with its seconds, images/s and
+   exact launches (K1 once a step and once an evaluation batch, K1b once
+   a step where the backbone or the add-on trains), finite losses, the
+   run directory's files and checkpoints; the run served by ``Predictor``
+   with logits equal to the trainer's own on the same batch, and
+   ``Trainer.evaluate`` from the test cache equal to the host-streamed
+   one; then ``Trainer.run_epoch`` at epoch 20 of the flagship's 40 (the
+   joint phase, mask-prune on) from the cache: step time by CUDA events,
+   images/s, busy share, host waits and the synchronising lines (only the
+   read at the epoch's end is allowed, beside the augmentation's
+   side-stream wait).
 
 The last two lines of standard output are the ``{"kernels": [...]}``
 record and ``{"ok": true, "device": {...}}``.  ``--only blocks`` runs
 phases 1, 2 and the K3 and K4 checks of phase 3, ``--only data`` phases
-1, 2 and 9, then each stops without either line: neither can pass for a
-full run.  Without a CUDA card, or
+1, 2 and 9, ``--only trainer`` phases 1, 2 and 11, then each stops
+without either line: neither can pass for a full run.  Without a CUDA card, or
 without the rest of the repository beside it, it exits non-zero before
 printing either.
 """
@@ -93,9 +109,11 @@ import dataclasses
 import io
 import json
 import os
+import shlex
 import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -168,6 +186,14 @@ TRAIN_BATCH, WARMUP_STEPS, TIMED_STEPS = 64, 3, 10
 # training from data: the flagship run's dataset (synthetic:190:48:s1) cut
 # from 48 to 8 images a class (1520 train images) to fit the run's time
 DATA_FIXTURE = "synthetic:190:8:s1"
+# training through the CLI: the flagship's own command line, run with the
+# data phase's fixture, one pretraining epoch and two training epochs
+FLAGSHIP_SCRIPT = os.path.join(REPO, "scripts", "runs", "run_lou_190.sh")
+CLI_CHANGES = {"--dataset": "synthetic:190:8", "--epochs": "2", "--epochs_pretrain": "1",
+               "--eval_every": "1"}
+# the joint phase (backbone unfrozen, mask-prune on) that Trainer.run_epoch
+# times from the cache
+JOINT_EPOCH = 20
 
 
 def say(*parts) -> None:
@@ -1386,20 +1412,34 @@ def host_waits(prof, n: int) -> dict:
 
 
 def sync_points(fn) -> list:
-    """The source lines at which ``fn`` makes a synchronizing CUDA call
-    (``torch.cuda.set_sync_debug_mode``'s warnings)."""
+    """Where ``fn`` makes a synchronizing CUDA call
+    (``torch.cuda.set_sync_debug_mode``'s warnings): for each, the innermost
+    frame of the port's own code on the stack when it warned, as
+    ``path:line (function)`` (the warning itself may point into torch)."""
+    import traceback
     import warnings
+    port = os.path.join(REPO, "pipnet_tpu_torch") + os.sep
+    found = set()
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing CUDA operation" not in str(message):
+            return              # e.g. the debug mode's own notice as it turns on
+        ours = [f for f in traceback.extract_stack() if f.filename.startswith(port)]
+        where = ours[-1] if ours else None
+        found.add(f"{os.path.relpath(where.filename, REPO)}:{where.lineno} ({where.name})"
+                  if where else f"{os.path.relpath(filename, REPO)}:{lineno} (outside the port)")
+
     torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
+    with warnings.catch_warnings():
         warnings.simplefilter("always")
+        warnings.showwarning = record
         torch.cuda.set_sync_debug_mode("warn")
         try:
             fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    return sorted({f"{os.path.relpath(w.filename, REPO)}:{w.lineno}" for w in caught
-                   if "synchroniz" in str(w.message)})
+    return sorted(found)
 
 
 def data_phase(card: str):
@@ -1539,6 +1579,272 @@ def data_phase(card: str):
     say(f"training from data: {json.dumps(rec)} [{card}]")
     del model, state, step, acc, cache, eval_cache
     torch.cuda.empty_cache()
+    return rec
+
+
+def flagship_cli_argv(log_dir: str) -> list:
+    """The flag list of ``scripts/runs/run_lou_190.sh`` with ``CLI_CHANGES``,
+    the leave-out list as an absolute path and ``log_dir``."""
+    with open(FLAGSHIP_SCRIPT) as f:
+        text = f.read().replace("\\\n", " ")
+    line = next(ln for ln in text.splitlines() if ln.startswith("python -m pipnet_tpu.main"))
+    argv = [a for a in shlex.split(line)[3:] if a != "$@"]
+    leave_out = argv[argv.index("--leave_out_classes") + 1]
+    changes = dict(CLI_CHANGES, **{"--log_dir": log_dir, "--leave_out_classes":
+                                   os.path.normpath(os.path.join(REPO, leave_out))})
+    for flag, value in changes.items():
+        argv[argv.index(flag) + 1] = value
+    return argv
+
+
+def upstream_trains(trainer, phase) -> bool:
+    """Whether a parameter upstream of the pooled prototype scores (the
+    backbone or the add-on) trains in ``phase``: only then does the step's
+    backward reach the head, and K1b launch."""
+    from pipnet_tpu_torch.train import group_trainable, label_params
+    labels = label_params([n for n, _ in trainer.model.named_parameters()],
+                          trainer.cfg.model.backbone)
+    return any(group_trainable(lab, phase) for lab in labels.values()
+               if lab not in ("classifier", "presence"))
+
+
+def expected_launches(rec: dict) -> dict:
+    """The kernel launches of one recorded epoch or evaluation: K1 once a
+    forward (the flagship tree has no node wider than a tile), K1b once a
+    step where the backward reaches the head."""
+    if rec["call"] == "evaluate":
+        return {**NO_LAUNCHES, "fused_head": rec["batches"]}
+    return {**NO_LAUNCHES, "fused_head": rec["steps"],
+            "head_backward": rec["steps"] if rec["k1b"] else 0}
+
+
+@contextlib.contextmanager
+def recorded_trainer(calls: list, trainers: list):
+    """While the block runs, every ``Trainer``'s ``fit`` is recorded in
+    ``trainers`` and each ``run_epoch`` and ``evaluate`` in ``calls``, with
+    the kernel launches it made (the counts set to 0 just before it and
+    read just after)."""
+    from pipnet_tpu_torch.train import Trainer, phase_for_epoch
+    fit, run_epoch, evaluate = Trainer.fit, Trainer.run_epoch, Trainer.evaluate
+
+    def fit_recorded(self, **kw):
+        trainers.append(self)
+        return fit(self, **kw)
+
+    def run_epoch_recorded(self, epoch, *, pretrain, loader, **kw):
+        phase = phase_for_epoch(epoch, self.cfg.train, pretrain=pretrain)
+        zero_counts()
+        info = run_epoch(self, epoch, pretrain=pretrain, loader=loader, **kw)
+        losses = {k: v for k, v in info.items() if k == "loss" or k.startswith("loss/")}
+        calls.append({"call": "run_epoch", "epoch": epoch, "phase": phase.name,
+                      "batch": loader.batch_size, "steps": len(loader),
+                      "k1b": upstream_trains(self, phase), "launches": counts(),
+                      "epoch_s": info["epoch_seconds"], "images_per_s": info["images_per_sec"],
+                      "loss": info["loss"], "finite": all(np.isfinite(list(losses.values()))),
+                      "nonzero_protos": info["nonzero_protos"]})
+        return info
+
+    def evaluate_recorded(self, loader, **kw):
+        zero_counts()
+        out = evaluate(self, loader, **kw)
+        calls.append({"call": "evaluate", "batches": len(loader), "launches": counts(), **out})
+        return out
+
+    Trainer.fit, Trainer.run_epoch, Trainer.evaluate = (fit_recorded, run_epoch_recorded,
+                                                        evaluate_recorded)
+    try:
+        yield
+    finally:
+        Trainer.fit, Trainer.run_epoch, Trainer.evaluate = fit, run_epoch, evaluate
+
+
+def check_run_dir(run_dir: str, tree) -> dict:
+    """The files a CLI run leaves, as ``pipnet_tpu.main`` leaves them."""
+    from pipnet_tpu_torch.train import checkpoint_meta
+    names = {os.path.relpath(os.path.join(p, f), run_dir)
+             for p, _, fs in os.walk(run_dir) for f in fs}
+    want = {f"metadata/{n}.json" for n in ("config", "classes", "tree")}
+    want |= {f"checkpoints/{c}{suffix}" for c in ("net_pretrained", "net_trained",
+                                                 "net_trained_last")
+             for suffix in (".pt", ".state.pt")}
+    want |= {"log_epoch_overview.csv", "epoch_wise_metrics_pretrain.csv",
+             "epoch_wise_metrics_train.csv", "metrics_pretrain.jsonl", "metrics_train.jsonl",
+             "out.txt", "log.txt"}
+    want |= {f"node_wise_metrics_{split}/{n}_losses.csv" for n in tree.node_names
+             for split in ("pretrain", "train")}
+    if not want <= names:
+        fail(f"the CLI's run directory lacks {sorted(want - names)[:10]}")
+    meta = {c: checkpoint_meta(os.path.join(run_dir, "checkpoints", c))
+            for c in ("net_pretrained", "net_trained", "net_trained_last")}
+    if None in meta.values():
+        fail(f"a checkpoint of the CLI run has no complete train state: {meta}")
+    return {"files": len(names), "checkpoint_meta": meta,
+            "node_csvs": sum(n.startswith("node_wise_metrics_train/") for n in names),
+            "checkpoint_mb": {c: os.path.getsize(os.path.join(run_dir, "checkpoints",
+                                                              c + ".pt")) / 2**20
+                              for c in meta}}
+
+
+def trainer_phase(card: str):
+    """Training through the CLI: ``run_pipnet`` in-process with the
+    flagship's flags (``flagship_cli_argv``), then ``--resume --epochs 3``
+    on the same directory; what it trained served by ``Predictor`` against
+    the trainer's own model; ``Trainer.evaluate`` from the test cache
+    against the host-streamed loader; then ``Trainer.run_epoch`` at the
+    joint phase from the cache, timed, profiled and watched for host
+    synchronisations."""
+    from PIL import Image
+    from pipnet_tpu_torch.main import run_pipnet
+    from pipnet_tpu_torch.train import Trainer
+    rec = {"argv": None}
+    log_dir = tempfile.mkdtemp(prefix="pipnet_cli_")
+    try:
+        argv = flagship_cli_argv(log_dir)
+        rec["argv"] = " ".join(argv)
+        calls, trainers = [], []
+        stdout = sys.stdout
+        with recorded_trainer(calls, trainers):
+            t0 = time.perf_counter()
+            if run_pipnet(argv) != 0:
+                fail("the CLI run returned non-zero")
+            rec["cli_s"] = time.perf_counter() - t0
+            first = len(calls)
+            t0 = time.perf_counter()
+            if run_pipnet(argv + ["--resume", "--epochs", "3"]) != 0:
+                fail("the resumed CLI run returned non-zero")
+            rec["resume_s"] = time.perf_counter() - t0
+        if sys.stdout is not stdout:
+            fail("run_pipnet left sys.stdout replaced")
+        rec["calls"] = calls
+        say(f"training through the CLI, calls: {json.dumps(calls)} [{card}]")
+        shape = [(c["call"], c.get("epoch"), c.get("phase")) for c in calls]
+        want_shape = [("run_epoch", 1, "pretrain"),
+                      ("run_epoch", 1, "finetune_classifier"), ("evaluate", None, None),
+                      ("run_epoch", 2, "finetune_classifier"), ("evaluate", None, None),
+                      ("run_epoch", 3, "finetune"), ("evaluate", None, None)]
+        if shape != want_shape or first != 5:
+            fail(f"the CLI runs' epochs and evaluations {shape} (first run {first} calls), "
+                 f"expected {want_shape} with the resume starting at epoch 3")
+        for c in calls:
+            check_launches(f"CLI {c['call']} {c.get('epoch')} {c.get('phase')}",
+                           c["launches"], expected_launches(c))
+            if c["call"] == "run_epoch" and not c["finite"]:
+                fail(f"CLI epoch with non-finite losses: {c}")
+        trainer = trainers[-1]
+        rec["run_dir"] = check_run_dir(log_dir, trainer.tree)
+        # seconds of each checkpoint the two CLI runs wrote, in order
+        rec["run_dir"]["save_s"] = [[name, s] for t in trainers for name, s in t.save_seconds]
+
+        # serve what was trained: the run directory through Predictor against
+        # the trainer's own model, on the same padded batch
+        from pipnet_tpu_torch.serve import Predictor
+        pred = Predictor(log_dir, "net_trained_last", device="cuda")
+        image = synthetic_images(1, 256, seed=5)[0]
+        answer = pred.predict([Image.fromarray(image)])[0]
+        chunk = pred._prep([Image.fromarray(image)])
+        chunk = np.concatenate([chunk, np.zeros((pred.batch_size - 1,) + chunk.shape[1:],
+                                                chunk.dtype)])
+        xs = torch.from_numpy(chunk).cuda()
+        served, _, _ = pred.forward(xs)
+        with torch.inference_mode():
+            own = trainer.model(xs, inference=True)["logits"]
+        rec["served"] = {"class": answer["class"], "prob": answer["prob"],
+                         "logits_equal": bool(torch.equal(served, own)),
+                         "logits_max_abs_diff": (served.float() - own.float()).abs().max().item()}
+        if not rec["served"]["logits_equal"]:
+            fail(f"the served run directory's logits differ from the trainer's: {rec['served']}")
+
+        # the test set from the eval cache and streamed from the host loader
+        cached = trainer.evaluate(trainer.loaders.test)
+        os.environ["PIPNET_DEVICE_DATA"] = "0"
+        try:
+            streamed = trainer.evaluate(trainer.loaders.test)
+        finally:
+            del os.environ["PIPNET_DEVICE_DATA"]
+        rec["evaluate"] = {"cached": cached, "streamed": streamed}
+        if cached != streamed:
+            fail(f"Trainer.evaluate from the cache and streamed disagree: {rec['evaluate']}")
+        del pred
+
+        rec["joint_epoch"] = joint_epoch(trainer)
+        say(f"training through the CLI: {json.dumps(rec)} [{card}]")
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+    launches = {k: sum(c["launches"][k] for c in calls) + rec["joint_epoch"]["launches"][k]
+                for k in NO_LAUNCHES}
+    del trainers, trainer
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
+def joint_epoch(trained) -> dict:
+    """``Trainer.run_epoch`` at ``JOINT_EPOCH`` of the flagship's 40 (the
+    joint phase: backbone unfrozen, mask-prune on) from the device cache, on
+    the CLI's trained state: once to warm up, once timed by CUDA events, once
+    profiled, once under the sync debug mode."""
+    from pipnet_tpu_torch.runtime.log import RunLog
+    from pipnet_tpu_torch.train import Trainer, phase_for_epoch
+    cfg = dataclasses.replace(trained.cfg, train=dataclasses.replace(trained.cfg.train,
+                                                                     epochs=40))
+    log_dir = tempfile.mkdtemp(prefix="pipnet_joint_")
+    trainer = Trainer(trained.model, trained.tree, cfg, trained.loaders,
+                      log=RunLog(log_dir))
+    trainer.adopt_state(trained.state)
+    loader = trainer.loaders.train
+    n = len(loader)
+    phase = phase_for_epoch(JOINT_EPOCH, cfg.train, pretrain=False)
+
+    def epoch():
+        return trainer.run_epoch(JOINT_EPOCH, pretrain=False, net_t0=(JOINT_EPOCH - 1) * n,
+                                 net_T=cfg.train.epochs * n, loader=loader)
+    rec = {"epoch": JOINT_EPOCH, "phase": phase.name, "backbone_frozen": phase.backbone_frozen,
+           "steps": n, "batch": loader.batch_size}
+    t0 = time.perf_counter()
+    epoch()
+    rec["warmup_epoch_s"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    zero_counts()
+    t1 = time.perf_counter()
+    start.record()
+    info = epoch()
+    end.record()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t1
+    rec["launches"] = counts()
+    check_launches("Trainer.run_epoch at the joint phase", rec["launches"],
+                   {**NO_LAUNCHES, "fused_head": n, "head_backward": n})
+    losses = {k: v for k, v in info.items() if k == "loss" or k.startswith("loss/")}
+    if not (info["nonzero_protos"] > 0 and all(np.isfinite(list(losses.values())))):
+        fail(f"Trainer.run_epoch at the joint phase: {info}")
+    rec.update(step_ms=start.elapsed_time(end) / n,
+               images_per_s=n * loader.batch_size / host_s, host_epoch_s=host_s,
+               trainer_images_per_s=info["images_per_sec"],
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               mean_losses=losses, nonzero_protos=info["nonzero_protos"],
+               nonzero_connections=info["nonzero_connections"])
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        epoch()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n
+    rec["kernel_ms_per_step"] = busy_ms if kernels else "not measured"
+    if kernels:
+        rec["busy_share"] = busy_ms / rec["step_ms"]
+    rec["host_waits_per_step"] = host_waits(prof, n)
+    rec["host_waits_per_epoch"] = host_waits(prof, 1)
+    rec["sync_points"] = sync_points(epoch)
+    # allowed: the one read at the end of the epoch, and the wait for the
+    # augmentation's op counts on its side stream (the one wait a step holds)
+    allowed = {"_read_epoch_metrics", "sample_augment"}
+    stream_syncs = rec["host_waits_per_epoch"].get("cudaStreamSynchronize", {}).get("count", 0)
+    if ({p.rsplit("(", 1)[-1].rstrip(")") for p in rec["sync_points"]} - allowed
+            or stream_syncs > 1):
+        fail(f"Trainer.run_epoch synchronises inside the epoch: {rec}")
+    shutil.rmtree(log_dir, ignore_errors=True)
     return rec
 
 
@@ -1714,9 +2020,10 @@ def main(argv=None) -> int:
     ap.add_argument("--baseline", metavar="CHECKOUT",
                     help="an older checkout of this repository whose K1 and K2 are timed "
                          "in turns with this one's in the kernel phase")
-    ap.add_argument("--only", choices=["blocks", "data"],
+    ap.add_argument("--only", choices=["blocks", "data", "trainer"],
                     help="blocks: build, check and time K3 and K4 only; data: build, then "
-                         "run the training-from-data phase only; either stops without "
+                         "run the training-from-data phase only; trainer: build, then run "
+                         "the training-through-the-CLI phase only; each stops without "
                          "the kernels record or the ok line")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
@@ -1755,6 +2062,10 @@ def main(argv=None) -> int:
             **NO_LAUNCHES, "fused_head": TIMED_STEPS, "head_backward": TIMED_STEPS})
         say(f"--only data: done in {time.perf_counter() - t_start:.1f} s; no full run")
         return 0
+    if args.only == "trainer":
+        trainer_phase(card)
+        say(f"--only trainer: done in {time.perf_counter() - t_start:.1f} s; no full run")
+        return 0
     records, backward, nopf = kernel_phase(card, baseline)
     dw, blocks = block_kernel_phase(card, baseline)
 
@@ -1790,8 +2101,10 @@ def main(argv=None) -> int:
     check_launches("training path B, flat", train_fb["launches"], {
         **NO_LAUNCHES, "fused_head": 2 * TIMED_STEPS, "head_backward": 2 * TIMED_STEPS,
         "fused_head_nopf": 3 * TIMED_STEPS})
+    _, train_cli = trainer_phase(card)
     paths.update({"training A": train_a["launches"], "training B": train_b["launches"],
                   "training C": train_c["launches"], "training from data": train_data["launches"],
+                  "training through the CLI": train_cli,
                   "training A, flat": train_fa["launches"],
                   "training B, flat": train_fb["launches"]})
     total = {k: sum(p[k] for p in paths.values()) for k in NO_LAUNCHES}

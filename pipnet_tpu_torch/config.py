@@ -2,8 +2,9 @@
 
 The port's own copy of the JAX package's configuration records, field for
 field, so that ``run_io`` reads and writes the same ``metadata/config.json``.
-Only the serving slice reads them today; the training fields are kept so a
-run directory written by either package round-trips unchanged.
+A run directory written by either package round-trips unchanged.
+``from_reference_flags`` resolves the reference's command-line flags and
+their string DSLs into a ``RunConfig``, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -207,3 +208,150 @@ class RunConfig:
     weighted_sampler: bool = False       # --weighted_loss
     disable_transform2: bool = False
     num_workers: int = 8
+
+
+def _yn(v: str) -> bool:
+    return isinstance(v, str) and v.split("|")[0] == "y"
+
+
+def from_reference_flags(args) -> RunConfig:
+    """Build a RunConfig from a reference-style argparse namespace / dict.
+
+    Understands the reference's string DSLs (``util/args.py:14-402``):
+    ``--softmax 'y|1'``, ``--tanh_desc 'y|0.05'``,
+    ``--mask_prune_overspecific 'y|start|boost'``,
+    ``--minimize_contrasting_set 'y|K|w'``, ``--byol 'y|tau|max'``.
+    """
+    get = (args.get if isinstance(args, dict) else
+           lambda k, d=None: getattr(args, k, d))
+
+    softmax = get("softmax", "n") or "n"
+    softmax_tau: Optional[float] = None
+    if softmax.split("|")[0] == "y":
+        parts = softmax.split("|")
+        # reference: int() of the tau field, default 0.2 (pipnet/pipnet.py:130-136)
+        softmax_tau = float(int(parts[1])) if len(parts) > 1 else 0.2
+
+    add_on = "conv"
+    if _yn(get("unitconv2d", "n")):
+        add_on = "unit"
+    elif _yn(get("projectconv2d", "n")):
+        add_on = "project"
+    elif _yn(get("l2conv2d", "n")):
+        add_on = "l2"
+
+    head = HeadConfig(
+        add_on_type=add_on,
+        add_on_bias=bool(get("add_on_bias", False)),
+        softmax_tau=softmax_tau,
+        gumbel_softmax=_yn(get("gumbel_softmax", "n")),
+        gumbel_tau=float(get("gs_tau", 0.5)),
+        softmax_over_channel=_yn(get("softmax_over_channel", "n")),
+        multiply_cs_softmax=_yn(get("multiply_cs_softmax", "n")),
+        focal=_yn(get("focal", "n")),
+        classifier="linear" if get("classifier", "NonNegative") == "Linear" else "nonneg",
+        classifier_bias=bool(get("bias", False)),
+        protopool=not (get("protopool", "y") == "n"),
+        sg_before_protos=_yn(get("sg_before_protos", "n")),
+    )
+
+    reducer = ()
+    s4r = get("stage4_reducer_net", "") or ""
+    if s4r:
+        layers = []
+        for info in s4r.split("|"):
+            p = info.split(",")
+            layers.append((int(p[0]), int(p[1]), len(p) > 2 and p[2] == "gelu"))
+        reducer = tuple(layers)
+
+    model = ModelConfig(
+        backbone=get("net", "convnext_tiny_26"),
+        image_size=int(get("image_size", 224)),
+        num_features=int(get("num_features", 0)),
+        num_protos_per_descendant=int(get("num_protos_per_descendant", 4)),
+        num_protos_per_child=int(get("num_protos_per_child", 0)),
+        head=head,
+        use_byol=(get("byol", "n") or "n").split("|")[0] == "y",
+        stage4_reducer=reducer,
+        gaussian_stages=tuple(int(s) for s in gm.split("|")[0].split(",")) if (
+            gm := get("basic_cnext_gaussian_multiplier", "") or "") else (),
+        gaussian_sigma=float(gm.split("|")[1]) if gm else 1.0,
+        gaussian_factor=float(gm.split("|")[2]) if gm else 50.0,
+    )
+
+    td = get("tanh_desc", "n") or "n"
+    mc = get("minimize_contrasting_set", "n") or "n"
+    mp = get("mask_prune_overspecific", "n") or "n"
+    byol = get("byol", "n") or "n"
+    loss = LossConfig(
+        align=_yn(get("align", "y")),
+        uni=_yn(get("uni", "y")),
+        align_pf=_yn(get("align_pf", "n")),
+        tanh=_yn(get("tanh", "n")),
+        tanh_during_second_phase=_yn(get("tanh_during_second_phase", "n")),
+        tanh_desc="y" in td,
+        tanh_desc_weight=float(td.split("|")[1]) if ("y" in td and "|" in td) else 0.05,
+        kernel_orth=_yn(get("kernel_orth", "n")),
+        kernel_orth_cap=(float(kc) if (kc := get("kernel_orth_cap", None))
+                         not in (None, "") else None),
+        minimize_contrasting_set="y" in mc,
+        min_contrast_topk=int(mc.split("|")[1]) if mc.count("|") >= 1 else 1,
+        min_contrast_weight=float(mc.split("|")[2]) if mc.count("|") >= 2 else 0.1,
+        mask_prune_overspecific="y" in mp,
+        mask_prune_start_epoch=int(mp.split("|")[1]) if mp.count("|") >= 1 else 0,
+        mask_prune_boost=float(mp.split("|")[2]) if mp.count("|") >= 2 else None,
+        sg_before_masking=_yn(get("sg_before_masking", "y")),
+        geometric_mean_overspecificity=_yn(get("geometric_mean_overspecificity_score", "n")),
+        ood_loss=get("OOD_dataset", None) is not None,
+        ood_ent=_yn(get("OOD_ent", "n")),
+        weighted_ce=_yn(get("weighted_ce_loss", "n")),
+        focal_loss=_yn(get("focal_loss", "n")),
+        focal_loss_gamma=float(get("focal_loss_gamma", 2.0)),
+        cl_weight=float(get("cl_weight", 2.0)),
+        pipnet_sparsity=not (get("pipnet_sparsity", "y") == "n"),
+        byol=byol.split("|")[0] == "y",
+        byol_tau_base=float(byol.split("|")[1]) if byol.count("|") >= 1 else 0.9995,
+        byol_tau_max=float(byol.split("|")[2]) if byol.count("|") >= 2 else 1.0,
+        minmaximize=_yn(get("minmaximize", "n")),
+        tanh_eps=(float(te) if (te := get("tanh_eps", None)) not in (None, "")
+                  else None),
+        align_eps=(float(ae) if (ae := get("align_eps", None)) not in (None, "")
+                   else None),
+    )
+
+    optim = OptimConfig(
+        lr=float(get("lr", 0.05)),
+        lr_block=float(get("lr_block", 0.0005)),
+        lr_net=float(get("lr_net", 0.0005)),
+        weight_decay=float(get("weight_decay", 0.0)),
+        clip_grad=float(get("clip_grad", 0.0)),
+        clip_grad_per_group=_yn(get("clip_grad_per_group", "n")),
+        unfreeze_warmup_epochs=float(get("unfreeze_warmup_epochs", 0.0)),
+    )
+
+    train = TrainConfig(
+        batch_size=int(get("batch_size", 64)),
+        batch_size_pretrain=int(get("batch_size_pretrain", 128)),
+        epochs=int(get("epochs", 60)),
+        epochs_pretrain=int(get("epochs_pretrain", 10)),
+        epochs_finetune=int(get("epochs_finetune", 5)),
+        epochs_finetune_classifier=int(get("epochs_finetune_classifier", 3)),
+        epochs_finetune_mask_prune=int(get("epochs_finetune_mask_prune", 999999999)),
+        freeze_epochs=int(get("freeze_epochs", 10)),
+        seed=int(get("seed", 1)),
+        optim=optim,
+        loss=loss,
+    )
+
+    return RunConfig(
+        model=model, train=train,
+        log_dir=get("log_dir", "./runs/run_pipnet"),
+        dataset=get("dataset", "CUB-190"),
+        ood_dataset=get("OOD_dataset", None),
+        phylo_config=get("phylo_config", None),
+        leave_out_classes=(get("leave_out_classes", "") or "").strip() or None,
+        validation_size=float(get("validation_size", 0.0)),
+        weighted_sampler=bool(get("weighted_loss", False)),
+        disable_transform2=_yn(get("disable_transform2", "n")),
+        num_workers=int(get("num_workers", 8)),
+    )

@@ -3,9 +3,11 @@
 The port's copy of the JAX package's normalizer (``preprocess.cc``: uint8
 HWC -> ImageNet-normalized float32 HWC in one pass, and the fused bilinear
 resize + crop + flip + normalize).  ``g++`` compiles it at first use into
-``build/native/libpipnet_native-<hash>.so`` under the repository root
-(listed in ``.gitignore``); the hash covers the source and the flags, so an
-edited source builds anew and nothing is written beside the source.
+``native/libpipnet_native-<hash>.so`` under the build root
+(``paths.build_root``: ``build/`` in a checkout, listed in ``.gitignore``;
+the user's cache for an installed package); the hash covers the source
+and the flags, so an edited source builds anew and nothing is written
+beside the source.
 Importing this module compiles nothing.  There is no fallback: a failed
 build raises with the compiler's output.
 
@@ -27,8 +29,10 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from ..paths import build_root
+
 SOURCE = Path(__file__).resolve().parent / "preprocess.cc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
+BUILD_DIR = build_root() / "native"
 CXX_FLAGS = ("-O3", "-ffp-contract=off", "-shared", "-fPIC")
 
 IMAGENET_MEAN = np.asarray((0.485, 0.456, 0.406), np.float32)

@@ -1,9 +1,10 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Each ``csrc/<name>.cu`` has a plain C interface.  It is compiled with
-``nvcc`` for ``sm_90a`` into ``build/kernels/lib<name>-<hash>.so`` under the
-repository root (listed in ``.gitignore``) at first use, and loaded with
-``ctypes``.  The hash covers the source, the shared headers
+``nvcc`` for ``sm_90a`` into ``kernels/lib<name>-<hash>.so`` under the build
+root (``paths.build_root``: ``build/`` in a checkout, listed in
+``.gitignore``; the user's cache for an installed package) at first use,
+and loaded with ``ctypes``.  The hash covers the source, the shared headers
 (``csrc/*.cuh``) and the flags, so an edited source or header builds anew
 and a stale library is never loaded.
 """
@@ -20,8 +21,10 @@ import time
 from pathlib import Path
 from typing import Callable, Dict, Iterable, Sequence, Tuple
 
+from ..paths import build_root
+
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+BUILD_DIR = build_root() / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "--ptxas-options=-v")
 

@@ -271,6 +271,39 @@ def make_train_step(model: PIPNet, tree: TreeArrays, cfg: RunConfig,
     return step
 
 
+def make_eval_step(model: PIPNet, tree: TreeArrays, *, path_prob_softmax_tau: float = 1.0,
+                   apply_overspecificity_mask: bool = False,
+                   leave_out_idx=None) -> Callable[[torch.Tensor], Metrics]:
+    """The eval step (the JAX package's ``make_eval_step``, ref test_pipnet):
+    ``step(xs) -> {'logits', 'pooled', 'log_joint', 'pred'}`` for the B
+    images ``xs`` (B, S, S, 3), without gradients.  The batch is duplicated
+    to mirror the training shape (ref pipnet/train.py:644-645), so the head
+    runs at 2B rows; inference thresholding is on; the joint leaf
+    distribution decodes the first B rows.
+
+    Only the unmasked decode is ported: the overspecificity mask, a path
+    softmax temperature other than 1 and the leave-out decode raise (they
+    come with the eval slice, ROADMAP.md item 7)."""
+    unported = [name for name, on in (
+        ("apply_overspecificity_mask", apply_overspecificity_mask),
+        (f"path_prob_softmax_tau={path_prob_softmax_tau}", path_prob_softmax_tau != 1.0),
+        ("leave_out_idx", leave_out_idx is not None)) if on]
+    if unported:
+        raise NotImplementedError(
+            f"eval options {unported} are not ported yet (ROADMAP.md item 7: eval)")
+
+    @torch.no_grad()
+    def step(xs: torch.Tensor) -> Metrics:
+        B = xs.shape[0]
+        out = model(torch.cat([xs, xs], dim=0), train=False, inference=True)
+        logits = out["logits"][:B]
+        logp = joint_leaf_log_distribution(logits, tree)
+        return {"logits": logits, "pooled": out["pooled"][:B], "log_joint": logp,
+                "pred": logp.argmax(dim=-1)}
+
+    return step
+
+
 def _metrics(tc, tree: TreeArrays, logits: torch.Tensor, ys: torch.Tensor) -> Metrics:
     """Fine accuracy through the joint leaf distribution
     (pipnet/train.py:363-369) and per-node accuracy (1186-1194)."""
