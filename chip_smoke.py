@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``pipnet_tpu_torch``) on one CUDA card.
 
-    python3 chip_smoke.py [--baseline CHECKOUT] [--only blocks|data|trainer]
+    python3 chip_smoke.py [--baseline CHECKOUT] [--only blocks|data|trainer|eval]
 
 Phases, each of which fails the run loudly:
 
@@ -90,15 +90,29 @@ Phases, each of which fails the run loudly:
    joint phase, mask-prune on) from the cache: step time by CUDA events,
    images/s, busy share, host waits and the synchronising lines (only the
    read at the epoch's end is allowed, beside the augmentation's
-   side-stream wait).
+   side-stream wait);
+12. evaluation: ``pipnet_tpu_torch.evaluate.run`` on the run directory
+   phase 11 trained (with ``--only eval``: one written from seeded weights,
+   evaluated on the data phase's fixture), with the flagship's leave-out
+   list, then again with the overspecificity mask (``--fixed_mask_seed
+   0``): each report's keys against ``artifacts/lou_190_s2/
+   eval_report_lou.json`` plus 189 ``per_node`` entries, its seconds, and
+   exactly one K1 launch an evaluation batch in each of its three passes
+   (``Trainer.evaluate``, the collecting sweep, ``evaluate_per_node``);
+   one masked pass timed by CUDA events (seconds, images/s) and profiled
+   (busy share); one batch's masked forward through K1 against the plain
+   composition on the same presence sample (the serving bar); the card's
+   presence samples against the CPU's for the same seeds (equal); a
+   masked ``Predictor`` answering requests, its logits equal to the eval
+   step's on the same sample.
 
 The last two lines of standard output are the ``{"kernels": [...]}``
 record and ``{"ok": true, "device": {...}}``.  ``--only blocks`` runs
 phases 1, 2 and the K3 and K4 checks of phase 3, ``--only data`` phases
-1, 2 and 9, ``--only trainer`` phases 1, 2 and 11, then each stops
-without either line: neither can pass for a full run.  Without a CUDA card, or
-without the rest of the repository beside it, it exits non-zero before
-printing either.
+1, 2 and 9, ``--only trainer`` phases 1, 2 and 11, ``--only eval`` phases
+1, 2 and 12, then each stops without either line: neither can pass for a
+full run.  Without a CUDA card, or without the rest of the repository
+beside it, it exits non-zero before printing either.
 """
 
 from __future__ import annotations
@@ -1685,91 +1699,87 @@ def check_run_dir(run_dir: str, tree) -> dict:
                               for c in meta}}
 
 
-def trainer_phase(card: str):
+def trainer_phase(card: str, log_dir: str):
     """Training through the CLI: ``run_pipnet`` in-process with the
-    flagship's flags (``flagship_cli_argv``), then ``--resume --epochs 3``
-    on the same directory; what it trained served by ``Predictor`` against
-    the trainer's own model; ``Trainer.evaluate`` from the test cache
-    against the host-streamed loader; then ``Trainer.run_epoch`` at the
-    joint phase from the cache, timed, profiled and watched for host
-    synchronisations."""
+    flagship's flags (``flagship_cli_argv``) into ``log_dir``, then
+    ``--resume --epochs 3`` on the same directory; what it trained served
+    by ``Predictor`` against the trainer's own model; ``Trainer.evaluate``
+    from the test cache against the host-streamed loader; then
+    ``Trainer.run_epoch`` at the joint phase from the cache, timed,
+    profiled and watched for host synchronisations."""
     from PIL import Image
     from pipnet_tpu_torch.main import run_pipnet
     from pipnet_tpu_torch.train import Trainer
     rec = {"argv": None}
-    log_dir = tempfile.mkdtemp(prefix="pipnet_cli_")
+    argv = flagship_cli_argv(log_dir)
+    rec["argv"] = " ".join(argv)
+    calls, trainers = [], []
+    stdout = sys.stdout
+    with recorded_trainer(calls, trainers):
+        t0 = time.perf_counter()
+        if run_pipnet(argv) != 0:
+            fail("the CLI run returned non-zero")
+        rec["cli_s"] = time.perf_counter() - t0
+        first = len(calls)
+        t0 = time.perf_counter()
+        if run_pipnet(argv + ["--resume", "--epochs", "3"]) != 0:
+            fail("the resumed CLI run returned non-zero")
+        rec["resume_s"] = time.perf_counter() - t0
+    if sys.stdout is not stdout:
+        fail("run_pipnet left sys.stdout replaced")
+    rec["calls"] = calls
+    say(f"training through the CLI, calls: {json.dumps(calls)} [{card}]")
+    shape = [(c["call"], c.get("epoch"), c.get("phase")) for c in calls]
+    want_shape = [("run_epoch", 1, "pretrain"),
+                  ("run_epoch", 1, "finetune_classifier"), ("evaluate", None, None),
+                  ("run_epoch", 2, "finetune_classifier"), ("evaluate", None, None),
+                  ("run_epoch", 3, "finetune"), ("evaluate", None, None)]
+    if shape != want_shape or first != 5:
+        fail(f"the CLI runs' epochs and evaluations {shape} (first run {first} calls), "
+             f"expected {want_shape} with the resume starting at epoch 3")
+    for c in calls:
+        check_launches(f"CLI {c['call']} {c.get('epoch')} {c.get('phase')}",
+                       c["launches"], expected_launches(c))
+        if c["call"] == "run_epoch" and not c["finite"]:
+            fail(f"CLI epoch with non-finite losses: {c}")
+    trainer = trainers[-1]
+    rec["run_dir"] = check_run_dir(log_dir, trainer.tree)
+    # seconds of each checkpoint the two CLI runs wrote, in order
+    rec["run_dir"]["save_s"] = [[name, s] for t in trainers for name, s in t.save_seconds]
+
+    # serve what was trained: the run directory through Predictor against
+    # the trainer's own model, on the same padded batch
+    from pipnet_tpu_torch.serve import Predictor
+    pred = Predictor(log_dir, "net_trained_last", device="cuda")
+    image = synthetic_images(1, 256, seed=5)[0]
+    answer = pred.predict([Image.fromarray(image)])[0]
+    chunk = pred._prep([Image.fromarray(image)])
+    chunk = np.concatenate([chunk, np.zeros((pred.batch_size - 1,) + chunk.shape[1:],
+                                            chunk.dtype)])
+    xs = torch.from_numpy(chunk).cuda()
+    served, _, _ = pred.forward(xs)
+    with torch.inference_mode():
+        own = trainer.model(xs, inference=True)["logits"]
+    rec["served"] = {"class": answer["class"], "prob": answer["prob"],
+                     "logits_equal": bool(torch.equal(served, own)),
+                     "logits_max_abs_diff": (served.float() - own.float()).abs().max().item()}
+    if not rec["served"]["logits_equal"]:
+        fail(f"the served run directory's logits differ from the trainer's: {rec['served']}")
+
+    # the test set from the eval cache and streamed from the host loader
+    cached = trainer.evaluate(trainer.loaders.test)
+    os.environ["PIPNET_DEVICE_DATA"] = "0"
     try:
-        argv = flagship_cli_argv(log_dir)
-        rec["argv"] = " ".join(argv)
-        calls, trainers = [], []
-        stdout = sys.stdout
-        with recorded_trainer(calls, trainers):
-            t0 = time.perf_counter()
-            if run_pipnet(argv) != 0:
-                fail("the CLI run returned non-zero")
-            rec["cli_s"] = time.perf_counter() - t0
-            first = len(calls)
-            t0 = time.perf_counter()
-            if run_pipnet(argv + ["--resume", "--epochs", "3"]) != 0:
-                fail("the resumed CLI run returned non-zero")
-            rec["resume_s"] = time.perf_counter() - t0
-        if sys.stdout is not stdout:
-            fail("run_pipnet left sys.stdout replaced")
-        rec["calls"] = calls
-        say(f"training through the CLI, calls: {json.dumps(calls)} [{card}]")
-        shape = [(c["call"], c.get("epoch"), c.get("phase")) for c in calls]
-        want_shape = [("run_epoch", 1, "pretrain"),
-                      ("run_epoch", 1, "finetune_classifier"), ("evaluate", None, None),
-                      ("run_epoch", 2, "finetune_classifier"), ("evaluate", None, None),
-                      ("run_epoch", 3, "finetune"), ("evaluate", None, None)]
-        if shape != want_shape or first != 5:
-            fail(f"the CLI runs' epochs and evaluations {shape} (first run {first} calls), "
-                 f"expected {want_shape} with the resume starting at epoch 3")
-        for c in calls:
-            check_launches(f"CLI {c['call']} {c.get('epoch')} {c.get('phase')}",
-                           c["launches"], expected_launches(c))
-            if c["call"] == "run_epoch" and not c["finite"]:
-                fail(f"CLI epoch with non-finite losses: {c}")
-        trainer = trainers[-1]
-        rec["run_dir"] = check_run_dir(log_dir, trainer.tree)
-        # seconds of each checkpoint the two CLI runs wrote, in order
-        rec["run_dir"]["save_s"] = [[name, s] for t in trainers for name, s in t.save_seconds]
-
-        # serve what was trained: the run directory through Predictor against
-        # the trainer's own model, on the same padded batch
-        from pipnet_tpu_torch.serve import Predictor
-        pred = Predictor(log_dir, "net_trained_last", device="cuda")
-        image = synthetic_images(1, 256, seed=5)[0]
-        answer = pred.predict([Image.fromarray(image)])[0]
-        chunk = pred._prep([Image.fromarray(image)])
-        chunk = np.concatenate([chunk, np.zeros((pred.batch_size - 1,) + chunk.shape[1:],
-                                                chunk.dtype)])
-        xs = torch.from_numpy(chunk).cuda()
-        served, _, _ = pred.forward(xs)
-        with torch.inference_mode():
-            own = trainer.model(xs, inference=True)["logits"]
-        rec["served"] = {"class": answer["class"], "prob": answer["prob"],
-                         "logits_equal": bool(torch.equal(served, own)),
-                         "logits_max_abs_diff": (served.float() - own.float()).abs().max().item()}
-        if not rec["served"]["logits_equal"]:
-            fail(f"the served run directory's logits differ from the trainer's: {rec['served']}")
-
-        # the test set from the eval cache and streamed from the host loader
-        cached = trainer.evaluate(trainer.loaders.test)
-        os.environ["PIPNET_DEVICE_DATA"] = "0"
-        try:
-            streamed = trainer.evaluate(trainer.loaders.test)
-        finally:
-            del os.environ["PIPNET_DEVICE_DATA"]
-        rec["evaluate"] = {"cached": cached, "streamed": streamed}
-        if cached != streamed:
-            fail(f"Trainer.evaluate from the cache and streamed disagree: {rec['evaluate']}")
-        del pred
-
-        rec["joint_epoch"] = joint_epoch(trainer)
-        say(f"training through the CLI: {json.dumps(rec)} [{card}]")
+        streamed = trainer.evaluate(trainer.loaders.test)
     finally:
-        shutil.rmtree(log_dir, ignore_errors=True)
+        del os.environ["PIPNET_DEVICE_DATA"]
+    rec["evaluate"] = {"cached": cached, "streamed": streamed}
+    if cached != streamed:
+        fail(f"Trainer.evaluate from the cache and streamed disagree: {rec['evaluate']}")
+    del pred
+
+    rec["joint_epoch"] = joint_epoch(trainer)
+    say(f"training through the CLI: {json.dumps(rec)} [{card}]")
     launches = {k: sum(c["launches"][k] for c in calls) + rec["joint_epoch"]["launches"][k]
                 for k in NO_LAUNCHES}
     del trainers, trainer
@@ -1846,6 +1856,214 @@ def joint_epoch(trained) -> dict:
         fail(f"Trainer.run_epoch synchronises inside the epoch: {rec}")
     shutil.rmtree(log_dir, ignore_errors=True)
     return rec
+
+
+@contextlib.contextmanager
+def scratch_dir(prefix: str):
+    """A temporary directory, removed when the block ends."""
+    path = tempfile.mkdtemp(prefix=prefix)
+    try:
+        yield path
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+
+
+# evaluation: the flagship's leave-out report, whose keys each report must
+# carry (beside the per-node sweep's)
+EVAL_REPORT = os.path.join(REPO, "artifacts", "lou_190_s2", "eval_report_lou.json")
+
+
+def flagship_leave_out() -> str:
+    """The flagship's leave-out list (``run_lou_190.sh``) as an absolute path."""
+    argv = flagship_cli_argv(tempfile.gettempdir())
+    return argv[argv.index("--leave_out_classes") + 1]
+
+
+@contextlib.contextmanager
+def recorded_evaluate(trainers: list):
+    """While the block runs, every ``Trainer.evaluate`` records its trainer
+    and its host seconds (the pass ends in the read of its counts)."""
+    from pipnet_tpu_torch.train import Trainer
+    evaluate = Trainer.evaluate
+
+    def evaluate_recorded(self, loader, **kw):
+        t0 = time.perf_counter()
+        out = evaluate(self, loader, **kw)
+        trainers.append((self, loader, kw, time.perf_counter() - t0))
+        return out
+
+    Trainer.evaluate = evaluate_recorded
+    try:
+        yield
+    finally:
+        Trainer.evaluate = evaluate
+
+
+def masked_parity(trainer, loader, keep) -> dict:
+    """One evaluation batch's masked forward (its 2B rows, as the eval step
+    runs them) through K1 against the plain composition on the same
+    features and presence sample ``keep``: pooled, logits within two bf16
+    ulps, top-1 of the masked decode equal on every confident image."""
+    from pipnet_tpu_torch.models.pipnet import (joint_leaf_log_distribution,
+                                                masked_decode_degenerates)
+    from pipnet_tpu_torch.ops.fused_head import fused_head, fused_head_reference
+    model, tree, head = trainer.model, trainer.tree, trainer.model.head
+    xs, _ = next(iter(trainer.eval_batches(loader)))
+    with torch.inference_mode():
+        feats = model.features(torch.cat([xs, xs]))
+        k = head.add_on_kernel.to(feats.dtype)
+        _, pooled_k = fused_head(feats, k, tree, tau=head.cfg.softmax_tau)
+        _, pooled_p = fused_head_reference(feats, k, tree, tau=head.cfg.softmax_tau)
+        # a pooled value within a bf16 ulp of the 0.1 cut may round to either
+        # side of it: take the plain side there (as the serving check does)
+        near = (pooled_p - head.cfg.inference_threshold).abs() < 2.0 ** -9
+        pooled_k = torch.where(near, pooled_p, pooled_k)
+        masked_k, logits_k = head.classify(pooled_k.to(feats.dtype), inference=True, keep=keep)
+        _, logits_p = head.classify(pooled_p.to(feats.dtype), inference=True, keep=keep)
+        deg = masked_decode_degenerates(model, tree, keep)
+        logp_k = joint_leaf_log_distribution(logits_k, tree, degenerate_nodes=deg).float()
+        logp_p = joint_leaf_log_distribution(logits_p, tree, degenerate_nodes=deg).float()
+    lk, lp = logits_k.float(), logits_p.float()
+    top2 = torch.topk(logp_p, 2, dim=-1).values
+    confident = (top2[:, 0] - top2[:, 1]) > 0.1
+    agree = (logp_k.argmax(-1) == logp_p.argmax(-1))[confident]
+    rec = {"rows": int(lk.shape[0]),
+           "pooled_max_abs_err": (pooled_k - pooled_p).abs().max().item(),
+           "logits_max_abs_err": (lk - lp).abs().max().item(),
+           "near_threshold": int(near.sum().item()),
+           "pruned_prototypes_zero": bool((masked_k[:, keep == 0] == 0).all().item()),
+           "confident_rows": int(confident.sum().item()),
+           "top1_agree": int(agree.sum().item())}
+    if not (torch.isfinite(lk).all() and torch.isfinite(logp_k).all()
+            and rec["pruned_prototypes_zero"]):
+        fail(f"evaluation: masked logits not finite or a pruned prototype scored: {rec}")
+    if rec["pooled_max_abs_err"] > SERVED_POOLED_TOL or \
+            bool(((lk - lp).abs() > 2.0 ** -6 * lp.abs() + 2.0 ** -7).any()):
+        fail(f"evaluation: the masked forward through K1 disagrees with the plain "
+             f"composition: {rec}")
+    if rec["confident_rows"] == 0 or not bool(agree.all()):
+        fail(f"evaluation: masked top-1 disagrees with the plain composition: {rec}")
+    return rec
+
+
+def eval_phase(card: str, run_dir: str, dataset=None):
+    """``evaluate.run`` on ``run_dir`` (with ``dataset`` in place of the
+    run's own) with the flagship's leave-out list, unmasked and masked (one
+    fixed sample, seed 0): the reports, their launches and seconds; then
+    one masked pass timed and profiled, the masked forward against the
+    plain composition, the presence samples on the card against the CPU's,
+    and a masked ``Predictor`` against the eval step."""
+    from PIL import Image
+    from pipnet_tpu_torch.evaluate import run as evaluate_run
+    from pipnet_tpu_torch.models.pipnet import masked_decode_degenerates, presence_keep
+    from pipnet_tpu_torch.serve import Predictor
+    from pipnet_tpu_torch.train import make_eval_step
+    with open(EVAL_REPORT) as f:
+        want_keys = set(json.load(f)) | {"per_node"}
+    base = ["--run_dir", run_dir, "--device", "cuda", "--leave_out_classes",
+            flagship_leave_out()] + (["--dataset", dataset] if dataset else [])
+    rec, launches = {"run_dir": run_dir, "dataset": dataset}, dict(NO_LAUNCHES)
+    for name, extra, suffix in (
+            ("leave-out", [], "_lou"),
+            ("leave-out, masked", ["--apply_overspecificity_mask", "--fixed_mask_seed", "0"],
+             "_masked_lou")):
+        path = os.path.join(run_dir, f"eval_report{suffix}.json")
+        if os.path.exists(path):
+            os.remove(path)            # no merge with an earlier report
+        trainers = []
+        stdout = io.StringIO()
+        zero_counts()
+        t0 = time.perf_counter()
+        with recorded_evaluate(trainers), contextlib.redirect_stdout(stdout):
+            code = evaluate_run(base + extra)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = counts()
+        if code != 0:
+            fail(f"evaluation {name}: evaluate.run returned {code}")
+        with open(path) as f:
+            report = json.load(f)
+        trainer, loader, kw, pass_s = trainers[0]
+        batches = len(loader)
+        # one K1 launch an evaluation batch (a forward of its 2B rows; the
+        # flagship tree has no node wider than a tile), in each of the three
+        # passes: Trainer.evaluate, the collecting sweep, evaluate_per_node
+        check_launches(f"evaluation {name}", got, {**NO_LAUNCHES, "fused_head": 3 * batches})
+        launches = {k: launches[k] + got[k] for k in NO_LAUNCHES}
+        if set(report) != want_keys:
+            fail(f"evaluation {name}: report keys {sorted(report)}, expected "
+                 f"{sorted(want_keys)}")
+        if len(report["per_node"]) != trainer.tree.num_nodes or trainer.tree.num_nodes != 189:
+            fail(f"evaluation {name}: {len(report['per_node'])} per-node entries, expected 189")
+        numbers = [v for v in report.values() if isinstance(v, (int, float))]
+        if not all(np.isfinite(numbers)) or report["n"] != report["left_out_n"] or \
+                report["n"] == 0 or report["held_in_n"] == 0:
+            fail(f"evaluation {name}: report {report}")
+        images = len(loader.dataset)
+        rec[name] = {"report": {k: v for k, v in report.items() if k != "per_node"},
+                     "per_node_entries": len(report["per_node"]), "launches": got,
+                     "run_s": seconds, "batches": batches, "images": images,
+                     "first_pass_s": pass_s, "first_pass_images_per_s": images / pass_s}
+        say(f"evaluation {name}: {json.dumps(rec[name])} [{card}]")
+
+    # one masked pass, warm: timed by CUDA events, then profiled
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    start.record()
+    trainer.evaluate(loader, **kw)
+    end.record()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t1
+    pass_ms = start.elapsed_time(end)
+    prof = profile_ms(lambda: trainer.evaluate(loader, **kw), n=1)
+    keep = presence_keep(trainer.model.head.proto_presence, 0)
+    with torch.inference_mode():
+        degenerate = masked_decode_degenerates(trainer.model, trainer.tree, keep)
+    valid = torch.as_tensor(trainer.tree.proto_valid, device=keep.device)
+    rec["masked_pass"] = {
+        "pass_ms": pass_ms, "host_s": host_s, "images_per_s": images / host_s,
+        "kernel_ms": prof["kernel_ms"], "kernels": prof.get("kernels"),
+        "busy_share": (prof["kernel_ms"] / pass_ms if prof.get("kernels") else "not measured"),
+        "top_ms": prof.get("top_ms"),
+        "degenerate_nodes": int(degenerate.sum().item()),
+        "kept_prototypes": int((keep * valid).sum().item()),
+        "prototypes": int(valid.sum().item())}
+
+    # the presence samples: the card's equal the CPU's for the same seeds
+    presence_cpu = trainer.model.head.proto_presence.detach().cpu()
+    samples_equal = {
+        "fixed_seed_0": torch.equal(keep.cpu(), presence_keep(presence_cpu, 0)),
+        "per_batch_seed_0": torch.equal(trainer.mask_samples(batches).cpu(),
+                                        presence_keep(presence_cpu, 0, num=batches))}
+    rec["samples_card_equal_cpu"] = samples_equal
+    if not all(samples_equal.values()):
+        fail(f"evaluation: the card's presence samples differ from the CPU's: {samples_equal}")
+    rec["masked_parity"] = masked_parity(trainer, loader, keep)
+
+    # the pruned model served: a masked Predictor (mask_seed 0, the fixed
+    # sample above) answers requests; its logits equal the eval step's
+    pred = Predictor(run_dir, "net_trained_last", batch_size=8, apply_overspecificity_mask=True,
+                     mask_seed=0, device="cuda")
+    if not torch.equal(pred.keep, keep):
+        fail("evaluation: the masked Predictor's sample differs from the evaluation's")
+    requests = synthetic_images(4, 256, seed=7)
+    answers = [pred.predict([Image.fromarray(im)])[0] for im in requests[:2]]
+    answers += pred.predict([Image.fromarray(im) for im in requests])
+    xs = torch.from_numpy(pred._prep([Image.fromarray(im) for im in requests])).cuda()
+    served, _, served_logp = pred.forward(torch.cat([xs, xs]))
+    step = make_eval_step(pred.model, pred.tree, apply_overspecificity_mask=True)(xs, pred.keep)
+    rec["predictor"] = {"answers": len(answers), "classes": [a["class"] for a in answers],
+                        "logits_equal": bool(torch.equal(served[:4], step["logits"])),
+                        "log_joint_equal": bool(torch.equal(served_logp[:4], step["log_joint"]))}
+    if not (rec["predictor"]["logits_equal"] and rec["predictor"]["log_joint_equal"]):
+        fail(f"evaluation: the masked Predictor's logits differ from the eval step's: "
+             f"{rec['predictor']}")
+    say(f"evaluation: {json.dumps({k: v for k, v in rec.items() if not k.startswith('leave')})}"
+        f" [{card}]")
+    del pred, trainer, trainers
+    torch.cuda.empty_cache()
+    return rec, launches
 
 
 def cross_checks(card: str, setup: Setup):
@@ -2020,11 +2238,12 @@ def main(argv=None) -> int:
     ap.add_argument("--baseline", metavar="CHECKOUT",
                     help="an older checkout of this repository whose K1 and K2 are timed "
                          "in turns with this one's in the kernel phase")
-    ap.add_argument("--only", choices=["blocks", "data", "trainer"],
+    ap.add_argument("--only", choices=["blocks", "data", "trainer", "eval"],
                     help="blocks: build, check and time K3 and K4 only; data: build, then "
                          "run the training-from-data phase only; trainer: build, then run "
-                         "the training-through-the-CLI phase only; each stops without "
-                         "the kernels record or the ok line")
+                         "the training-through-the-CLI phase only; eval: build, then "
+                         "evaluate a run directory of seeded weights on the data phase's "
+                         "fixture; each stops without the kernels record or the ok line")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2063,8 +2282,15 @@ def main(argv=None) -> int:
         say(f"--only data: done in {time.perf_counter() - t_start:.1f} s; no full run")
         return 0
     if args.only == "trainer":
-        trainer_phase(card)
+        with scratch_dir("pipnet_cli_") as cli_dir:
+            trainer_phase(card, cli_dir)
         say(f"--only trainer: done in {time.perf_counter() - t_start:.1f} s; no full run")
+        return 0
+    if args.only == "eval":
+        with scratch_dir("pipnet_eval_") as run_dir:
+            write_run_dir(run_dir, flagship, fused=False)
+            eval_phase(card, run_dir, dataset=DATA_FIXTURE)
+        say(f"--only eval: done in {time.perf_counter() - t_start:.1f} s; no full run")
         return 0
     records, backward, nopf = kernel_phase(card, baseline)
     dw, blocks = block_kernel_phase(card, baseline)
@@ -2101,10 +2327,12 @@ def main(argv=None) -> int:
     check_launches("training path B, flat", train_fb["launches"], {
         **NO_LAUNCHES, "fused_head": 2 * TIMED_STEPS, "head_backward": 2 * TIMED_STEPS,
         "fused_head_nopf": 3 * TIMED_STEPS})
-    _, train_cli = trainer_phase(card)
+    with scratch_dir("pipnet_cli_") as cli_dir:
+        _, train_cli = trainer_phase(card, cli_dir)
+        _, evaluation = eval_phase(card, cli_dir)
     paths.update({"training A": train_a["launches"], "training B": train_b["launches"],
                   "training C": train_c["launches"], "training from data": train_data["launches"],
-                  "training through the CLI": train_cli,
+                  "training through the CLI": train_cli, "evaluation": evaluation,
                   "training A, flat": train_fa["launches"],
                   "training B, flat": train_fb["launches"]})
     total = {k: sum(p[k] for p in paths.values()) for k in NO_LAUNCHES}

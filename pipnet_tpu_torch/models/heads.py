@@ -11,13 +11,23 @@ temperature softmax that both of the JAX package's head paths compute.
 With ``fuse_align_pf`` a two-view training batch goes through K2 instead
 (``ops/fused_head_nopf.py``): pooled and align_pf's per-node log-reduction,
 with pf never materialised.  The other add-on types, the spatial, Gumbel
-and cosine-multiplied softmax variants, focal pooling and the
-overspecificity mask come with later slices and raise here.
+and cosine-multiplied softmax variants and focal pooling come with later
+slices and raise here.
+
+The overspecificity mask (``apply_overspecificity_mask`` with a presence
+sample ``keep``) multiplies pooled after the spatial max and before the
+inference threshold, the JAX head's order (``models/heads.py:230-237``).
+Unlike the JAX head, which leaves its Pallas kernel for the plain path when
+the mask is on, the masked head stays on K1: the mask acts after the max,
+so K1's pf and pooled are what the plain path computes first, and a pruned
+model evaluated or served on the card runs the kernel.  In float32 the two
+agree to K1's bar; in bf16 ``keep`` is cast to the pooled dtype (0 or 1
+there), where the JAX head promotes pooled to float32.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -75,14 +85,17 @@ class PrototypeHead(nn.Module):
 
     def forward(self, features: torch.Tensor, *, inference: bool = False,
                 apply_overspecificity_mask: bool = False,
+                keep: Optional[torch.Tensor] = None,
                 fuse_align_pf: bool = False) -> Dict[str, torch.Tensor]:
         """features (B, H, W, D) -> {'proto_features', 'pooled', 'logits'};
         with ``fuse_align_pf`` (B = two stacked views) -> {'pooled',
-        'logits', 'align_pf_logsum' (B/2, N)}, pf never materialised."""
-        if apply_overspecificity_mask:
-            raise NotImplementedError(
-                "the overspecificity mask is not ported yet (it comes with "
-                "the head-variants slice)")
+        'logits', 'align_pf_logsum' (B/2, N)}, pf never materialised.
+        ``apply_overspecificity_mask`` needs ``keep`` (P,), the hard-Gumbel
+        presence sample (``models/pipnet.py::presence_keep``)."""
+        if apply_overspecificity_mask and keep is None:
+            raise ValueError("apply_overspecificity_mask requires keep")
+        if not apply_overspecificity_mask:
+            keep = None
         cfg = self.cfg
         if cfg.sg_before_protos:
             features = features.detach()
@@ -90,17 +103,22 @@ class PrototypeHead(nn.Module):
         if fuse_align_pf:
             pooled, logsum = fused_head_nopf(features, kernel, self.tree,
                                              tau=cfg.softmax_tau, eps=ALIGN_EPS)
-            pooled, logits = self.classify(pooled.to(features.dtype), inference=inference)
+            pooled, logits = self.classify(pooled.to(features.dtype), inference=inference,
+                                           keep=keep)
             return {"pooled": pooled, "logits": logits, "align_pf_logsum": logsum}
         pf, pooled = fused_head(features, kernel, self.tree, tau=cfg.softmax_tau)
         # cast before the threshold, as the JAX head does (heads.py:199-201)
-        pooled, logits = self.classify(pooled.to(features.dtype), inference=inference)
+        pooled, logits = self.classify(pooled.to(features.dtype), inference=inference,
+                                       keep=keep)
         return {"proto_features": pf, "pooled": pooled, "logits": logits}
 
-    def classify(self, pooled: torch.Tensor, *, inference: bool = False):
-        """pooled (B, P) in the compute dtype -> (pooled after the inference
-        threshold, logits (B, C))."""
+    def classify(self, pooled: torch.Tensor, *, inference: bool = False,
+                 keep: Optional[torch.Tensor] = None):
+        """pooled (B, P) in the compute dtype -> (pooled after the presence
+        mask ``keep`` (P,) and the inference threshold, logits (B, C))."""
         cfg = self.cfg
+        if keep is not None:
+            pooled = pooled * keep.to(pooled.dtype)[None, :]
         if inference:
             pooled = torch.where(pooled < cfg.inference_threshold,
                                  torch.zeros_like(pooled), pooled)

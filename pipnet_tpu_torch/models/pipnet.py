@@ -1,11 +1,11 @@
 """PIPNet: backbone + stacked prototype head, and the joint leaf decode.
 
 Counterpart of the JAX package's ``models/pipnet.py`` (itself the reference
-``PIPNet``, ``pipnet/pipnet.py:54-185``) for the serving and training
-slices: the ConvNeXt backbones (each block's branch through K4 under
-``use_pallas_backbone``), the conv add-on head over K1 (or K2 for a
-training step that fuses align_pf), and the vectorized joint distribution
-over leaves.
+``PIPNet``, ``pipnet/pipnet.py:54-185``): the ConvNeXt backbones (each
+block's branch through K4 under ``use_pallas_backbone``), the conv add-on
+head over K1 (or K2 for a training step that fuses align_pf), the
+vectorized joint distribution over leaves, and the overspecificity mask's
+presence sample and degenerate-node verdict.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ from torch import nn
 
 from ..config import ModelConfig
 from ..device import resolve_device
-from ..ops.segment import tree_tensor
+from ..ops.segment import gumbel_noise, segment_hard_gumbel, tree_tensor
 from ..tree.compile import TreeArrays, compile_tree
 from ..tree.node import Node
 from .convnext import convnext_tiny_7, convnext_tiny_13, convnext_tiny_26
@@ -65,18 +65,67 @@ class PIPNet(nn.Module):
     def forward(self, xs: torch.Tensor, *, train: bool = False,
                 generator: Optional[torch.Generator] = None,
                 inference: bool = False, apply_overspecificity_mask: bool = False,
+                keep: Optional[torch.Tensor] = None,
                 fuse_align_pf: bool = False) -> Dict[str, torch.Tensor]:
         """xs (B, S, S, 3) -> {'features', 'proto_features', 'pooled',
         'logits'} with layouts (B,H,W,D), (B,H,W,P), (B,P), (B,C).  ``train``
         turns stochastic depth on, drawing from ``generator``.
-        ``fuse_align_pf`` (two stacked views): 'align_pf_logsum' (B/2, N)
-        replaces 'proto_features' (K2; see ``PrototypeHead``)."""
+        ``apply_overspecificity_mask`` masks pooled with the presence sample
+        ``keep`` (P,) (``presence_keep``).  ``fuse_align_pf`` (two stacked
+        views): 'align_pf_logsum' (B/2, N) replaces 'proto_features' (K2;
+        see ``PrototypeHead``)."""
         f = self.features(xs, train=train, generator=generator)
         out = self.head(f, inference=inference,
                         apply_overspecificity_mask=apply_overspecificity_mask,
-                        fuse_align_pf=fuse_align_pf)
+                        keep=keep, fuse_align_pf=fuse_align_pf)
         out["features"] = f
         return out
+
+
+# ----------------------------------------------------------------------------
+# the overspecificity mask
+# ----------------------------------------------------------------------------
+
+def presence_keep(presence: torch.Tensor, seed: int, num: Optional[int] = None) -> torch.Tensor:
+    """Hard-Gumbel presence samples of the overspecificity mask (the
+    reference's ``F.gumbel_softmax(proto_presence, tau=0.5, hard=True)[:, 1]``,
+    pipnet/pipnet.py:165): ``keep`` (P,), or with ``num`` (num, P) drawn in
+    one go, on ``presence``'s device.  The Gumbel noise comes from a CPU
+    ``torch.Generator`` seeded ``seed`` and the sample is computed bit for
+    bit alike on every device (``ops/segment.py::segment_hard_gumbel``), so
+    a seed gives the same pruned model on the CPU and on the card."""
+    shape = tuple(presence.shape) if num is None else (num, *presence.shape)
+    noise = gumbel_noise(shape, torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        return segment_hard_gumbel(presence.detach().float(), None, tau=0.5,
+                                   noise=noise.to(presence.device))[..., 1]
+
+
+def degenerate_nodes_traced(masked_w: torch.Tensor, tree: TreeArrays) -> torch.Tensor:
+    """(N,) bool from the presence-masked effective classifier: a node is
+    degenerate when ANY of its child classes keeps no weight > 1e-3 (ref
+    util/node.py:342-347).  ``masked_w`` is ``effective_cls_weight() *
+    keep[None, :]`` (C, P); child rows are contiguous per node, so the
+    per-node ANY adds each row's verdict into its node, on ``masked_w``'s
+    device."""
+    row_node = tree_tensor(tree, "row_node", np.repeat(np.arange(tree.num_nodes),
+                                                       tree.node_num_children),
+                           masked_w.device, torch.long)
+    row_deg = (masked_w.amax(dim=1) <= 1e-3).to(torch.float32)
+    hits = torch.zeros(tree.num_nodes, device=masked_w.device).index_add_(0, row_node, row_deg)
+    return hits > 0
+
+
+def masked_decode_degenerates(model: PIPNet, tree: TreeArrays,
+                              keep: torch.Tensor) -> torch.Tensor:
+    """The degenerate-node verdict of a masked decode from the SAME presence
+    sample ``keep`` the head's forward used, so the pooled masking and the
+    leaf-count-prior fallback (ref util/node.py:336-361) agree.  The
+    reference draws a second, independent sample inside its decode; the
+    JAX package reuses the forward's (``train/step.py:362-368``), and so
+    does the port."""
+    w = model.head.effective_cls_weight()
+    return degenerate_nodes_traced(w * keep.to(w.dtype)[None, :], tree)
 
 
 # ----------------------------------------------------------------------------
@@ -197,16 +246,22 @@ def joint_leaf_log_distribution(logits: torch.Tensor, tree: TreeArrays,
     if degenerate_nodes is not None:
         prior = tree_tensor(tree, "decode_prior", _leaf_count_prior(tree), dev,
                             logp_children.dtype)
-        deg = torch.as_tensor(np.asarray(degenerate_nodes), device=dev).reshape(1, -1, 1)
+        deg = torch.as_tensor(degenerate_nodes, device=dev).reshape(1, -1, 1)
         logp_children = torch.where(deg, prior[None], logp_children)
 
     slot = tree_tensor(tree, "decode_slot",
                        np.where(tree.leaf_child_slot >= 0, tree.leaf_child_slot, 0),
                        dev, torch.long)                               # (L, N)
     if leave_out_idx is not None and len(leave_out_idx) > 0:
-        use_np, extra_np = leave_out_decode_tables(tree, leave_out_idx)
-        under = torch.as_tensor(use_np, device=dev) > 0
-        extra = torch.as_tensor(extra_np, device=dev)[None]
+        # the tables take a Python loop over node pairs: built once per
+        # leave-out set and device, not per batch
+        lo = tuple(sorted({int(i) for i in leave_out_idx}))
+        tables = tree.__dict__.setdefault("_leave_out_tables", {})
+        if lo not in tables:
+            tables[lo] = leave_out_decode_tables(tree, lo)
+        under = tree_tensor(tree, f"decode_lou_use{lo}", tables[lo][0] > 0, dev, torch.bool)
+        extra = tree_tensor(tree, f"decode_lou_extra{lo}", tables[lo][1], dev,
+                            torch.float32)[None]
     else:
         under = tree_tensor(tree, "decode_under", tree.leaf_under_node, dev, torch.bool)
         extra = 0.0
@@ -214,6 +269,11 @@ def joint_leaf_log_distribution(logits: torch.Tensor, tree: TreeArrays,
     g = logp_children[:, node, slot]                                  # (B, L, N)
     g = torch.where(under[None], g, torch.zeros_like(g))
     return g.sum(dim=-1) + extra
+
+
+def joint_leaf_distribution(logits: torch.Tensor, tree: TreeArrays,
+                            softmax_tau: float = 1.0) -> torch.Tensor:
+    return torch.exp(joint_leaf_log_distribution(logits, tree, softmax_tau))
 
 
 # ----------------------------------------------------------------------------

@@ -109,17 +109,67 @@ def segment_sum_to_nodes(x: torch.Tensor, tree: TreeArrays) -> torch.Tensor:
     return torch.cat([view.sum(dim=-1) for _, view in _bucket_views(x, tree)], dim=-1)
 
 
+def gumbel_noise(shape, generator: Optional[torch.Generator], device=None,
+                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """A Gumbel sample ``-log(-log(u))``, ``u`` uniform from ``generator``
+    (on ``device``)."""
+    tiny = torch.finfo(dtype).tiny
+    u = torch.rand(shape, generator=generator, device=device, dtype=dtype)
+    return -torch.log(-torch.log(u.clamp(min=tiny)))
+
+
 def soft_gumbel(logits2: torch.Tensor, generator: Optional[torch.Generator],
                 tau: float = 0.5, noise: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Soft Gumbel-softmax over the last axis (ref pipnet/train.py:978).
 
-    The Gumbel sample ``-log(-log(u))`` draws ``u`` from ``generator`` (on
-    ``logits2``'s device), or is ``noise`` when given: ``torch.Generator``
-    and ``jax.random`` give different streams, so a test hands both packages
-    the same sample."""
+    The Gumbel sample draws from ``generator`` (on ``logits2``'s device), or
+    is ``noise`` when given: ``torch.Generator`` and ``jax.random`` give
+    different streams, so a test hands both packages the same sample."""
     if noise is None:
-        tiny = torch.finfo(logits2.dtype).tiny
-        u = torch.rand(logits2.shape, generator=generator, device=logits2.device,
-                       dtype=logits2.dtype)
-        noise = -torch.log(-torch.log(u.clamp(min=tiny)))
+        noise = gumbel_noise(logits2.shape, generator, logits2.device, logits2.dtype)
     return torch.softmax((logits2 + noise) / tau, dim=-1)
+
+
+def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
+    """``a * b + c`` rounded once to float32 (float64 holds the product of
+    two float32s exactly), the same on every device."""
+    return (a.double() * b + c).float()
+
+
+def _exp_f32(x: torch.Tensor) -> torch.Tensor:
+    """exp of a float32 tensor as the JAX package's CPU backend computes it
+    (XLA's Cephes polynomial with fused multiply-adds, results below the
+    smallest normal flushed to 0), bit for bit on any device; within 2 ulps
+    of ``torch.exp``."""
+    x = x.clamp(-87.80000305175781, 88.80000305175781)
+    n = torch.floor(_fma(x, 1.4426950216293335, 0.5)).clamp(-127.0, 127.0)
+    r = _fma(-n, 0.693359375, x)
+    r = _fma(-n, -0.00021219444170128554, r)
+    y = _fma(r, 0.00019875691214110702, 0.001398199936375022)
+    for c in (0.008333452045917511, 0.04166579619050026, 0.1666666567325592, 0.5):
+        y = _fma(y, r.double(), c)
+    y = _fma(y, (r * r).double(), r.double()) + 1.0
+    out = y * ((n.to(torch.int32) + 127) << 23).view(torch.float32)
+    return torch.where(out < torch.finfo(torch.float32).tiny, torch.zeros_like(out), out)
+
+
+def segment_hard_gumbel(logits2: torch.Tensor, generator: Optional[torch.Generator],
+                        tau: float = 0.5, noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Hard (straight-through) Gumbel-softmax over the last axis of (..., 2)
+    presence logits in float32: one-hot values with the soft sample's
+    gradients (ref ``F.gumbel_softmax(..., tau=0.5, hard=True)`` at
+    pipnet/pipnet.py:165).  ``noise`` as in ``soft_gumbel``.
+
+    The value is ``hard + y - y`` in float32, which can come out one ulp
+    below 1, exactly as the JAX package computes it; its softmax uses the
+    JAX package's CPU exp (``_exp_f32``), so a sample gives the JAX
+    package's mask bit for bit, on the CPU and on the card alike.  The
+    gradient is ``torch.softmax``'s."""
+    if noise is None:
+        noise = gumbel_noise(logits2.shape, generator, logits2.device, logits2.dtype)
+    z = (logits2 + noise) / tau
+    e = _exp_f32(z.detach() - z.detach().amax(dim=-1, keepdim=True))
+    soft = torch.softmax(z, dim=-1)
+    y = e / e.sum(dim=-1, keepdim=True) + (soft - soft.detach())
+    hard = torch.nn.functional.one_hot(y.argmax(dim=-1), logits2.shape[-1]).to(y.dtype)
+    return hard + y - y.detach()

@@ -12,6 +12,8 @@ CLI::
     python -m pipnet_tpu_torch.serve --run_dir runs/x --images a.png b.png
     python -m pipnet_tpu_torch.serve --run_dir runs/x --bench
     python -m pipnet_tpu_torch.serve --run_dir runs/x --http 8000
+    python -m pipnet_tpu_torch.serve --run_dir runs/x --images a.png \
+        --apply_overspecificity_mask --mask_seed 0
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ import torch
 
 from .data.augment import EvalTransform
 from .device import resolve_device
-from .models.pipnet import joint_leaf_log_distribution
+from .models.pipnet import joint_leaf_log_distribution, masked_decode_degenerates, presence_keep
 from .run_io import load_run
 
 
@@ -39,17 +41,20 @@ class Predictor:
     distribution, ref util/node.py:300-395), ``topk`` list, ``abstained``
     (no positive classifier evidence anywhere, ref pipnet/test.py:66-70), and
     the number of active prototypes (ref pipnet/test.py:90-96).
+
+    ``apply_overspecificity_mask`` serves the mask-pruned model: one
+    hard-Gumbel presence sample drawn when the predictor is built (CPU
+    generator seeded ``mask_seed``, ``models/pipnet.py::presence_keep``)
+    and kept for its lifetime, the pruned model being a deterministic
+    artifact (ref calc_acc_LOU_and_mask_pruned_model.ipynb loads ONE mask);
+    the degenerate-node verdict of the decode is computed from it once.
     """
 
     def __init__(self, run_dir: str, checkpoint: str = "net_trained_last",
                  batch_size: int = 8, classes: Optional[List[str]] = None,
                  path_prob_softmax_tau: float = 1.0,
-                 apply_overspecificity_mask: bool = False,
+                 apply_overspecificity_mask: bool = False, mask_seed: int = 0,
                  device: Union[str, torch.device] = "cuda"):
-        if apply_overspecificity_mask:
-            raise NotImplementedError(
-                "apply_overspecificity_mask is not yet ported (it comes with "
-                "the head-variants slice)")
         self.device = resolve_device(device)
         self.bundle = load_run(run_dir, checkpoint=checkpoint, classes=classes,
                                device=self.device)
@@ -59,14 +64,21 @@ class Predictor:
         self.image_size = self.bundle.cfg.model.image_size
         self.path_prob_softmax_tau = path_prob_softmax_tau
         self._transform = EvalTransform(self.image_size)
+        self.keep = self.degenerate = None
+        if apply_overspecificity_mask:
+            self.keep = presence_keep(self.model.head.proto_presence, mask_seed)
+            with torch.no_grad():
+                self.degenerate = masked_decode_degenerates(self.model, self.tree, self.keep)
 
     @torch.inference_mode()
     def forward(self, xs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """xs (B, S, S, 3) normalized images on the device -> (logits,
         pooled, log joint leaf distribution)."""
-        out = self.model(xs, inference=True)
+        out = self.model(xs, inference=True, apply_overspecificity_mask=self.keep is not None,
+                         keep=self.keep)
         logp = joint_leaf_log_distribution(
-            out["logits"], self.tree, softmax_tau=self.path_prob_softmax_tau)
+            out["logits"], self.tree, softmax_tau=self.path_prob_softmax_tau,
+            degenerate_nodes=self.degenerate)
         return out["logits"], out["pooled"], logp
 
     # -- input handling ------------------------------------------------------
@@ -236,9 +248,11 @@ def run(argv=None) -> int:
     p.add_argument("--batch_size", type=int, default=8)
     p.add_argument("--path_prob_softmax_tau", type=float, default=1.0)
     p.add_argument("--apply_overspecificity_mask", action="store_true",
-                   help="not yet ported")
+                   help="serve the mask-pruned model (hard-Gumbel presence "
+                        "mask + degenerate-node decode fallback)")
+    p.add_argument("--mask_seed", type=int, default=0)
     p.add_argument("--explain", default=None, metavar="OUT_DIR",
-                   help="not yet ported")
+                   help="not yet ported (ROADMAP.md item 9)")
     p.add_argument("--bench", action="store_true",
                    help="serving latency/throughput JSON line")
     p.add_argument("--http", type=int, default=None, metavar="PORT",
@@ -251,13 +265,13 @@ def run(argv=None) -> int:
     if args.explain is not None:
         raise NotImplementedError(
             "--explain is not yet ported (per-image evidence folders come "
-            "with the interpretability slice)")
+            "with the interpretability slice, ROADMAP.md item 9)")
 
     pred = Predictor(args.run_dir, checkpoint=args.checkpoint,
                      batch_size=args.batch_size,
                      path_prob_softmax_tau=args.path_prob_softmax_tau,
                      apply_overspecificity_mask=args.apply_overspecificity_mask,
-                     device=args.device)
+                     mask_seed=args.mask_seed, device=args.device)
     if args.bench:
         print(json.dumps({"metric": "serving", **pred.bench()}))
         return 0

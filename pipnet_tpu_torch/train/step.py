@@ -30,7 +30,7 @@ import torch
 from ..config import RunConfig
 from ..losses import LossWeights, compute_total_loss, make_tree_consts
 from ..losses.catalog import label_rows
-from ..models.pipnet import PIPNet, joint_leaf_log_distribution
+from ..models.pipnet import PIPNet, joint_leaf_log_distribution, masked_decode_degenerates
 from ..ops.device_augment import ViewDraws, op_counts, sample_view, two_view_transform2
 from ..ops.device_geometric import GeometricDraws, sample_transform1, transform1_batch
 from ..tree.compile import TreeArrays
@@ -273,31 +273,35 @@ def make_train_step(model: PIPNet, tree: TreeArrays, cfg: RunConfig,
 
 def make_eval_step(model: PIPNet, tree: TreeArrays, *, path_prob_softmax_tau: float = 1.0,
                    apply_overspecificity_mask: bool = False,
-                   leave_out_idx=None) -> Callable[[torch.Tensor], Metrics]:
+                   leave_out_idx=None) -> Callable[..., Metrics]:
     """The eval step (the JAX package's ``make_eval_step``, ref test_pipnet):
-    ``step(xs) -> {'logits', 'pooled', 'log_joint', 'pred'}`` for the B
-    images ``xs`` (B, S, S, 3), without gradients.  The batch is duplicated
-    to mirror the training shape (ref pipnet/train.py:644-645), so the head
-    runs at 2B rows; inference thresholding is on; the joint leaf
-    distribution decodes the first B rows.
+    ``step(xs, keep=None) -> {'logits', 'pooled', 'log_joint', 'pred'}``
+    for the B images ``xs`` (B, S, S, 3), without gradients.  The batch is
+    duplicated to mirror the training shape (ref pipnet/train.py:644-645),
+    so the head runs at 2B rows; inference thresholding is on; the joint
+    leaf distribution decodes the first B rows with the path softmax
+    temperature ``path_prob_softmax_tau``.
 
-    Only the unmasked decode is ported: the overspecificity mask, a path
-    softmax temperature other than 1 and the leave-out decode raise (they
-    come with the eval slice, ROADMAP.md item 7)."""
-    unported = [name for name, on in (
-        ("apply_overspecificity_mask", apply_overspecificity_mask),
-        (f"path_prob_softmax_tau={path_prob_softmax_tau}", path_prob_softmax_tau != 1.0),
-        ("leave_out_idx", leave_out_idx is not None)) if on]
-    if unported:
-        raise NotImplementedError(
-            f"eval options {unported} are not ported yet (ROADMAP.md item 7: eval)")
+    ``leave_out_idx``: left-out class indices, the reference's LOU decode
+    short-circuit (ref util/node.py:319-326, pipnet/train.py:713).
+
+    ``apply_overspecificity_mask``: ``keep`` (P,) (required) masks pooled
+    in the head, and the decode falls back to leaf-count priors at every
+    node where some child class's masked classifier row keeps no weight
+    > 1e-3 (ref util/node.py:336-361), judged from the same ``keep``
+    (``models/pipnet.py::masked_decode_degenerates``)."""
 
     @torch.no_grad()
-    def step(xs: torch.Tensor) -> Metrics:
+    def step(xs: torch.Tensor, keep: Optional[torch.Tensor] = None) -> Metrics:
         B = xs.shape[0]
-        out = model(torch.cat([xs, xs], dim=0), train=False, inference=True)
+        out = model(torch.cat([xs, xs], dim=0), train=False, inference=True,
+                    apply_overspecificity_mask=apply_overspecificity_mask, keep=keep)
         logits = out["logits"][:B]
-        logp = joint_leaf_log_distribution(logits, tree)
+        degenerate = (masked_decode_degenerates(model, tree, keep)
+                      if apply_overspecificity_mask else None)
+        logp = joint_leaf_log_distribution(logits, tree, softmax_tau=path_prob_softmax_tau,
+                                           degenerate_nodes=degenerate,
+                                           leave_out_idx=leave_out_idx)
         return {"logits": logits, "pooled": out["pooled"][:B], "log_joint": logp,
                 "pred": logp.argmax(dim=-1)}
 

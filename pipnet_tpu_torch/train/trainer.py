@@ -32,7 +32,9 @@ from ..config import RunConfig
 from ..data.loader import Loader, Loaders
 from ..device import host_to_device
 from ..models.convert import params_from_jax, random_jax_params
-from ..models.pipnet import PIPNet
+from ..losses import make_tree_consts
+from ..losses.catalog import label_rows
+from ..models.pipnet import PIPNet, presence_keep
 from ..runtime.log import RunLog
 from ..runtime.profiling import trace
 from ..tree.compile import TreeArrays
@@ -64,6 +66,9 @@ class Trainer:
         self.device = model.head.add_on_kernel.device
         self._step_cache: Dict[tuple, Callable] = {}
         self.eval_step = make_eval_step(model, tree)
+        # eval steps by (path_prob_softmax_tau, apply_overspecificity_mask,
+        # leave_out_idx)
+        self._eval_steps: Dict[tuple, Callable] = {(1.0, False, None): self.eval_step}
         self.state: Optional[TrainState] = None
         self.history: list = []
         # --profile_epoch: a torch.profiler trace of steps 2..1+trace_steps
@@ -381,28 +386,77 @@ class Trainer:
         plt.close("all")
 
     # -- eval ----------------------------------------------------------------
-    def evaluate(self, loader: Loader) -> Dict[str, float]:
+    def eval_batches(self, loader: Loader):
+        """(images on the device, labels on the host) for each batch of
+        ``loader``'s pass: gathered from its device cache when it has one,
+        else streamed from the host loader."""
+        cache = self.device_cache_for(loader)
+        if cache is not None:
+            return ((cache.fetch(rows), ys) for rows, ys in loader.epoch_index_batches(0))
+        return ((host_to_device(b.xs1, self.device), b.ys) for b in loader.epoch(0))
+
+    def get_eval_step(self, path_prob_softmax_tau: float = 1.0,
+                      apply_overspecificity_mask: bool = False,
+                      leave_out_idx: Optional[tuple] = None) -> Callable:
+        key = (float(path_prob_softmax_tau), bool(apply_overspecificity_mask), leave_out_idx)
+        if key not in self._eval_steps:
+            self._eval_steps[key] = make_eval_step(
+                self.model, self.tree, path_prob_softmax_tau=path_prob_softmax_tau,
+                apply_overspecificity_mask=apply_overspecificity_mask,
+                leave_out_idx=leave_out_idx)
+        return self._eval_steps[key]
+
+    def mask_samples(self, num_batches: int,
+                     fixed_mask_seed: Optional[int] = None) -> torch.Tensor:
+        """(num_batches, P) presence samples of a masked pass, drawn before
+        it and on the device at once (``models/pipnet.py::presence_keep``):
+        one per batch from a generator seeded 0 (the reference's
+        GumbelSoftmax draws fresh noise every forward), or with
+        ``fixed_mask_seed`` one for the whole pass, the pruned model that
+        ``serve.Predictor(mask_seed=fixed_mask_seed)`` deploys."""
+        presence = self.model.head.proto_presence
+        if fixed_mask_seed is not None:
+            return presence_keep(presence, fixed_mask_seed)[None].expand(num_batches, -1)
+        return presence_keep(presence, 0, num=num_batches)
+
+    def evaluate(self, loader: Loader, *, leave_out_classes=None,
+                 apply_overspecificity_mask: bool = False,
+                 path_prob_softmax_tau: float = 1.0,
+                 fixed_mask_seed: Optional[int] = None) -> Dict[str, float]:
         """Test pass (ref test_pipnet, pipnet/train.py:525-849): duplicated
         views, inference thresholding, joint-distribution top-1/top-5.
+
+        With ``leave_out_classes``, the decode applies the reference's LOU
+        short-circuit (util/node.py:319-326) and accuracy is measured on the
+        left-out rows only (calc_acc_LOU.ipynb semantics): ``n`` counts
+        them.  With ``apply_overspecificity_mask``, each batch's forward and
+        decode use that batch's presence sample (``mask_samples``, drawn
+        before the pass).
 
         The counts add up on the device and are read once.  A label counts
         in the top k when fewer than k leaves rank above it, a leaf ranking
         above when its log probability is larger, or equal at a lower
         index: the order of ``jax.lax.top_k``, so that ties (leaves whose
         paths decode alike) count as in the JAX package whatever order a
-        top-k kernel returns them in.  Only the unmasked decode is ported:
-        the JAX package's leave-out decode, overspecificity mask and path
-        temperature come with ROADMAP.md item 7."""
+        top-k kernel returns them in."""
         dev = self.device
+        leave_out_idx = rows_of = None
+        if leave_out_classes:
+            leave_out_idx = tuple(self.tree.class_names.index(c) for c in leave_out_classes)
+            left_out = np.zeros(self.tree.num_classes, bool)
+            left_out[list(leave_out_idx)] = True
+            rows_of = torch.as_tensor(left_out, device=dev)
+        step = self.get_eval_step(path_prob_softmax_tau, apply_overspecificity_mask,
+                                  leave_out_idx)
+        keeps = (self.mask_samples(max(len(loader), 1), fixed_mask_seed)
+                 if apply_overspecificity_mask else None)
         acc = torch.zeros(3, dtype=torch.long, device=dev)
-        cache = self.device_cache_for(loader)
-        if cache is not None:
-            batches = ((cache.fetch(rows), ys) for rows, ys in loader.epoch_index_batches(0))
-        else:
-            batches = ((host_to_device(b.xs1, dev), b.ys) for b in loader.epoch(0))
-        for xs, ys in batches:
-            logp = self.eval_step(xs)["log_joint"]
-            acc += _topk_counts(logp, host_to_device(ys, dev))
+        for i, (xs, ys) in enumerate(self.eval_batches(loader)):
+            ys = host_to_device(ys, dev)
+            keep = None if keeps is None else keeps[min(i, len(keeps) - 1)]
+            logp = step(xs, keep)["log_joint"]
+            rows = None if rows_of is None else rows_of[ys.clamp(min=0)] & (ys >= 0)
+            acc += _topk_counts(logp, ys, rows=rows)
         top1, top5, n = (int(v) for v in acc.cpu())
         return {"top1": top1 / max(n, 1), "top5": top5 / max(n, 1), "n": n}
 
@@ -435,13 +489,48 @@ class Trainer:
                                             if not isinstance(v, (dict, np.ndarray))}))
 
 
-def _topk_counts(logp: torch.Tensor, ys: torch.Tensor, k: int = 5) -> torch.Tensor:
-    """(top-1 hits, top-k hits, rows) of labels ``ys`` under ``logp`` (B, L),
-    ranked as ``jax.lax.top_k`` ranks: larger first, ties by lower index."""
+def _topk_counts(logp: torch.Tensor, ys: torch.Tensor, k: int = 5,
+                 rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(top-1 hits, top-k hits, rows counted) of labels ``ys`` under
+    ``logp`` (B, L), ranked as ``jax.lax.top_k`` ranks: larger first, ties
+    by lower index.  ``rows`` (B,) bool counts only those rows (all when
+    None)."""
     k = min(k, logp.shape[-1])
     mine = logp.gather(1, ys[:, None])
     idx = torch.arange(logp.shape[-1], device=logp.device)
     above = (logp > mine) | ((logp == mine) & (idx[None] < ys[:, None]))
     rank = above.sum(dim=-1)
-    rows = torch.full((), ys.shape[0], dtype=torch.long, device=logp.device)
-    return torch.stack([(rank == 0).sum(), (rank < k).sum(), rows])
+    if rows is None:
+        rows = torch.ones_like(rank, dtype=torch.bool)
+    return torch.stack([((rank == 0) & rows).sum(), ((rank < k) & rows).sum(), rows.sum()])
+
+
+def evaluate_per_node(trainer: Trainer, loader: Loader) -> dict:
+    """Per-node accuracy and weighted F1 on an eval loader (the reference's
+    node_accuracy bookkeeping and torchmetrics weighted F1,
+    pipnet/train.py:469-475): at every node, the argmax over its child
+    columns of the unmasked eval step's logits (ties to the first child, as
+    numpy's argmax) against the child the label lies under, for the images
+    under the node.  The predictions and slots stay on the device until one
+    read after the pass."""
+    from ..eval.metrics import per_node_prf
+    tree, dev = trainer.tree, trainer.device
+    tc = make_tree_consts(tree, dev)
+    preds, slots = [], []
+    for xs, ys in trainer.eval_batches(loader):
+        logits = trainer.eval_step(xs)["logits"]
+        node_logits = logits[:, tc.node_cols.reshape(-1)].reshape(len(ys), *tc.node_cols.shape)
+        node_logits = torch.where(tc.node_cols_valid[None], node_logits,
+                                  torch.full_like(node_logits, float("-inf")))
+        preds.append(node_logits.argmax(dim=-1))
+        slots.append(tc.leaf_slot[label_rows(host_to_device(ys, dev), tc.num_leaves)])
+    if not preds:
+        return {}
+    pred, slot = torch.stack([torch.cat(preds), torch.cat(slots)]).cpu().numpy()
+    report = {}
+    for ni, name in enumerate(tree.node_names):
+        under = slot[:, ni] >= 0
+        if under.any():
+            report[name] = per_node_prf(pred[under, ni], slot[under, ni],
+                                        int(tree.node_num_children[ni]))
+    return report

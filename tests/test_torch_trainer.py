@@ -12,7 +12,8 @@ size: a narrow ConvNeXt (``small_backbones``), 32^2 images and the
   record are byte for byte equal;
 - the eval step against the JAX one on the same weights (within 1e-5 in
   f32), and ``Trainer.evaluate``'s top-1 and top-5 counts against the JAX
-  ``Trainer.evaluate`` on the same loader (equal);
+  ``Trainer.evaluate`` on the same loader (equal); the decode options and
+  the rest of evaluation are in ``test_torch_eval.py``;
 - resume: a run stopped after epoch E and resumed from its checkpoint ends
   bit for bit where the uninterrupted run does; a save cut between its
   writes leaves the previous checkpoint restorable; without a cut save,
@@ -262,15 +263,6 @@ def test_eval_step_matches_jax():
                                    err_msg=k)
     np.testing.assert_array_equal(got["pred"].numpy(), np.asarray(want["pred"]))
     assert not got["logits"].requires_grad
-
-
-@pytest.mark.parametrize("option", [dict(apply_overspecificity_mask=True),
-                                    dict(path_prob_softmax_tau=0.5),
-                                    dict(leave_out_idx=(1,))])
-def test_eval_step_refuses_unported_decodes(option):
-    from pipnet_tpu_torch.train import make_eval_step
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 7"):
-        make_eval_step(None, None, **option)
 
 
 @pytest.mark.parametrize("tied", [False, True], ids=["seeded", "tied"])
