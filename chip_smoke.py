@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``pipnet_tpu_torch``) on one CUDA card.
 
-    python3 chip_smoke.py [--baseline CHECKOUT] [--only blocks|data|trainer|eval]
+    python3 chip_smoke.py [--baseline CHECKOUT] [--only blocks|data|trainer|eval|interp]
 
 Phases, each of which fails the run loudly:
 
@@ -104,14 +104,32 @@ Phases, each of which fails the run loudly:
    composition on the same presence sample (the serving bar); the card's
    presence samples against the CPU's for the same seeds (equal); a
    masked ``Predictor`` answering requests, its logits equal to the eval
-   step's on the same sample.
+   step's on the same sample;
+13. interpretability, on the same run directory (with ``--only interp``:
+   one of seeded weights, on the data phase's fixture): the projection
+   (``interp/topk.py::run_projection``, K1 a batch of 32) timed and
+   profiled, one batch of it against the plain composition; ``evaluate.run``
+   with the flagship evaluation script's pruning sweep (``--threshold_prune
+   0.1,...,0.5``) and part purity on synthetic annotation files, again with
+   ``--threshold_prune 0.4 --prune_leaf_parents``, and with
+   ``--galleries_nodes`` on a leaf-parent node and the smallest node with an
+   internal child: the reports' keys against
+   ``artifacts/sparse_190/eval_report.json`` and ``head.cls_weight``
+   restored bit for bit; ``main.py::final_galleries`` on those nodes;
+   ``Predictor.explain`` on two images and the serve CLI's ``--explain`` on
+   one (the folder layout); the adversarial attack (40 steps) and
+   integrated gradients (50 steps) at B = 1, their image gradients through
+   K1b; MIPS over 256 test images against the CPU's product; each part's
+   K1 and K1b launches derived from the code and checked exactly, and its
+   seconds.  The kernel phase also holds K1b at B = 1 (only g_pf in one
+   column, only g_pooled), as the attack and integrated gradients run it.
 
 The last two lines of standard output are the ``{"kernels": [...]}``
 record and ``{"ok": true, "device": {...}}``.  ``--only blocks`` runs
 phases 1, 2 and the K3 and K4 checks of phase 3, ``--only data`` phases
 1, 2 and 9, ``--only trainer`` phases 1, 2 and 11, ``--only eval`` phases
-1, 2 and 12, then each stops without either line: neither can pass for a
-full run.  Without a CUDA card, or without the rest of the repository
+1, 2 and 12, ``--only interp`` phases 1, 2 and 13, then each stops without
+either line: neither can pass for a full run.  Without a CUDA card, or without the rest of the repository
 beside it, it exits non-zero before printing either.
 """
 
@@ -367,18 +385,33 @@ def _features_and_kernel(tree, B, H, W, D, dtype, seed):
     return f.to("cuda", dtype), k.to("cuda", dtype)
 
 
-def check_head_backward(tree, B, H, W, D, dtype, seed, timed=False, baseline=None):
+def check_head_backward(tree, B, H, W, D, dtype, seed, timed=False, baseline=None,
+                        cotangents="both"):
     """K1b against its plain version on the card, on pf from the forward at
     the same shape and random cotangents; returns a result record (with
-    ``baseline``, as ``check_fused_head``)."""
+    ``baseline``, as ``check_fused_head``).  ``cotangents``: "both" (random
+    g_pf and g_pooled, the train step's), "pf_column" (g_pf non-zero in one
+    prototype's column only and g_pooled zero: the adversarial attack's) or
+    "pooled_only" (g_pf None and one non-zero g_pooled entry per image:
+    integrated gradients')."""
     from pipnet_tpu_torch.ops.fused_head import (fused_head, head_backward,
                                                  head_backward_reference)
     f, k = _features_and_kernel(tree, B, H, W, D, dtype, seed)
     with torch.inference_mode():
         pf, _ = fused_head(f, k, tree)
         gen = torch.Generator(device="cuda").manual_seed(seed)
+        P = pf.shape[-1]
         g_pf = torch.randn(pf.shape, generator=gen, device="cuda").to(dtype)
-        g_pooled = torch.randn((B, pf.shape[-1]), generator=gen, device="cuda")
+        g_pooled = torch.randn((B, P), generator=gen, device="cuda")
+        column = int(np.flatnonzero(tree.proto_valid)[seed % int(tree.proto_valid.sum())])
+        if cotangents == "pf_column":
+            g_pf = torch.where(torch.arange(P, device="cuda") == column, g_pf,
+                               torch.zeros_like(g_pf))
+            g_pooled = torch.zeros_like(g_pooled)
+        elif cotangents == "pooled_only":
+            g_pf = None
+            g_pooled = torch.where(torch.arange(P, device="cuda") == column, 1.0, 0.0
+                                   ).expand(B, P).contiguous()
         dz = head_backward(pf, g_pf, g_pooled, tree)
         torch.cuda.synchronize()
         ref = head_backward_reference(pf, g_pf, g_pooled, tree)
@@ -386,6 +419,7 @@ def check_head_backward(tree, B, H, W, D, dtype, seed, timed=False, baseline=Non
         over = (err - DZ_REL[dtype] * ref.float().abs()
                 - 1e-6 * ref.float().abs().max()).max().item()
         rec = {"shape": [B, H, W, pf.shape[-1]], "dtype": _dtype_name(dtype),
+               "cotangents": cotangents,
                "dz_max_abs_err": err.max().item(), "dz_scale": ref.float().abs().max().item()}
         if over > 0 or not torch.isfinite(dz.float()).all():
             fail(f"head backward disagrees with its plain version: {rec}")
@@ -397,8 +431,9 @@ def check_head_backward(tree, B, H, W, D, dtype, seed, timed=False, baseline=Non
             if baseline is not None:
                 rec.update(in_turns(lambda: head_backward(pf, g_pf, g_pooled, tree), baseline))
             es = pf.element_size()
-            rec.update(bound((pf.numel() * 3) * es + g_pooled.numel() * 4,
-                             5.0 * pf.numel(), torch.float32))
+            # each input read once, dz written once: pf, g_pf (when given), dz
+            rec.update(bound((pf.numel() * (2 + (g_pf is not None))) * es
+                             + g_pooled.numel() * 4, 5.0 * pf.numel(), torch.float32))
     return rec
 
 
@@ -695,6 +730,16 @@ def kernel_phase(card: str, baseline=None):
                                              timed=timed,
                                              baseline=baseline if flagship_bf16 else None)
         say(f"kernel head_backward {name}: {json.dumps(backward[name])} [{card}]")
+    # the interpretability phase's K1b: one image, with only g_pf (one
+    # prototype's column: the adversarial attack) or only g_pooled
+    # (integrated gradients)
+    for cot in ("pf_column", "pooled_only"):
+        for dtype in (bf16, f32):
+            name = f"flagship_b1_{cot}_{_dtype_name(dtype)}"
+            backward[name] = check_head_backward(flag, 1, 26, 26, 768, dtype,
+                                                 seed=10 + len(backward), timed=True,
+                                                 cotangents=cot)
+            say(f"kernel head_backward {name}: {json.dumps(backward[name])} [{card}]")
     nopf = {}
     for name, tree, shape, dtype, timed in (
             ("flagship_train_f32", flag, (64, 26, 26, 768), f32, True),
@@ -2066,6 +2111,389 @@ def eval_phase(card: str, run_dir: str, dataset=None):
     return rec, launches
 
 
+# interpretability: the flagship evaluation script's pruning sweep
+# (scripts/runs/eval_full_phase_190.sh) and the report it wrote, whose keys
+# the phase's reports must carry (the OOD check aside: the phase runs none)
+PRUNE_THRESHOLDS = "0.1,0.2,0.3,0.4,0.5"
+SPARSE_REPORT = os.path.join(REPO, "artifacts", "sparse_190", "eval_report.json")
+# the projection's batch (interp/topk.py::run_projection's default)
+PROJECTION_BATCH = 32
+ATTACK_STEPS, IG_STEPS, MIPS_IMAGES = 40, 50, 256
+
+
+def write_part_annotations(folder, out_dir: str) -> list:
+    """CUB-style part files for ``folder``'s images (a beak at the centre, a
+    left wing near a corner, merged into the right wing by the purity
+    score): [parts_loc, parts_name, images_id]."""
+    from PIL import Image
+    paths = [os.path.join(out_dir, n) for n in ("part_locs.txt", "parts.txt", "images.txt")]
+    with open(paths[2], "w") as f:
+        for i, (p, _) in enumerate(folder.samples):
+            f.write(f"{i} {'/'.join(p.split('/')[-2:])}\n")
+    with open(paths[0], "w") as f:
+        for i, (p, _) in enumerate(folder.samples):
+            with Image.open(p) as im:
+                w, h = im.size
+            f.write(f"{i} 1 {w / 2:.1f} {h / 2:.1f} 1\n{i} 2 2.0 2.0 1\n")
+    with open(paths[1], "w") as f:
+        f.write("1 beak\n2 left wing\n3 right wing\n")
+    return paths
+
+
+def gallery_nodes(tree) -> list:
+    """A leaf-parent node (the first) and the smallest node with an internal
+    child: galleries over a few leaves each (the root's alone would gather
+    top-k images over every leaf)."""
+    leaf_parent = [ni for ni in range(tree.num_nodes)
+                   if tree.child_is_leaf[tree.node_child_slice(ni)].all()]
+    internal = [ni for ni in range(tree.num_nodes) if ni not in leaf_parent]
+    return [leaf_parent[0], min(internal, key=lambda ni: (int(tree.node_num_leaves[ni]), ni))]
+
+
+def gallery_launches(proj, tree, w_eff, nodes, k: int = 10) -> int:
+    """K1 launches of ``save_hierarchy_galleries`` with a heatmap forward on
+    ``nodes``: one re-forward per prototype with a gallery, over its
+    distinct images in chunks of ``hierarchy_viz.MAX_BATCH``."""
+    from pipnet_tpu_torch.interp import topk_per_prototype_per_leaf
+    from pipnet_tpu_torch.interp.hierarchy_viz import MAX_BATCH
+    per_leaf = topk_per_prototype_per_leaf(proj, tree, w_eff, k=k)
+    n = 0
+    for ni in nodes:
+        sl = tree.node_proto_slice(ni)
+        for p in range(sl.start, sl.stop):
+            if per_leaf.get(p):
+                images = {i for entries in per_leaf[p].values() for i, _ in entries}
+                n += -(-len(images) // MAX_BATCH)
+    return n
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """The spacing of bfloat16 values at ``x`` (8 significant bits)."""
+    _, e = torch.frexp(x.float())
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
+def projection_parity(model, tree, loader) -> dict:
+    """The projection step (K1) on one batch of ``PROJECTION_BATCH``
+    projection images against the plain composition on the same features:
+    pooled within two bf16 ulps of the plain value, and the plain map's
+    value at each chosen index within two bf16 ulps of its maximum (bf16 pf
+    saturates near 1, where a one-ulp difference may move the first
+    maximum, so the index itself is not compared)."""
+    from pipnet_tpu_torch.interp import make_projection_step
+    from pipnet_tpu_torch.ops.fused_head import fused_head_reference
+    images = []
+    for batch in loader.epoch(0):
+        images.append(batch.xs1[0])
+        if len(images) == PROJECTION_BATCH:
+            break
+    xs = torch.from_numpy(np.stack(images)).cuda()
+    with torch.inference_mode():
+        out = make_projection_step(model, tree)(xs)
+        feats = model.features(xs)
+        pf_p, pooled_p = fused_head_reference(feats, model.head.add_on_kernel.to(feats.dtype),
+                                              tree, tau=model.head.cfg.softmax_tau)
+    valid = torch.as_tensor(tree.proto_valid, device="cuda")
+    B, H, W, P = pf_p.shape
+    flat = pf_p.float().reshape(B, H * W, P)
+    idx = out["h_idx"] * W + out["w_idx"]
+    at = flat.gather(1, idx[:, None, :])[:, 0][:, valid]
+    top = flat.amax(dim=1)[:, valid]
+    pooled = out["pooled"].float()[:, valid]
+    ref = pooled_p[:, valid]
+    rec = {"images": B,
+           "pooled_max_abs_err": (pooled - ref).abs().max().item(),
+           "pooled_max_err_ulps": ((pooled - ref).abs() / bf16_ulp(ref)).max().item(),
+           "value_at_index_max_err_ulps": ((top - at) / bf16_ulp(top)).max().item(),
+           "same_index_share": (idx == flat.argmax(dim=1))[:, valid].float().mean().item(),
+           "cs_at_max_finite": bool(torch.isfinite(out["cs_at_max"].float()).all().item())}
+    if not (rec["pooled_max_err_ulps"] <= 2 and rec["value_at_index_max_err_ulps"] <= 2
+            and rec["cs_at_max_finite"]):
+        fail(f"interpretability: the projection through K1 disagrees with the plain "
+             f"composition: {rec}")
+    return rec
+
+
+def explanation_layout(out_dir: str, top_classes: int = 3) -> dict:
+    """An ``explain_image`` folder as the JAX package writes it:
+    ``<rank>_<class>_<prob:.3f>/`` for each of the top classes, each holding
+    ``p<p>_sim<s>_w<w>_patch.png``, ``..._rect.png`` and ``heatmap_p<p>.png``
+    for every evidence prototype (a class may have none: every pooled value
+    under the inference threshold)."""
+    import re
+    folders = sorted(os.listdir(out_dir))
+    files = {d: sorted(os.listdir(os.path.join(out_dir, d))) for d in folders}
+    ok = len(folders) == top_classes and all(
+        re.fullmatch(rf"{rank}_.+_\d\.\d{{3}}", d) for rank, d in enumerate(folders))
+    evidence = 0
+    for names in files.values():
+        protos = sorted(int(n.split("_")[0][1:]) for n in names if n.endswith("_patch.png"))
+        rects = sorted(int(n.split("_")[0][1:]) for n in names if n.endswith("_rect.png"))
+        maps = sorted(int(n[len("heatmap_p"):-4]) for n in names if n.startswith("heatmap_p"))
+        ok &= protos == rects == maps and len(names) == 3 * len(protos)
+        evidence += len(protos)
+    if not ok:
+        fail(f"interpretability: explanation folder {out_dir} has layout {files}")
+    return {"classes": folders, "evidence": evidence}
+
+
+def interp_phase(card: str, run_dir: str, dataset=None):
+    """Interpretability on ``run_dir`` (with ``dataset`` in place of the
+    run's own): the projection timed and profiled, then held against the
+    plain composition; ``evaluate.run`` with the pruning sweep and part
+    purity, with the leaf-parent A/B, and with node galleries; the final
+    galleries of ``main.py``; ``Predictor.explain`` and the serve CLI's
+    ``--explain``; the adversarial attack and integrated gradients; MIPS
+    over the test images.  Every part's K1 and K1b launches are derived from
+    the code before it runs and checked exactly."""
+    from PIL import Image
+    from pipnet_tpu_torch.data import build_loaders
+    from pipnet_tpu_torch.data.augment import EvalTransform
+    from pipnet_tpu_torch.datasets import resolve_dataset
+    from pipnet_tpu_torch.evaluate import run as evaluate_run
+    from pipnet_tpu_torch.interp import (adversarial_attack, build_patch_index, mips_query,
+                                         run_projection)
+    from pipnet_tpu_torch.interp.adversarial import integrated_gradients_patch
+    from pipnet_tpu_torch.main import final_galleries
+    from pipnet_tpu_torch.run_io import load_run, load_run_config
+    from pipnet_tpu_torch.serve import Predictor, run as serve_run
+    cfg = load_run_config(run_dir)
+    ds = dataset or cfg.dataset
+    train_dir, test_dir, project_dir, _ = resolve_dataset(ds, seed=cfg.train.seed)
+    loaders = build_loaders(train_dir, test_dir, project_dir=project_dir,
+                            image_size=cfg.model.image_size, batch_size=cfg.train.batch_size,
+                            batch_size_pretrain=cfg.train.batch_size_pretrain,
+                            seed=cfg.train.seed)
+    bundle = load_run(run_dir, dataset=ds, classes=loaders.classes, device="cuda")
+    model, tree, size = bundle.model, bundle.tree, cfg.model.image_size
+    n_proj = len(loaders.project.dataset)
+    proj_batches = -(-n_proj // PROJECTION_BATCH)
+    test_batches = len(loaders.test)
+    rec = {"run_dir": run_dir, "dataset": ds, "projection_images": n_proj,
+           "test_images": len(loaders.test.dataset), "test_batches": test_batches}
+    launches = dict(NO_LAUNCHES)
+
+    def measured(what: str, fn, want: dict):
+        """``fn()`` between the counts set to 0 and read, its host seconds
+        (the card drained at both ends) and its launches checked."""
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = counts()
+        check_launches(f"interpretability, {what}", got, {**NO_LAUNCHES, **want})
+        for k in NO_LAUNCHES:
+            launches[k] += got[k]
+        return out, seconds, got
+
+    # the projection: timed by CUDA events and the host clock, then profiled
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    proj, proj_s, _ = measured("projection", lambda: run_projection(
+        model, tree, loaders.project, image_size=size), {"fused_head": proj_batches})
+    end.record()
+    torch.cuda.synchronize()
+    pass_ms = start.elapsed_time(end)
+    prof = profile_ms(lambda: run_projection(model, tree, loaders.project, image_size=size), n=1)
+    rec["projection"] = {
+        "s": proj_s, "images_per_s": n_proj / proj_s, "pass_ms": pass_ms,
+        "batches": proj_batches, "kernel_ms": prof["kernel_ms"],
+        "busy_share": (prof["kernel_ms"] / pass_ms if prof.get("kernels") else "not measured"),
+        "top_ms": prof.get("top_ms"), "latent_hw": list(proj.latent_hw)}
+    # where the sweep waits for the card: one read, after the sweep
+    rec["projection"]["sync_points"] = sync_points(lambda: run_projection(
+        model, tree, loaders.project, image_size=size))
+    rec["projection_parity"] = projection_parity(model, tree, loaders.project)
+    say(f"interpretability, projection: {json.dumps(rec['projection'])}; parity "
+        f"{json.dumps(rec['projection_parity'])} [{card}]")
+
+    # evaluate.run: the sweep with part purity, the leaf-parent A/B, galleries
+    with torch.no_grad():
+        w_eff = model.head.effective_cls_weight().float().cpu().numpy()
+    nodes = gallery_nodes(tree)
+    names = [tree.node_names[ni] for ni in nodes]
+    heatmap_batches = gallery_launches(proj, tree, w_eff, nodes)
+    parts = write_part_annotations(loaders.project.dataset.folder, run_dir)
+    thresholds = [float(t) for t in PRUNE_THRESHOLDS.split(",")]
+    ckpt = torch.load(os.path.join(run_dir, "checkpoints", "net_trained_last.pt"),
+                      map_location="cuda", weights_only=True)
+    base = ["--run_dir", run_dir, "--device", "cuda"] + (["--dataset", dataset] if dataset else [])
+    report_path = os.path.join(run_dir, "eval_report.json")
+    if os.path.exists(report_path):
+        os.remove(report_path)             # no merge with an earlier report
+    runs = [("pruning sweep, part purity",
+             ["--threshold_prune", PRUNE_THRESHOLDS, "--part_purity_csv", "--parts_loc", parts[0],
+              "--parts_name", parts[1], "--images_id", parts[2]],
+             # Trainer.evaluate, the collecting sweep, evaluate_per_node, the
+             # projection, one Trainer.evaluate a threshold
+             test_batches * (3 + len(thresholds)) + proj_batches),
+            ("leaf-parent A/B", ["--threshold_prune", "0.4", "--prune_leaf_parents",
+                                 "--skip_per_node"], test_batches * 3 + proj_batches),
+            ("node galleries", ["--galleries_nodes", ",".join(names), "--skip_per_node"],
+             test_batches * 2 + proj_batches + heatmap_batches)]
+    rec["reports"] = {}
+    for name, extra, k1 in runs:
+        trainers = []
+
+        def evaluate(argv=base + extra):
+            with recorded_evaluate(trainers), contextlib.redirect_stdout(io.StringIO()):
+                return evaluate_run(argv)
+        code, seconds, got = measured(f"evaluate.run ({name})", evaluate, {"fused_head": k1})
+        if code != 0:
+            fail(f"interpretability: evaluate.run ({name}) returned {code}")
+        # the sweep swapped pruned weights in and must have put back the
+        # checkpoint's tensor bit for bit
+        restored = torch.equal(trainers[0][0].model.head.cls_weight.detach(),
+                               ckpt["head.cls_weight"])
+        if not restored:
+            fail(f"interpretability: head.cls_weight differs after evaluate.run ({name})")
+        with open(report_path) as f:
+            report = json.load(f)
+        rec["reports"][name] = {"run_s": seconds, "launches": got, "keys": sorted(report)}
+        del trainers
+    with open(SPARSE_REPORT) as f:
+        sparse = json.load(f)
+    want_keys = (set(sparse) - {"ood"}) | {"checkpoint_id", "threshold_prune_leaf_parents_ab",
+                                           "part_purity", "topk_patch_csv"}
+    if set(report) != want_keys:
+        fail(f"interpretability: report keys {sorted(report)}, expected {sorted(want_keys)}")
+    for key in ("threshold_prune", "node_galleries"):
+        if not set(sparse[key]) <= set(report[key]):
+            fail(f"interpretability: report[{key!r}] keys {sorted(report[key])} lack "
+                 f"{sorted(set(sparse[key]) - set(report[key]))}")
+    sweep = report["threshold_prune"]["sweep"]
+    pruned = [t["pruned_columns"] for t in sweep]
+    if [t["threshold"] for t in sweep] != thresholds or pruned != sorted(pruned) or \
+            report["threshold_prune"]["top1_before"] != report["top1"]:
+        fail(f"interpretability: pruning sweep {report['threshold_prune']}")
+    with open(report["threshold_prune"]["prototype_report"]) as f:
+        report_lines = f.read().splitlines()
+    galleries = report["node_galleries"]
+    if len(report_lines) != tree.num_nodes or galleries["nodes"] != names or \
+            galleries["files"] == 0 or report["part_purity"]["num_prototypes"] == 0:
+        fail(f"interpretability: prototype report of {len(report_lines)} lines, galleries "
+             f"{galleries}, part purity {report['part_purity']}")
+    rec["sweep"] = {k: v for k, v in report["threshold_prune"].items() if k != "sweep"}
+    rec["sweep"]["pruned_columns_by_threshold"] = dict(zip(thresholds, pruned))
+    rec["sweep"]["top1_after_by_threshold"] = {t["threshold"]: t["top1_after"] for t in sweep}
+    rec["leaf_parents_ab"] = {k: v for k, v in report["threshold_prune_leaf_parents_ab"].items()
+                              if k != "sweep"}
+    rec["part_purity"] = report["part_purity"]
+    rec["node_galleries"] = galleries
+    shown = ("reports", "sweep", "leaf_parents_ab", "part_purity", "node_galleries")
+    say(f"interpretability, reports: {json.dumps({k: rec[k] for k in shown})} [{card}]")
+
+    # the final galleries a training run draws (main.py), on the same nodes
+    gallery_dir = os.path.join(run_dir, "final_galleries")
+    written, seconds, _ = measured("final galleries", lambda: final_galleries(
+        model, tree, loaders.project, gallery_dir, image_size=size, nodes=nodes),
+        {"fused_head": proj_batches + heatmap_batches})
+    if len(written) != galleries["files"]:
+        fail(f"interpretability: main.py's galleries wrote {len(written)} files, "
+             f"evaluate.run's {galleries['files']}")
+    rec["final_galleries"] = {"s": seconds, "files": len(written), "nodes": names,
+                              "heatmap_forwards": heatmap_batches}
+
+    # explanations: Predictor.explain on two images, the serve CLI on one
+    pred = Predictor(run_dir, device="cuda")
+    paths = [p for p, _ in loaders.test.dataset.folder.samples[:2]]
+    explain_dir = os.path.join(run_dir, "explanations")
+    results, seconds, _ = measured("Predictor.explain", lambda: [
+        pred.explain(p, os.path.join(explain_dir, str(i))) for i, p in enumerate(paths)],
+        {"fused_head": len(paths)})
+    layouts = [explanation_layout(os.path.join(explain_dir, str(i))) for i in range(len(paths))]
+    stdout = io.StringIO()
+
+    def cli():
+        with contextlib.redirect_stdout(stdout):
+            return serve_run(["--run_dir", run_dir, "--images", paths[0], "--explain",
+                              os.path.join(explain_dir, "cli"), "--device", "cuda"])
+    # the CLI's Predictor serves the image (one forward at its batch of 8)
+    # and explains it (one at B = 1)
+    code, cli_s, _ = measured("serve --explain", cli, {"fused_head": 2})
+    line = json.loads(stdout.getvalue().strip().splitlines()[-1])
+    stem = os.path.splitext(os.path.basename(paths[0]))[0]
+    if code != 0 or line["explanation_dir"] != os.path.join(explain_dir, "cli", f"000_{stem}"):
+        fail(f"interpretability: serve --explain returned {code}: {line}")
+    layouts.append(explanation_layout(line["explanation_dir"]))
+    rec["explain"] = {"ms_per_image": seconds * 1e3 / len(paths), "cli_s": cli_s,
+                      "layouts": layouts,
+                      "top_class": [r["classes"][0]["name"] for r in results]}
+    say(f"interpretability, galleries and explanations: "
+        f"{json.dumps({k: rec[k] for k in ('final_galleries', 'explain')})} [{card}]")
+
+    # the adversarial attack and integrated gradients on the first
+    # projection image and its most active prototype
+    with Image.open(proj.paths[0]) as im:
+        x = EvalTransform(size)(im.convert("RGB"))
+    proto = int(np.argmax(np.where(tree.proto_valid, proj.pooled[0], -1.0)))
+    # two steps of each first: the first backward at B = 1 loads its kernels
+    warm = {}
+    _, warm["attack_2_steps_s"], _ = measured("adversarial attack, warm-up", lambda: (
+        adversarial_attack(model, x, proto, num_steps=2)), {"fused_head": 4, "head_backward": 2})
+    _, warm["integrated_gradients_2_steps_s"], _ = measured(
+        "integrated gradients, warm-up", lambda: integrated_gradients_patch(
+            model, x, proto, num_steps=2), {"fused_head": 2, "head_backward": 2})
+    # where the attack waits for the card (none inside its steps)
+    warm["attack_sync_points"] = sync_points(
+        lambda: adversarial_attack(model, x, proto, num_steps=2))
+    (moved, adv), attack_s, _ = measured("adversarial attack", lambda: adversarial_attack(
+        model, x, proto, num_steps=ATTACK_STEPS),
+        {"fused_head": ATTACK_STEPS + 2, "head_backward": ATTACK_STEPS})
+    x01 = np.clip(x * np.asarray((0.229, 0.224, 0.225), np.float32)
+                  + np.asarray((0.485, 0.456, 0.406), np.float32), 0, 1)
+    ig, ig_s, _ = measured("integrated gradients", lambda: integrated_gradients_patch(
+        model, x, proto, num_steps=IG_STEPS), {"fused_head": IG_STEPS, "head_backward": IG_STEPS})
+    ig = ig.float().cpu()
+    rec["attack"] = {"prototype": proto, "moved": moved, "s": attack_s, **warm,
+                     "ms_per_step": attack_s * 1e3 / ATTACK_STEPS,
+                     "max_perturbation": float(np.abs(adv - x01).max())}
+    rec["integrated_gradients"] = {"s": ig_s, "ms_per_step": ig_s * 1e3 / IG_STEPS,
+                                   "shape": list(ig.shape), "max": ig.max().item()}
+    if not (np.isfinite(adv).all() and rec["attack"]["max_perturbation"] <= 8 / 255 + 1e-6
+            and torch.isfinite(ig).all() and tuple(ig.shape) == (size, size)
+            and rec["integrated_gradients"]["max"] > 0):
+        fail(f"interpretability: attack {rec['attack']}, integrated gradients "
+             f"{rec['integrated_gradients']}")
+
+    # MIPS: the backbone's patch features of test images, the add-on
+    # kernel's columns as queries on the card, held to the CPU's product
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        queries = model.head.add_on_kernel.detach().float()[:, torch.as_tensor(
+            tree.proto_valid, device="cuda")].T.cpu().numpy()
+        def mips():
+            index = build_patch_index(model, loaders.test, max_images=MIPS_IMAGES)
+            return index, mips_query(index, queries, k=10, device="cuda")
+        # the index is the backbone's features only: no head kernel launches
+        (index, hits), mips_s, _ = measured("MIPS", mips, {})
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    q = torch.from_numpy(queries[:32])
+    scores = q @ torch.from_numpy(index.features).T                  # (32, n) on the CPU
+    vals = torch.topk(scores, 10, dim=1).values
+    tol = 1e-4 * scores.abs().max().item()
+    flat = {(int(i), int(h), int(w)): n for n, (i, h, w) in enumerate(zip(
+        index.image_idx, index.h_idx, index.w_idx))}
+    got_vals = torch.tensor([[v for *_, v in row] for row in hits[:32]])
+    at = torch.stack([scores[r, [flat[hit[:3]] for hit in hits[r]]] for r in range(32)])
+    rec["mips"] = {"s": mips_s, "images": int(index.image_idx.max()) + 1,
+                   "patches": len(index), "queries": len(queries),
+                   "max_abs_err_vs_cpu": (got_vals - vals).abs().max().item(), "tolerance": tol}
+    if rec["mips"]["images"] != MIPS_IMAGES or (got_vals - vals).abs().max() > tol or \
+            (at - got_vals).abs().max() > tol:
+        fail(f"interpretability: MIPS on the card disagrees with the CPU's product: {rec['mips']}")
+    say(f"interpretability, attack, integrated gradients, MIPS: "
+        f"{json.dumps({k: rec[k] for k in ('attack', 'integrated_gradients', 'mips')})} [{card}]")
+    rec["launches"] = launches
+    del model, pred, bundle
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
 def cross_checks(card: str, setup: Setup):
     """From the same parameters and batch of ``setup``, with align_eps unset:
     path A's and path B's first-step losses; then the head gradients
@@ -2238,12 +2666,14 @@ def main(argv=None) -> int:
     ap.add_argument("--baseline", metavar="CHECKOUT",
                     help="an older checkout of this repository whose K1 and K2 are timed "
                          "in turns with this one's in the kernel phase")
-    ap.add_argument("--only", choices=["blocks", "data", "trainer", "eval"],
+    ap.add_argument("--only", choices=["blocks", "data", "trainer", "eval", "interp"],
                     help="blocks: build, check and time K3 and K4 only; data: build, then "
                          "run the training-from-data phase only; trainer: build, then run "
                          "the training-through-the-CLI phase only; eval: build, then "
                          "evaluate a run directory of seeded weights on the data phase's "
-                         "fixture; each stops without the kernels record or the ok line")
+                         "fixture; interp: build, then run the interpretability phase on "
+                         "such a run directory; each stops without the kernels record or "
+                         "the ok line")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2292,6 +2722,12 @@ def main(argv=None) -> int:
             eval_phase(card, run_dir, dataset=DATA_FIXTURE)
         say(f"--only eval: done in {time.perf_counter() - t_start:.1f} s; no full run")
         return 0
+    if args.only == "interp":
+        with scratch_dir("pipnet_interp_") as run_dir:
+            write_run_dir(run_dir, flagship, fused=False)
+            interp_phase(card, run_dir, dataset=DATA_FIXTURE)
+        say(f"--only interp: done in {time.perf_counter() - t_start:.1f} s; no full run")
+        return 0
     records, backward, nopf = kernel_phase(card, baseline)
     dw, blocks = block_kernel_phase(card, baseline)
 
@@ -2330,9 +2766,11 @@ def main(argv=None) -> int:
     with scratch_dir("pipnet_cli_") as cli_dir:
         _, train_cli = trainer_phase(card, cli_dir)
         _, evaluation = eval_phase(card, cli_dir)
+        _, interpretability = interp_phase(card, cli_dir)
     paths.update({"training A": train_a["launches"], "training B": train_b["launches"],
                   "training C": train_c["launches"], "training from data": train_data["launches"],
                   "training through the CLI": train_cli, "evaluation": evaluation,
+                  "interpretability": interpretability,
                   "training A, flat": train_fa["launches"],
                   "training B, flat": train_fb["launches"]})
     total = {k: sum(p[k] for p in paths.values()) for k in NO_LAUNCHES}

@@ -6,18 +6,21 @@ abstentions, the held-in and left-out numbers of a leave-out run, per-node
 accuracy and F1, optionally the OOD check), with the overspecificity mask,
 a path softmax temperature or the leave-out decode.  It writes
 ``<run_dir>/eval_report{_masked}{_lou}{_tauT}.json`` with the keys and
-numbers of the JAX package's report on the same weights.
+numbers of the JAX package's report on the same weights.  The interp flags
+add a projection over the projection loader (``interp/topk.py``) and, from
+it, the threshold-pruning sweep with ``prototype_report.txt``, the top-k
+patch CSV with part purity, and node galleries (written after the report,
+then merged into it).
 
     python -m pipnet_tpu_torch.evaluate --run_dir ./runs/cub190 \\
         [--checkpoint net_trained_last] [--leave_out_classes file.txt] \\
         [--apply_overspecificity_mask [--fixed_mask_seed S]] \\
         [--path_prob_softmax_tau 1.0] [--OOD_dataset D] [--skip_per_node] \\
-        [--device cuda]
+        [--threshold_prune 0.1,0.2,0.3 [--prune_leaf_parents]] \\
+        [--part_purity_csv [--parts_loc F --parts_name F --images_id F]] \\
+        [--galleries_nodes auto:6 | name,name] [--device cuda]
 
-The forward runs on the card unless ``--device cpu`` is passed.  The flags
-that need ``interp/*`` (``--threshold_prune``, ``--prune_leaf_parents``,
-``--part_purity_csv`` with its annotation paths, ``--galleries_nodes``) are
-not ported (ROADMAP.md item 9) and raise before any evaluation runs.
+The forward runs on the card unless ``--device cpu`` is passed.
 """
 
 from __future__ import annotations
@@ -27,20 +30,33 @@ import dataclasses
 import json
 import os
 import sys
+import time
 
 import numpy as np
 import torch
 
 
-def _unported(args) -> list:
-    return [flag for flag, on in (
-        ("--threshold_prune", args.threshold_prune is not None),
-        ("--prune_leaf_parents", args.prune_leaf_parents),
-        ("--part_purity_csv", args.part_purity_csv),
-        ("--parts_loc", args.parts_loc is not None),
-        ("--parts_name", args.parts_name is not None),
-        ("--images_id", args.images_id is not None),
-        ("--galleries_nodes", args.galleries_nodes is not None)) if on]
+def resolve_gallery_nodes(spec: str, tree) -> list:
+    """``--galleries_nodes`` spec -> internal-node index list.
+
+    ``'auto:K'`` picks K nodes spread across the tree (internal nodes
+    sorted by leaf-descendant count — a depth proxy — sampled evenly, so
+    the root, mid-level clades and near-leaf nodes all appear); otherwise
+    a comma-separated node-name list resolved against ``tree.node_names``.
+    """
+    if spec.startswith("auto:"):
+        k = min(max(1, int(spec.split(":", 1)[1])), tree.num_nodes)
+        order = sorted(range(tree.num_nodes),
+                       key=lambda ni: -int(tree.node_num_leaves[ni]))
+        idx = [order[int(round(i * (len(order) - 1) / max(k - 1, 1)))]
+               for i in range(k)]
+        return sorted(set(idx))
+    name_to_idx = {n: i for i, n in enumerate(tree.node_names)}
+    missing = [n for n in spec.split(",") if n not in name_to_idx]
+    if missing:
+        raise SystemExit(f"--galleries_nodes: unknown nodes {missing}; "
+                         f"known: {tree.node_names[:5]}...")
+    return [name_to_idx[n] for n in spec.split(",")]
 
 
 def run(argv=None) -> int:
@@ -61,21 +77,40 @@ def run(argv=None) -> int:
                         "report (ref pipnet/test.py:242-292)")
     p.add_argument("--skip_per_node", action="store_true",
                    help="skip the per-node accuracy/F1 sweep")
-    p.add_argument("--threshold_prune", default=None, help="not ported (ROADMAP.md item 9)")
+    p.add_argument("--threshold_prune", default=None,
+                   help="prune_by_threshold.ipynb cells 11-14: zero the "
+                        "classifier columns of prototypes whose top-k mean "
+                        "activation over ANY relevant leaf's projection "
+                        "images falls below this threshold; writes "
+                        "prototype_report.txt and re-evaluates.  A comma-"
+                        "separated list sweeps thresholds (the accuracy-vs-"
+                        "pruned curve) computing the projection stats once")
     p.add_argument("--prune_leaf_parents", action="store_true",
-                   help="not ported (ROADMAP.md item 9)")
+                   help="with --threshold_prune: ALSO prune prototypes at "
+                        "nodes whose children are all leaves — the reference "
+                        "notebook exempts those nodes (cell 11's "
+                        "non_leaf_children check); this flag reproduces the "
+                        "non-reference behavior for A/B")
     p.add_argument("--part_purity_csv", action="store_true",
-                   help="not ported (ROADMAP.md item 9)")
-    p.add_argument("--parts_loc", default=None, help="not ported (ROADMAP.md item 9)")
-    p.add_argument("--parts_name", default=None, help="not ported (ROADMAP.md item 9)")
-    p.add_argument("--images_id", default=None, help="not ported (ROADMAP.md item 9)")
-    p.add_argument("--galleries_nodes", default=None, help="not ported (ROADMAP.md item 9)")
+                   help="write the per-prototype top-k patch-box CSV "
+                        "(util/eval_cub_csv.py get_topk_cub); with the three "
+                        "annotation paths below, also score part purity")
+    p.add_argument("--parts_loc", default=None,
+                   help="CUB parts/part_locs.txt (with --part_purity_csv)")
+    p.add_argument("--parts_name", default=None,
+                   help="CUB parts/parts.txt (with --part_purity_csv)")
+    p.add_argument("--images_id", default=None,
+                   help="CUB images.txt id<->path map (with --part_purity_csv)")
+    p.add_argument("--galleries_nodes", default=None,
+                   help="node-scoped hierarchy galleries on THIS run: a "
+                        "comma-separated internal-node name list, or "
+                        "'auto:K' to pick K nodes spread across tree depths. "
+                        "Lifts the training CLI's <=60-class final-viz gate (ref "
+                        "main.py:835) for real-tree-scale artifacts; "
+                        "descendant + non-descendant grids and heatmap "
+                        "overlays per util/vis_hpipnet.py:184-389.")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
-    unported = _unported(args)
-    if unported:
-        raise NotImplementedError(
-            f"{unported}: not ported yet: they need interp/* (ROADMAP.md item 9)")
 
     from .data import build_loaders
     from .datasets import resolve_dataset
@@ -177,6 +212,23 @@ def run(argv=None) -> int:
         ood_scores, *_ = collect(ood_loaders.test)
         result["ood"] = eval_ood(scores, ys, ood_scores, tree.num_classes)
 
+    if args.threshold_prune is not None or args.part_purity_csv or args.galleries_nodes:
+        from .interp import run_projection
+        proj = run_projection(model, tree, loaders.project, image_size=cfg.model.image_size)
+    if args.part_purity_csv:
+        from .interp import eval_prototypes_parts_csv, write_topk_patch_csv
+        csv_path = os.path.join(args.run_dir, "topk_patches.csv")
+        write_topk_patch_csv(proj, csv_path, k=10, tree=tree, w_eff=w_eff)
+        result["topk_patch_csv"] = csv_path
+        if args.parts_loc and args.parts_name and args.images_id:
+            result["part_purity"] = eval_prototypes_parts_csv(
+                csv_path, args.parts_loc, args.parts_name, args.images_id,
+                image_size=cfg.model.image_size)
+    if args.threshold_prune is not None:
+        result[("threshold_prune_leaf_parents_ab" if args.prune_leaf_parents
+                else "threshold_prune")] = _threshold_sweep(
+            args, trainer, proj, w_eff, result, leave_out)
+
     suffix = ""
     if args.apply_overspecificity_mask:
         suffix += "_masked"
@@ -210,9 +262,75 @@ def run(argv=None) -> int:
     with open(report_path, "w") as f:
         json.dump(result, f, indent=2, default=float)
 
+    # galleries last, after the metrics are on disk: a gallery failure (say
+    # out of memory at an unusually large node) must not lose the report
+    if args.galleries_nodes:
+        from .interp import save_hierarchy_galleries
+        from .interp.hierarchy_viz import make_heatmap_forward
+        node_idx = resolve_gallery_nodes(args.galleries_nodes, tree)
+        t0 = time.perf_counter()
+        gdir = os.path.join(args.run_dir, "node_galleries")
+        written = save_hierarchy_galleries(
+            proj, tree, w_eff, model.head.proto_presence.detach().float().cpu().numpy(),
+            gdir, k=10, heatmap_forward=make_heatmap_forward(model, tree, proj),
+            nodes=node_idx)
+        result["node_galleries"] = {
+            "nodes": [tree.node_names[i] for i in node_idx],
+            "files": len(written), "dir": gdir,
+            "seconds": round(time.perf_counter() - t0, 1),
+        }
+        print(f"node galleries: {len(written)} files in "
+              f"{result['node_galleries']['seconds']}s -> {gdir}")
+        with open(report_path, "w") as f:
+            json.dump(result, f, indent=2, default=float)
+
     print(json.dumps(result, indent=2, default=float))
     print(f"report written to {report_path}")
     return 0
+
+
+def _threshold_sweep(args, trainer, proj, w_eff, result, leave_out) -> dict:
+    """Zero overspecific prototypes' classifier columns, report, re-test (ref
+    prune_by_threshold.ipynb cells 11-14: accuracy before/after) for each
+    threshold of ``--threshold_prune``, off ONE projection.  Each threshold
+    copies its pruned weights into ``head.cls_weight`` in place; the
+    original tensor's values are copied back afterwards, bit for bit."""
+    from .interp import prototype_report
+    from .interp.pruning import apply_threshold_prune, prune_means
+    tree, head = trainer.tree, trainer.model.head
+    thresholds = [float(t) for t in str(args.threshold_prune).split(",")]
+    original = head.cls_weight.detach().clone()
+    cls_w = original.float().cpu().numpy()
+    means = prune_means(proj, tree, w_eff)
+    rp = os.path.join(args.run_dir, "prototype_report.txt")
+    with open(rp, "w") as f:
+        f.write(prototype_report(proj, tree, w_eff,
+                                 head.proto_presence.detach().float().cpu().numpy()) + "\n")
+    dead_before = int((np.abs(cls_w).sum(0) == 0).sum())
+    sweep = []
+    try:
+        for t in thresholds:
+            new_w = apply_threshold_prune(means, tree, cls_w, threshold=t,
+                                          include_leaf_parent_nodes=args.prune_leaf_parents)
+            dead_after = int((np.abs(new_w).sum(0) == 0).sum())
+            with torch.no_grad():
+                head.cls_weight.copy_(torch.from_numpy(new_w))
+            after = trainer.evaluate(
+                trainer.loaders.test, leave_out_classes=leave_out,
+                apply_overspecificity_mask=args.apply_overspecificity_mask,
+                path_prob_softmax_tau=args.path_prob_softmax_tau)
+            sweep.append({"threshold": t, "pruned_columns": dead_after - dead_before,
+                          "top1_after": after["top1"], "top5_after": after["top5"]})
+            print(f"threshold_prune {t}: pruned {dead_after - dead_before} "
+                  f"columns, top1 {result['top1']:.4f} -> {after['top1']:.4f}")
+    finally:
+        with torch.no_grad():
+            head.cls_weight.copy_(original)
+    # the non-reference A/B (leaf parents pruned too) goes under its own key
+    # in the report, so a later merge never clobbers the reference sweep
+    return {**sweep[0], "top1_before": result["top1"], "top5_before": result["top5"],
+            "prune_leaf_parents": bool(args.prune_leaf_parents),
+            "prototype_report": rp, "sweep": sweep}
 
 
 if __name__ == "__main__":

@@ -9,8 +9,9 @@ translate directly, and resolves them once into the static ``RunConfig``.
 Training runs on the card unless ``--device cpu`` asks for the CPU.
 Options the port does not have yet raise before any training, naming their
 ``ROADMAP.md`` item: the OOD dataset and the losses still to be ported
-(item 11), BYOL (item 8), the mesh options (item 10) and the final
-prototype galleries (item 9).
+(item 11), BYOL (item 8) and the mesh options (item 10).  After training,
+``--final_viz y`` draws the prototype galleries (``final_galleries``): for
+60 classes or fewer, or for the nodes of ``--final_viz_nodes``.
 """
 
 from __future__ import annotations
@@ -188,9 +189,7 @@ def _refuse_unported(args) -> None:
         ("--minmaximize y: ROADMAP item 11", args.minmaximize[:1] == "y"),
         (f"--data_parallel {args.data_parallel}: ROADMAP item 10", args.data_parallel > 1),
         (f"--model_parallel {args.model_parallel}: ROADMAP item 10", args.model_parallel > 1),
-        ("--zero1 y: ROADMAP item 10", args.zero1 == "y"),
-        ("--final_viz y with --final_viz_nodes: the galleries, ROADMAP item 9",
-         args.final_viz == "y" and bool(args.final_viz_nodes))) if on]
+        ("--zero1 y: ROADMAP item 10", args.zero1 == "y")) if on]
     if refused:
         raise NotImplementedError(f"not ported yet: {'; '.join(refused)}")
 
@@ -262,10 +261,6 @@ def _train(args, cfg, log, dev) -> int:
         cars=dkw.get("cars", False), grayscale=dkw.get("grayscale", False),
         validation_size=cfg.validation_size, num_workers=cfg.num_workers,
         device_photometric=device_augment, device_geometric=device_geometric)
-    if args.final_viz == "y" and len(loaders.classes) <= 60:
-        raise NotImplementedError(
-            f"not ported yet: --final_viz y draws prototype galleries for "
-            f"{len(loaders.classes)} <= 60 classes: ROADMAP item 9 (pass --final_viz n)")
     if dkw.get("cars", False):
         cfg = dataclasses.replace(
             cfg, train=dataclasses.replace(cfg.train, device_augment_cars=True))
@@ -345,9 +340,46 @@ def _train(args, cfg, log, dev) -> int:
         result = trainer.fit(eval_every=args.eval_every, start_epoch=start_epoch,
                              skip_pretrain=skip_pretrain)
 
+    viz_nodes = None
+    if args.final_viz_nodes:
+        names = {n: i for i, n in enumerate(tree.node_names)}
+        viz_nodes = [names[n] for n in args.final_viz_nodes.split(",") if n in names]
+    if args.final_viz == "y" and (viz_nodes is not None or len(loaders.classes) <= 60):
+        gallery_dir = os.path.join(cfg.log_dir, args.dir_for_saving_images)
+        final_galleries(model, tree, loaders.project, gallery_dir,
+                        image_size=cfg.model.image_size, nodes=viz_nodes)
+        print(f"prototype galleries written to {gallery_dir}")
+
     mins = (time.time() - t_start) / 60.0
     print(f"done in {mins:.1f} min; eval: {result.get('eval')}")
     return 0
+
+
+def final_galleries(model, tree, loader, gallery_dir: str, *, image_size: int,
+                    nodes=None) -> list:
+    """The galleries a run draws at its end (ref main.py:835-866): one
+    projection over ``loader`` (K1 on the card); without ``nodes``, every
+    prototype's top-10 patch grid (``save_topk_gallery``); and the per-node
+    hierarchical galleries with real activation-map overlays
+    (``save_hierarchy_galleries`` under ``<gallery_dir>/hierarchy``, its
+    heatmaps re-forwarded through K1) for ``nodes`` (node indices), or for
+    every node.  Returns the paths written."""
+    import torch
+
+    from .interp import (run_projection, save_hierarchy_galleries, save_topk_gallery,
+                         topk_per_prototype)
+    from .interp.hierarchy_viz import make_heatmap_forward
+    proj = run_projection(model, tree, loader, image_size=image_size)
+    written = []
+    if nodes is None:
+        written += save_topk_gallery(proj, topk_per_prototype(proj, k=10), gallery_dir)
+    with torch.no_grad():
+        w_eff = model.head.effective_cls_weight().float().cpu().numpy()
+        presence = model.head.proto_presence.float().cpu().numpy()
+    written += save_hierarchy_galleries(
+        proj, tree, w_eff, presence, os.path.join(gallery_dir, "hierarchy"), k=10,
+        heatmap_forward=make_heatmap_forward(model, tree, proj), nodes=nodes)
+    return written
 
 
 if __name__ == "__main__":

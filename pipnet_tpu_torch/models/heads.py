@@ -75,6 +75,17 @@ class PrototypeHead(nn.Module):
         mask = tree.class_mask if cfg.protopool else tree.child_block_mask
         self.register_buffer("cls_mask", torch.as_tensor(mask), persistent=False)
 
+    def cosine_maps(self, features: torch.Tensor) -> torch.Tensor:
+        """functional_UnitConv2D (ref pipnet/pipnet.py:34-41): cosine
+        similarity (B, H, W, P) of each patch's features with each
+        prototype's add-on column, the normalised kernel detached (no
+        gradient reaches it), in the features' dtype.  A plain product: the
+        JAX package computes it outside its Pallas kernel too."""
+        k = self.add_on_kernel.to(features.dtype)
+        kn = (k / (torch.linalg.vector_norm(k, dim=0, keepdim=True) + 1e-12)).detach()
+        fn = features / (torch.linalg.vector_norm(features, dim=-1, keepdim=True) + 1e-12)
+        return fn @ kn
+
     def effective_cls_weight(self) -> torch.Tensor:
         """relu(W) under the static block mask — the weights the classifier
         actually applies."""

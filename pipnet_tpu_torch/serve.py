@@ -14,6 +14,7 @@ CLI::
     python -m pipnet_tpu_torch.serve --run_dir runs/x --http 8000
     python -m pipnet_tpu_torch.serve --run_dir runs/x --images a.png \
         --apply_overspecificity_mask --mask_seed 0
+    python -m pipnet_tpu_torch.serve --run_dir runs/x --images a.png --explain out/
 """
 
 from __future__ import annotations
@@ -123,6 +124,14 @@ class Predictor:
                     "active_prototypes": int((pooled[i] > 0).sum()),
                 })
         return results
+
+    def explain(self, image, out_dir: str, topk: int = 3) -> Dict:
+        """Per-image evidence folder (util/visualize_prediction.py;
+        ``interp/prediction.py::explain_image``) from the unmasked model."""
+        from .interp.prediction import explain_image
+        x = self._prep([image])[0]
+        return explain_image(self.model, self.tree, x, out_dir,
+                             image_size=self.image_size, top_classes=topk)
 
     # -- serving benchmark ---------------------------------------------------
     def _fence(self) -> None:
@@ -252,7 +261,8 @@ def run(argv=None) -> int:
                         "mask + degenerate-node decode fallback)")
     p.add_argument("--mask_seed", type=int, default=0)
     p.add_argument("--explain", default=None, metavar="OUT_DIR",
-                   help="not yet ported (ROADMAP.md item 9)")
+                   help="also write a per-image evidence folder "
+                        "(util/visualize_prediction.py) under OUT_DIR")
     p.add_argument("--bench", action="store_true",
                    help="serving latency/throughput JSON line")
     p.add_argument("--http", type=int, default=None, metavar="PORT",
@@ -262,10 +272,6 @@ def run(argv=None) -> int:
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu")
     args = p.parse_args(argv)
-    if args.explain is not None:
-        raise NotImplementedError(
-            "--explain is not yet ported (per-image evidence folders come "
-            "with the interpretability slice, ROADMAP.md item 9)")
 
     pred = Predictor(args.run_dir, checkpoint=args.checkpoint,
                      batch_size=args.batch_size,
@@ -289,7 +295,15 @@ def run(argv=None) -> int:
         return 0
     if not args.images:
         p.error("pass --images, --bench, or --http")
-    for path, res in zip(args.images, pred.predict(args.images, topk=args.topk)):
+    results = pred.predict(args.images, topk=args.topk)
+    for idx, (path, res) in enumerate(zip(args.images, results)):
+        if args.explain:
+            # index prefix: distinct images often share a basename
+            # (class_a/img_000.png vs class_b/img_000.png)
+            out_dir = os.path.join(
+                args.explain, f"{idx:03d}_{os.path.splitext(os.path.basename(path))[0]}")
+            pred.explain(path, out_dir, topk=args.topk)
+            res["explanation_dir"] = out_dir
         print(json.dumps({"image": path, **res}))
     return 0
 

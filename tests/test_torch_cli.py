@@ -197,16 +197,13 @@ REFUSED = [
     (["--data_parallel", "2"], NotImplementedError, "ROADMAP item 10"),
     (["--model_parallel", "2"], NotImplementedError, "ROADMAP item 10"),
     (["--zero1", "y"], NotImplementedError, "ROADMAP item 10"),
-    (["--final_viz", "y", "--final_viz_nodes", "root"], NotImplementedError, "ROADMAP item 9"),
-    (["--final_viz", "y"], NotImplementedError, "ROADMAP item 9"),
     (["--state_dict_dir_net", "x"], ValueError, "state_dict_dir_backbone"),
 ]
 
 
 @pytest.mark.parametrize("extra,error,match", REFUSED, ids=lambda v: str(v))
 def test_unported_options_raise_before_training(tmp_path, monkeypatch, extra, error, match):
-    """... and leave ``sys.stdout`` as it was (``--final_viz y`` is refused
-    once the loaders know there are at most 60 classes, inside the run)."""
+    """... and leave ``sys.stdout`` as it was."""
     from pipnet_tpu_torch.main import run_pipnet
     from pipnet_tpu_torch.train.trainer import Trainer
     monkeypatch.setattr(Trainer, "__init__", lambda *a, **k: pytest.fail("training began"))
@@ -214,6 +211,43 @@ def test_unported_options_raise_before_training(tmp_path, monkeypatch, extra, er
     with pytest.raises(error, match=match):
         run_pipnet(small_run_argv(tmp_path / "run", *extra))
     assert sys.stdout is stdout
+
+
+FINAL_VIZ = [["--final_viz", "y", "--final_viz_nodes", "root"], ["--final_viz", "y"]]
+
+
+@pytest.mark.parametrize("extra", FINAL_VIZ, ids=lambda v: str(v))
+def test_final_viz_draws_the_galleries(tmp_path, monkeypatch, port_small_backbone, extra):
+    """``--final_viz y`` draws the galleries after training (``fit``
+    replaced by loading seeded weights): with ``--final_viz_nodes``, the
+    hierarchy galleries of those nodes alone; for at most 60 classes (the
+    fixture has 8), every prototype's top-10 grid and every node's
+    hierarchy galleries (``tests/test_torch_interp.py`` holds them to the
+    JAX package's)."""
+    from pipnet_tpu_torch.main import run_pipnet
+    from pipnet_tpu_torch.models import params_from_jax, random_jax_params
+    from pipnet_tpu_torch.train.trainer import Trainer
+    trees = []
+
+    def fit(self, **kw):
+        trees.append(self.tree)
+        self.model.load_state_dict(params_from_jax(random_jax_params(
+            self.cfg.model, self.tree, seed=2, depths=SMALL_DEPTHS, dims=SMALL_DIMS)))
+        return {}
+    monkeypatch.setattr(Trainer, "fit", fit)
+    stdout = sys.stdout
+    assert run_pipnet(small_run_argv(tmp_path / "run", *extra)) == 0
+    assert sys.stdout is stdout
+    out = tmp_path / "run" / "visualization_results"
+    names = {os.path.relpath(os.path.join(p, f), out) for p, _, fs in os.walk(out) for f in fs}
+    nodes = {n.split("/")[1] for n in names if n.startswith("hierarchy/")}
+    top = {n for n in names if "/" not in n}
+    assert any(n.endswith("_heatmaps.png") for n in names)
+    if "--final_viz_nodes" in extra:
+        assert nodes == {"root"} and not top
+    else:
+        assert nodes == set(trees[0].node_names)
+        assert top and all(n.startswith("prototype_") and n.endswith(".png") for n in top)
 
 
 def test_no_card_is_an_error_not_a_cpu_run(tmp_path, monkeypatch):

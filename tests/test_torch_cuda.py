@@ -402,6 +402,52 @@ def test_small_pipnet_on_card_matches_cpu(card, compute_dtype):
         assert (fg - fc).abs().max() <= 0.03 * fc.abs().max()
 
 
+@pytest.mark.cuda
+def test_interp_gradients_on_card_match_cpu(card):
+    """The adversarial attack (K1 num_steps + 2 times, K1b num_steps) and
+    integrated gradients (K1 and K1b num_steps times), at B = 1 with only
+    g_pf or only g_pooled reaching K1b, on a narrow f32 PIPNet on the card
+    against the same weights on the CPU: within 1e-3 (of the largest
+    attribution for integrated gradients; cuDNN and oneDNN sum in other
+    orders through a forward and a backward)."""
+    import pipnet_tpu_torch.models.pipnet as tp
+    from pipnet_tpu_torch.config import HeadConfig, ModelConfig
+    from pipnet_tpu_torch.interp import adversarial_attack
+    from pipnet_tpu_torch.interp.adversarial import integrated_gradients_patch
+    from pipnet_tpu_torch.models import build_pipnet, params_from_jax, random_jax_params
+    from pipnet_tpu_torch.models.convnext import ConvNeXtTiny
+    from pipnet_tpu_torch.ops.fused_head import fused_head, head_backward
+    from pipnet_tpu_torch.tree import Node, Phylogeny, construct_phylo_tree
+    depths, dims = (1, 1, 2, 1), (8, 16, 32, 64)
+    cfg = ModelConfig(backbone="convnext_tiny_26", image_size=64, num_protos_per_child=10,
+                      head=HeadConfig(protopool=False))
+    root = construct_phylo_tree(phylo=Phylogeny(newick=TINY))
+    root.assign_all_descendents()
+    models = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(tp.BACKBONES, "convnext_tiny_26", (functools.partial(
+            ConvNeXtTiny, stride_threshold=10, depths=depths, dims=dims), dims[-1]))
+        for dev in ("cpu", "cuda"):
+            models[dev], tree = build_pipnet(Node.from_dict(root.to_dict()), cfg, device=dev)
+    params = random_jax_params(cfg, tree, seed=9, depths=depths, dims=dims)
+    x = np.random.default_rng(10).standard_normal((64, 64, 3)).astype(np.float32)
+    proto = int(np.flatnonzero(tree.proto_valid)[4])
+    out = {}
+    for dev, m in models.items():
+        m.load_state_dict(params_from_jax(params))
+        before = (fused_head.launches, head_backward.launches)
+        moved, adv = adversarial_attack(m, x, proto, num_steps=3, threshold=0.05)
+        ig = integrated_gradients_patch(m, x, proto, num_steps=4).cpu().numpy()
+        out[dev] = (moved, adv, ig)
+        if dev == "cuda":
+            assert (fused_head.launches - before[0], head_backward.launches - before[1]) == \
+                (3 + 2 + 4, 3 + 4)
+    assert out["cuda"][0] == out["cpu"][0]
+    np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=0, atol=1e-3)
+    np.testing.assert_allclose(out["cuda"][2], out["cpu"][2], rtol=0,
+                               atol=1e-3 * out["cpu"][2].max())
+
+
 # ---------------------------------------------------------------------------
 # K3 (depthwise 7x7) and K4 (fused ConvNeXt block branch)
 # ---------------------------------------------------------------------------

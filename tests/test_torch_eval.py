@@ -18,8 +18,10 @@ fixture at 32^2 for the passes over a loader).
 - ``evaluate.run`` on one run directory holding both packages' checkpoints
   of the same weights: the same report keys, equal integers and top-k
   ratios, sparsity means within 1e-9;
-- the ``interp/*`` flags raise before any work; the masked ``Predictor``
-  and the serve CLI's ``--mask_seed``.
+- the ``interp/*`` flags (``--threshold_prune``, ``--prune_leaf_parents``,
+  ``--part_purity_csv``, ``--galleries_nodes``) against the JAX package's
+  report sections and files; the masked ``Predictor`` and the serve CLI's
+  ``--mask_seed``.
 """
 
 import json
@@ -390,17 +392,41 @@ def test_evaluate_run_writes_per_node_and_merges(eval_run_dir):
     assert len(full["per_node"]) > 0 and again["per_node"] == full["per_node"]
 
 
-@pytest.mark.parametrize("flags", [
-    ["--threshold_prune", "0.1"], ["--prune_leaf_parents"],
-    ["--part_purity_csv", "--parts_loc", "a", "--parts_name", "b", "--images_id", "c"],
-    ["--galleries_nodes", "auto:2"]], ids=["threshold_prune", "prune_leaf_parents",
-                                           "part_purity_csv", "galleries_nodes"])
-def test_interp_flags_raise_before_any_work(tmp_path, flags):
-    from pipnet_tpu_torch.evaluate import run
-    missing = str(tmp_path / "no_such_run")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        run(["--run_dir", missing, "--device", "cpu", *flags])
-    assert not os.path.exists(missing)
+def _interp_flags(case, run_dir, tmp_path):
+    """The argv of one interp case on ``run_dir`` and the files it writes
+    into the run directory."""
+    from pipnet_tpu_torch.data import scan_image_folder
+    from pipnet_tpu_torch.datasets import resolve_dataset
+    from pipnet_tpu_torch.tree import Node
+    from test_torch_interp import write_part_files
+    if case == "threshold_prune":
+        return ["--threshold_prune", "0.1,0.3"], ["prototype_report.txt"]
+    if case == "prune_leaf_parents":
+        return ["--threshold_prune", "0.3", "--prune_leaf_parents"], ["prototype_report.txt"]
+    if case == "part_purity_csv":
+        files = write_part_files(scan_image_folder(resolve_dataset(FIXTURE)[0]), str(tmp_path))
+        return (["--part_purity_csv", "--parts_loc", files[0], "--parts_name", files[1],
+                 "--images_id", files[2]], ["topk_patches.csv"])
+    with open(os.path.join(run_dir, "metadata", "tree.json")) as f:
+        node = Node.from_dict(json.load(f)).nodes_with_children()[-1].name
+    return ["--galleries_nodes", node], ["node_galleries"]
+
+
+@pytest.mark.parametrize("case", ["threshold_prune", "prune_leaf_parents", "part_purity_csv",
+                                  "galleries_nodes"])
+def test_interp_flags_raise_before_any_work(eval_run_dir, tmp_path, case):
+    """The interp flags (refused before ``interp/*`` was ported) run, and
+    their report sections and files equal the JAX package's on the same
+    weights (``tests/test_torch_interp.py`` has the bars)."""
+    from test_torch_interp import compare_interp_sections, run_both_evaluates
+    run_dir = eval_run_dir[0]
+    argv, outputs = _interp_flags(case, run_dir, tmp_path)
+    got, want = run_both_evaluates(run_dir, argv, outputs)
+    key = {"threshold_prune": "threshold_prune",
+           "prune_leaf_parents": "threshold_prune_leaf_parents_ab",
+           "part_purity_csv": "part_purity", "galleries_nodes": "node_galleries"}[case]
+    assert key in want
+    compare_interp_sections(got, want, run_dir)
 
 
 def test_evaluate_defaults_to_cuda(eval_run_dir):

@@ -28,12 +28,15 @@ def test_importing_the_port_loads_no_jax():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'pipnet_tpu'))\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 49, names\n"
+        "assert len(names) >= 59, names\n"
         "for m in ('ops.fused_head_nopf', 'ops.dwconv', 'ops.cnblock', 'losses.catalog', "
         "'losses.aggregate', 'train.optimizer', 'train.step', 'data.loader', "
         "'data.device_cache', 'ops.device_augment', 'ops.device_geometric', 'native', "
         "'datasets', 'runtime.log', 'runtime.profiling', 'train.checkpoint', "
-        "'train.trainer', 'main', 'paths', 'eval', 'eval.metrics', 'evaluate'):\n"
+        "'train.trainer', 'main', 'paths', 'eval', 'eval.metrics', 'evaluate', 'interp', "
+        "'interp.adversarial', 'interp.heatmaps', 'interp.hierarchy_viz', 'interp.mips', "
+        "'interp.part_purity', 'interp.patches', 'interp.prediction', 'interp.pruning', "
+        "'interp.topk'):\n"
         "    assert 'pipnet_tpu_torch.' + m in names, m\n"
         "print('ok', len(names))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

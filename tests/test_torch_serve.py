@@ -153,15 +153,22 @@ def test_http_routes(server, predictor, images, tmp_path):
 
 
 def test_cli_images_and_unported_flags(run_dir, images, tmp_path, capsys):
+    """The CLI's images, ``--explain`` (once refused, now ported: it writes
+    the evidence folder) and the mask flags."""
     from pipnet_tpu_torch.serve import run
     path = str(tmp_path / "a.png")
     Image.fromarray(images[1]).save(path)
     assert run(["--run_dir", run_dir[0], "--images", path, "--device", "cpu"]) == 0
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert line["image"] == path and line["class"] in run_dir[2]
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        run(["--run_dir", run_dir[0], "--images", path, "--device", "cpu",
-             "--explain", str(tmp_path / "ev")])
+    # --explain writes the evidence folder (interp/prediction.py's layout)
+    assert run(["--run_dir", run_dir[0], "--images", path, "--device", "cpu",
+                "--explain", str(tmp_path / "ev")]) == 0
+    explained = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert explained["explanation_dir"] == str(tmp_path / "ev" / "000_a")
+    assert {k: v for k, v in explained.items() if k != "explanation_dir"} == line
+    folders = sorted(os.listdir(tmp_path / "ev" / "000_a"))
+    assert len(folders) == 3 and folders[0].startswith(f"0_{line['class']}_")
     assert run(["--run_dir", run_dir[0], "--images", path, "--device", "cpu",
                 "--apply_overspecificity_mask", "--mask_seed", "1"]) == 0
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
