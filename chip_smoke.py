@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``pipnet_tpu_torch``) on one CUDA card.
 
-    python3 chip_smoke.py [--baseline CHECKOUT] [--only blocks|data|trainer|eval|interp]
+    python3 chip_smoke.py [--baseline CHECKOUT] [--only blocks|data|trainer|eval|interp|backbones]
 
 Phases, each of which fails the run loudly:
 
@@ -122,13 +122,28 @@ Phases, each of which fails the run loudly:
    K1b; MIPS over 256 test images against the CPU's product; each part's
    K1 and K1b launches derived from the code and checked exactly, and its
    seconds.  The kernel phase also holds K1b at B = 1 (only g_pf in one
-   column, only g_pooled), as the attack and integrated gradients run it.
+   column, only g_pooled), as the attack and integrated gradients run it;
+14. the other backbones and interop (the kernel phase first holds K1, K1b
+   and K2 on the flagship tree at their head shapes: 28x28x2048 and
+   16x16x384, bf16 at B = 8 and 128 (K2 at 64 pairs), f32 at B = 8):
+   run directories of the flagship config and tree with ``resnet50`` and
+   ``dinov2_vits14`` (seeded weights and BatchNorm statistics) served as
+   in 5; ResNet-50 path A and path B (with 3's cross-checks) and ViT-S/14
+   path A as in 6 and 7, with exact launches; ResNet-50's BatchNorm
+   statistics after one f32 step against the CPU's plain step; the ViT's
+   position-embedding resize against the CPU's; BYOL on the flagship
+   ConvNeXt (pretraining and joint phases: K1 1, K1b 1 a step, the EMA
+   target against tau * t + (1 - tau) * theta); the ResNet-50 run exported
+   by the port's CLI and re-imported by ``convert_reference_pipnet``, its
+   logits equal bit for bit.
 
 The last two lines of standard output are the ``{"kernels": [...]}``
 record and ``{"ok": true, "device": {...}}``.  ``--only blocks`` runs
 phases 1, 2 and the K3 and K4 checks of phase 3, ``--only data`` phases
 1, 2 and 9, ``--only trainer`` phases 1, 2 and 11, ``--only eval`` phases
-1, 2 and 12, ``--only interp`` phases 1, 2 and 13, then each stops without
+1, 2 and 12, ``--only interp`` phases 1, 2 and 13, ``--only backbones``
+phases 1, 2, the kernel checks at the other backbones' shapes and 14, then
+each stops without
 either line: neither can pass for a full run.  Without a CUDA card, or without the rest of the repository
 beside it, it exits non-zero before printing either.
 """
@@ -983,26 +998,28 @@ def run_config(setup: Setup, align_eps_unset: bool = False, fused_backbone: bool
     return cfg
 
 
-def build_model(setup: Setup, cfg, seed: int = 0):
-    """``setup``'s PIPNet for ``cfg`` on the card at full width and depth,
-    with seeded random weights in the JAX layout (``random_jax_params``;
-    the add-on kernel scaled to ``setup.logit_std`` where that is set)
-    converted to the port's: (model, tree, weights in the JAX layout)."""
-    from pipnet_tpu_torch.models import build_pipnet, params_from_jax, random_jax_params
+def build_model(setup: Setup, cfg, seed: int = 0, device: str = "cuda"):
+    """``setup``'s PIPNet for ``cfg`` on the card (or ``device``) at full
+    width and depth, with seeded random weights and BatchNorm statistics in
+    the JAX layout (``random_jax_variables``; the add-on kernel scaled to
+    ``setup.logit_std`` where that is set) converted to the port's:
+    (model, tree, weights in the JAX layout)."""
+    from pipnet_tpu_torch.models import build_pipnet, params_from_jax, random_jax_variables
     from pipnet_tpu_torch.tree import Node
     model, tree = build_pipnet(Node.from_dict(setup.tree_json), cfg.model,
                                weighted=cfg.train.loss.weighted_ce,
-                               class_names=setup.classes, device="cuda")
-    params = random_jax_params(cfg.model, tree, seed=seed)
+                               class_names=setup.classes, device=device)
+    variables = random_jax_variables(cfg.model, tree, seed=seed, backbone=model.backbone)
+    params, stats = variables["params"], variables["batch_stats"]
     if setup.logit_std is not None:
         if setup.kernel_scale is None:
-            model.load_state_dict(params_from_jax(params))
+            model.load_state_dict(params_from_jax(params, batch_stats=stats))
             std = served_logit_std(model, cfg)
             setup.kernel_scale = setup.logit_std / std
             say(f"{setup.name} weights: add-on kernel scaled by {setup.kernel_scale} "
                 f"(logit std {std} -> {setup.logit_std})")
         params["head"]["add_on_kernel"] = params["head"]["add_on_kernel"] * setup.kernel_scale
-    model.load_state_dict(params_from_jax(params))
+    model.load_state_dict(params_from_jax(params, batch_stats=stats))
     return model, tree, params
 
 
@@ -1022,7 +1039,6 @@ def write_run_dir(run_dir: str, setup: Setup, fused: bool, seed: int = 0) -> Non
     (with ``fused``, ``"use_pallas_backbone": true``; the parameter tree is
     the same), its classes and tree, and its seeded weights converted to
     the port's state_dict (``checkpoints/net_trained_last.pt``)."""
-    from pipnet_tpu_torch.models.convert import params_from_jax
     shutil.rmtree(run_dir, ignore_errors=True)
     os.makedirs(os.path.join(run_dir, "metadata"))
     os.makedirs(os.path.join(run_dir, "checkpoints"))
@@ -1033,10 +1049,10 @@ def write_run_dir(run_dir: str, setup: Setup, fused: bool, seed: int = 0) -> Non
                       ("tree.json", setup.tree_json)):
         with open(os.path.join(run_dir, "metadata", name), "w") as f:
             json.dump(obj, f, indent=2)
-    model, _, params = build_model(setup, run_config(setup, fused_backbone=fused), seed)
-    del model
-    torch.save(params_from_jax(params),
+    model, _, _ = build_model(setup, run_config(setup, fused_backbone=fused), seed)
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()},
                os.path.join(run_dir, "checkpoints", "net_trained_last.pt"))
+    del model
 
 
 def synthetic_images(n: int, size: int, seed: int):
@@ -1306,6 +1322,24 @@ WATCHED = ("head.add_on_kernel", "head.cls_weight", "head.proto_presence",
            "backbone.stage3_block2.mlp_in.weight", "backbone.down2_conv.weight")
 
 
+def watched_params(model, cfg) -> tuple:
+    """(parameters the joint step must move, parameters it must not): for
+    the ConvNeXt, ``WATCHED`` and the frozen stem; for another backbone the
+    head's, the first backbone parameter of the 'train' group and of the
+    'backbone' group, and the first of the 'frozen' group (resnet50's stem)
+    if it has one."""
+    from pipnet_tpu_torch.train import label_params
+    if cfg.model.backbone.startswith("convnext"):
+        return WATCHED, ("backbone.stem_conv.weight",)
+    names = [n for n, _ in model.named_parameters() if n.startswith("backbone.")]
+    labels = label_params(names, cfg.model.backbone)
+    first = {}
+    for n in names:
+        first.setdefault(labels[n], n)
+    moving = WATCHED[:3] + tuple(first[g] for g in ("train", "backbone") if g in first)
+    return moving, tuple(first[g] for g in ("frozen",) if g in first)
+
+
 def training_phase(card: str, setup: Setup, fuse: bool, fused_backbone: bool = False):
     """One training path of ``setup`` at full width: warm-up steps, then
     timed steps with the kernels' launch counts, then the profiler and a
@@ -1321,7 +1355,8 @@ def training_phase(card: str, setup: Setup, fuse: bool, fused_backbone: bool = F
     step, scalars = train_step(cfg, model, tree, fuse)
     state = init_train_state(model, seed=0)
     params = dict(model.named_parameters())
-    before = {n: params[n].detach().clone() for n in WATCHED + ("backbone.stem_conv.weight",)}
+    watched, still = watched_params(model, cfg)
+    before = {n: params[n].detach().clone() for n in watched + still}
     first = None
     for _ in range(WARMUP_STEPS):
         state, m = step(state, xs1, xs2, ys, scalars)
@@ -1358,9 +1393,9 @@ def training_phase(card: str, setup: Setup, fuse: bool, fused_backbone: bool = F
         fail(f"training path {name}: non-finite {bad}: {rec}")
     moved = {n: (params[n].detach() - before[n]).abs().max().item() for n in before}
     rec["max_param_change"] = moved
-    if any(moved[n] == 0 for n in WATCHED) or moved["backbone.stem_conv.weight"] != 0:
+    if any(moved[n] == 0 for n in watched) or any(moved[n] != 0 for n in still):
         fail(f"training path {name}: trainable parameters did not move, or the "
-             f"frozen stem did: {moved}")
+             f"frozen ones did: {moved}")
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     n = 3
@@ -2651,6 +2686,269 @@ def head_grad_check(f, k, tree, fuse):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the other backbones, BYOL and torch import/export
+# ---------------------------------------------------------------------------
+
+# the head's input on the other backbones at 224^2: ResNet-50/101/152 give
+# D = 2048 over 28x28 patches (stride-1 layer3/4), DINOv2 ViT-S/14 D = 384
+# over 16x16
+BACKBONE_SHAPES = {"resnet50": (28, 28, 2048), "dinov2": (16, 16, 384)}
+# the seeded ResNet and ViT heads' add-on kernels are scaled so that F K
+# spreads with this standard deviation over the served images (as the flat
+# setup's, FLAT_LOGIT_STD): the backbones' seeded features differ in scale
+# from the ConvNeXt's, and the serving check needs images whose top class
+# is clear
+BACKBONE_LOGIT_STD = 6.0
+# BatchNorm running statistics after one f32 step on the card against the
+# same step on the CPU's plain path (TF32 off): the two runs' features differ
+# by their convolutions' summation order, f32 rounding carried through 53
+# BatchNorms, so each buffer within 1e-4 of its largest value
+BN_STATS_REL = 1e-4
+
+
+def backbone_kernel_checks(card: str):
+    """K1, K1b and K2 on the flagship tree at the other backbones' shapes
+    (bf16 at the serving B = 8 and the training B = 128, f32 at B = 8), each
+    against its plain version, timed beside its bound, the plain version's
+    time and ``torch.matmul`` F K's: (K1, K1b, K2) records by name."""
+    flag, _ = flagship_tree()
+    bf16, f32 = torch.bfloat16, torch.float32
+    records, backward, nopf = {}, {}, {}
+    for net, (H, W, D) in BACKBONE_SHAPES.items():
+        for B, dtype in ((8, bf16), (128, bf16), (8, f32)):
+            name = f"{net}_b{B}_{_dtype_name(dtype)}"
+            records[name] = check_fused_head(flag, B, H, W, D, dtype, seed=40 + len(records),
+                                             timed=True)
+            say(f"kernel fused_head {name}: {json.dumps(records[name])} [{card}]")
+        for B, dtype in ((128, bf16), (8, f32)):
+            name = f"{net}_b{B}_{_dtype_name(dtype)}"
+            backward[name] = check_head_backward(flag, B, H, W, D, dtype,
+                                                 seed=50 + len(backward), timed=True)
+            say(f"kernel head_backward {name}: {json.dumps(backward[name])} [{card}]")
+    H, W, D = BACKBONE_SHAPES["resnet50"]
+    for pairs, dtype in ((64, bf16), (4, f32)):
+        name = f"resnet50_{pairs}pairs_{_dtype_name(dtype)}"
+        nopf[name] = check_nopf(flag, pairs, H, W, D, dtype, seed=60 + len(nopf), timed=True)
+        say(f"kernel fused_head_nopf {name}: {json.dumps(nopf[name])} [{card}]")
+    return records, backward, nopf
+
+
+def backbone_setup(backbone: str) -> Setup:
+    """The flagship run config and tree with another backbone."""
+    flag = flagship_setup()
+    return Setup(backbone, {"backbone": backbone}, flag.tree_json, flag.classes,
+                 logit_std=BACKBONE_LOGIT_STD)
+
+
+def check_path_launches(label: str, rec: dict, per_step: dict) -> dict:
+    check_launches(label, rec["launches"], {**NO_LAUNCHES, **{
+        k: v * TIMED_STEPS for k, v in per_step.items()}})
+    return rec["launches"]
+
+
+def bn_statistics_check(card: str, setup: Setup) -> dict:
+    """One joint-phase step of ``setup`` in f32 (TF32 off) at 4 images in
+    two views, on the card through the kernels and on the CPU through
+    their plain versions, from the same weights, statistics and batch:
+    every BatchNorm's running statistics moved, and equal on both within
+    ``BN_STATS_REL`` of their largest value; the losses within 1e-4."""
+    from pipnet_tpu_torch.train import init_train_state
+    cfg = run_config(setup)
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, compute_dtype="float32"))
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        out = {}
+        for dev in ("cuda", "cpu"):
+            model, tree, _ = build_model(setup, cfg, device=dev)
+            start = {k: v.clone() for k, v in model.state_dict().items() if "running_" in k}
+            r = np.random.default_rng(5)
+            S = cfg.model.image_size
+            xs = torch.from_numpy(r.standard_normal((2, 4, S, S, 3)).astype(np.float32))
+            ys = torch.from_numpy(r.integers(0, tree.num_classes, 4))
+            step, scalars = train_step(cfg, model, tree, fuse=False)
+            _, m = step(init_train_state(model, seed=0), xs[0].to(dev), xs[1].to(dev),
+                        ys.to(dev), scalars, presence_noise=torch.zeros(
+                            (tree.num_protos_padded, 2), device=dev))
+            out[dev] = (float(m["loss"]), start, {k: v.detach().cpu().clone()
+                                                  for k, v in model.state_dict().items()
+                                                  if "running_" in k})
+            del model
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    (loss_c, start, card_stats), (loss_p, _, cpu_stats) = out["cuda"], out["cpu"]
+    errs = {k: ((card_stats[k] - cpu_stats[k]).abs().max()
+                / cpu_stats[k].abs().max().clamp(min=1.0)).item() for k in cpu_stats}
+    moved = sum(not torch.equal(card_stats[k], start[k].cpu()) for k in start)
+    rec = {"buffers": len(errs), "moved": moved, "max_rel_err": max(errs.values()),
+           "worst": max(errs, key=errs.get), "loss_card": loss_c, "loss_cpu": loss_p}
+    say(f"BatchNorm statistics after one f32 step, {setup.name}, card vs CPU: "
+        f"{json.dumps(rec)} [{card}]")
+    if moved != len(start) or rec["max_rel_err"] > BN_STATS_REL or \
+            abs(loss_c - loss_p) > 1e-4 * abs(loss_p):
+        fail(f"{setup.name}: BatchNorm statistics or loss after one step disagree "
+             f"between the card and the CPU: {rec}")
+    torch.cuda.empty_cache()
+    return rec
+
+
+def pos_embed_check(card: str) -> dict:
+    """DINOv2's position-embedding resize (37 -> 16, antialiased bicubic)
+    on the card against the CPU's."""
+    from pipnet_tpu_torch.models.vit import resize_pos_embed
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal((1, 37, 37, 384))
+                         .astype(np.float32))
+    err = (resize_pos_embed(x.cuda(), 16).cpu() - resize_pos_embed(x, 16)).abs().max().item()
+    say(f"DINOv2 pos-embed resize 37 -> 16, card vs CPU: max abs err {err} [{card}]")
+    if err > 1e-5:
+        fail(f"the position-embedding resize differs on the card: {err}")
+    return {"max_abs_err": err}
+
+
+def byol_phase(card: str) -> dict:
+    """BYOL on the flagship ConvNeXt (``use_byol``, the ``byol`` loss):
+    path A steps in the pretraining phase (epoch 1) and the joint phase
+    (epoch 20), each timed with its launches (K1 1, K1b 1 a step, as
+    without BYOL: the target projection runs no head); the BYOL loss
+    finite; after a step, the EMA target equals tau * t + (1 - tau) * theta
+    recomputed from the step's parameters."""
+    from pipnet_tpu_torch.models import byol_tau_schedule
+    from pipnet_tpu_torch.train import (Scalars, StepStatics, init_train_state,
+                                        make_train_step, phase_for_epoch)
+    t0 = time.perf_counter()
+    setup = dataclasses.replace(flagship_setup(), name="byol", model={"use_byol": True})
+    cfg = run_config(setup)
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, loss=dataclasses.replace(cfg.train.loss, byol=True)))
+    model, tree, _ = build_model(setup, cfg)
+    xs1, xs2, ys = train_batch(cfg, tree)
+    state = init_train_state(model, seed=0)
+    out = {}
+    for phase_name, epoch, pretrain in (("pretrain", 1, True), ("joint", JOINT_EPOCH, False)):
+        statics = StepStatics(phase=phase_for_epoch(epoch, cfg.train, pretrain=pretrain),
+                              mask_prune_active=not pretrain, eta_min_net=5e-6)
+        scalars = Scalars(net_t=5.0, net_T=100.0, epoch_frac=0.5,
+                          align_pf_weight=0.5 if pretrain else 5.0,
+                          tanh_weight=5.0 if pretrain else 2.0)
+        step = make_train_step(model, tree, cfg, statics)
+        for _ in range(WARMUP_STEPS):
+            state, m = step(state, xs1, xs2, ys, scalars)
+        target0 = {k: v.clone() for k, v in state.byol.items()}
+        state, m = step(state, xs1, xs2, ys, scalars)
+        tau = byol_tau_schedule(scalars.net_t, scalars.net_T, cfg.train.loss.byol_tau_base,
+                                cfg.train.loss.byol_tau_max)
+        ema_err = max(((state.byol[k] - (tau * target0[k] + (1 - tau) * state.params[k]))
+                       .abs().max() / target0[k].abs().max().clamp(min=1e-30)).item()
+                      for k in target0)
+        torch.cuda.synchronize()
+        zero_counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.reset_peak_memory_stats()
+        start.record()
+        acc = None
+        for _ in range(TIMED_STEPS):
+            state, acc = step(state, xs1, xs2, ys, scalars, acc=acc)
+        end.record()
+        torch.cuda.synchronize()
+        rec = {"phase": phase_name, "step_ms": start.elapsed_time(end) / TIMED_STEPS,
+               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "launches": counts(), "loss_byol": float(acc["loss/byol"]) / TIMED_STEPS,
+               "loss": float(acc["loss"]) / TIMED_STEPS, "tau": tau,
+               "ema_max_rel_err": ema_err, "target_entries": len(target0)}
+        say(f"BYOL path A, {phase_name}: {json.dumps(rec)} [{card}]")
+        if not (np.isfinite(rec["loss_byol"]) and np.isfinite(rec["loss"])) or \
+                rec["loss_byol"] <= 0 or ema_err > 1e-6:
+            fail(f"BYOL {phase_name}: {rec}")
+        out[phase_name] = check_path_launches(f"BYOL path A, {phase_name}", rec,
+                                              {"fused_head": 1, "head_backward": 1})
+    say(f"BYOL: {time.perf_counter() - t0:.1f} s")
+    del model, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def interop_check(card: str, run_dir: str) -> dict:
+    """The port's export CLI on ``run_dir`` (a seeded ResNet-50 run), the
+    reference checkpoint re-imported by ``convert_reference_pipnet`` into a
+    fresh model on the card: its logits on the served batch equal the run's
+    bit for bit (K1 launches: one forward each)."""
+    from PIL import Image
+    from pipnet_tpu_torch.data.augment import EvalTransform
+    from pipnet_tpu_torch.models import build_pipnet
+    from pipnet_tpu_torch.models.torch_export import run as export_cli
+    from pipnet_tpu_torch.models.torch_import import (convert_reference_pipnet,
+                                                      load_torch_state_dict)
+    from pipnet_tpu_torch.run_io import load_run
+    from pipnet_tpu_torch.tree import Node
+    t0 = time.perf_counter()
+    out = os.path.join(run_dir, "reference_net.pth")
+    if export_cli(["--run_dir", run_dir, "--out", out]) != 0:
+        fail("the export CLI failed")
+    t_export = time.perf_counter() - t0
+    bundle = load_run(run_dir, device="cuda")
+    sd = load_torch_state_dict(out)
+    with open(os.path.join(run_dir, "metadata", "tree.json")) as f:
+        root = Node.from_dict(json.load(f))
+    model, tree = build_pipnet(root, bundle.cfg.model, weighted=bundle.cfg.train.loss.weighted_ce,
+                               class_names=bundle.classes, device="cuda")
+    model.load_state_dict(convert_reference_pipnet(sd, tree, bundle.cfg.model.backbone))
+    S = bundle.cfg.model.image_size
+    xs = torch.from_numpy(np.stack([EvalTransform(S)(Image.fromarray(im))
+                                    for im in synthetic_images(8, 256, seed=2)])).cuda()
+    zero_counts()
+    with torch.inference_mode():
+        want = bundle.model(xs, inference=True)["logits"]
+        got = model(xs, inference=True)["logits"]
+    torch.cuda.synchronize()
+    launches = counts()
+    rec = {"tensors": len(sd), "export_s": t_export, "logits_equal": bool(torch.equal(got, want)),
+           "logits_max_abs": want.float().abs().max().item(),
+           "seconds": time.perf_counter() - t0}
+    say(f"interop, export -> import, resnet50: {json.dumps(rec)} [{card}]")
+    if not rec["logits_equal"]:
+        fail(f"re-imported logits differ from the run's: {rec}")
+    check_launches("interop", launches, {**NO_LAUNCHES, "fused_head": 2})
+    return launches
+
+
+def backbones_phase(card: str) -> dict:
+    """Phase 14: ResNet-50 served and trained (paths A and B, the
+    cross-checks, BatchNorm statistics against the CPU), DINOv2 ViT-S/14
+    served and trained (path A), BYOL on the flagship ConvNeXt, and the
+    export/import round trip; returns the launches by path."""
+    t0 = time.perf_counter()
+    paths, seconds = {}, {}
+    resnet, vit = backbone_setup("resnet50"), backbone_setup("dinov2_vits14")
+    for setup in (resnet, vit):
+        t = time.perf_counter()
+        paths[f"serving, {setup.name}"] = serving_phase(card, setup)
+        seconds[f"serving, {setup.name}"] = time.perf_counter() - t
+    t = time.perf_counter()
+    paths["interop"] = interop_check(card, "_".join([RUN_DIR, resnet.name]))
+    seconds["interop"] = time.perf_counter() - t
+    pos_embed_check(card)
+    for setup, fuse in ((resnet, False), (resnet, True), (vit, False)):
+        t = time.perf_counter()
+        if fuse:
+            cross_checks(card, setup)
+        rec = training_phase(card, setup, fuse=fuse)
+        per_step = {"fused_head": 1, "head_backward": 1, **({"fused_head_nopf": 1} if fuse else {})}
+        label = f"training {'B' if fuse else 'A'}, {setup.name}"
+        paths[label] = check_path_launches(label, rec, per_step)
+        seconds[label] = time.perf_counter() - t
+    t = time.perf_counter()
+    bn_statistics_check(card, resnet)
+    seconds["BatchNorm statistics"] = time.perf_counter() - t
+    t = time.perf_counter()
+    for phase_name, launches in byol_phase(card).items():
+        paths[f"training A, BYOL {phase_name}"] = launches
+    seconds["BYOL"] = time.perf_counter() - t
+    say(f"phase 14 (other backbones and interop): {time.perf_counter() - t0:.1f} s; "
+        f"seconds by part: {json.dumps(seconds)}")
+    return paths
+
+
 NO_LAUNCHES = {"fused_head": 0, "head_backward": 0, "fused_head_nopf": 0, "dwconv": 0,
                "cnblock": 0}
 
@@ -2666,14 +2964,16 @@ def main(argv=None) -> int:
     ap.add_argument("--baseline", metavar="CHECKOUT",
                     help="an older checkout of this repository whose K1 and K2 are timed "
                          "in turns with this one's in the kernel phase")
-    ap.add_argument("--only", choices=["blocks", "data", "trainer", "eval", "interp"],
+    ap.add_argument("--only", choices=["blocks", "data", "trainer", "eval", "interp",
+                                       "backbones"],
                     help="blocks: build, check and time K3 and K4 only; data: build, then "
                          "run the training-from-data phase only; trainer: build, then run "
                          "the training-through-the-CLI phase only; eval: build, then "
                          "evaluate a run directory of seeded weights on the data phase's "
                          "fixture; interp: build, then run the interpretability phase on "
-                         "such a run directory; each stops without the kernels record or "
-                         "the ok line")
+                         "such a run directory; backbones: build, check and time K1, K1b "
+                         "and K2 at the other backbones' shapes, then run phase 14; each "
+                         "stops without the kernels record or the ok line")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2728,7 +3028,14 @@ def main(argv=None) -> int:
             interp_phase(card, run_dir, dataset=DATA_FIXTURE)
         say(f"--only interp: done in {time.perf_counter() - t_start:.1f} s; no full run")
         return 0
+    if args.only == "backbones":
+        backbone_kernel_checks(card)
+        backbones_phase(card)
+        say(f"--only backbones: done in {time.perf_counter() - t_start:.1f} s; no full run")
+        return 0
     records, backward, nopf = kernel_phase(card, baseline)
+    for into, got in zip((records, backward, nopf), backbone_kernel_checks(card)):
+        into.update(got)
     dw, blocks = block_kernel_phase(card, baseline)
 
     paths = {"depthwise conv op": dwconv_op_path(card),
@@ -2767,6 +3074,7 @@ def main(argv=None) -> int:
         _, train_cli = trainer_phase(card, cli_dir)
         _, evaluation = eval_phase(card, cli_dir)
         _, interpretability = interp_phase(card, cli_dir)
+    paths.update(backbones_phase(card))
     paths.update({"training A": train_a["launches"], "training B": train_b["launches"],
                   "training C": train_c["launches"], "training from data": train_data["launches"],
                   "training through the CLI": train_cli, "evaluation": evaluation,

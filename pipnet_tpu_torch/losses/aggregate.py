@@ -54,7 +54,6 @@ def resolve_tanh_eps(cfg: LossConfig, min_contrast_ran: bool) -> float:
 def _unported(cfg: LossConfig, finetune: bool, ood_present: bool) -> list:
     return [name for name, on in (
         ("align/uniform", not finetune and (cfg.align or cfg.uni)),
-        ("byol", cfg.byol),
         ("ood", ood_present or cfg.ood_loss or cfg.ood_ent),
         ("minmaximize", cfg.minmaximize)) if on]
 
@@ -67,18 +66,28 @@ def compute_total_loss(tc: TreeConsts, outputs: Dict[str, torch.Tensor], ys: tor
                        ood_present: bool = False,
                        generator: Optional[torch.Generator] = None,
                        presence_noise: Optional[torch.Tensor] = None,
+                       byol_online: Optional[torch.Tensor] = None,
+                       byol_target: Optional[torch.Tensor] = None,
                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One step's total loss and its parts, for logging.
 
     ``outputs`` is the forward's dict on the two-view batch (with either
     'proto_features' or the no-pf head's 'align_pf_logsum'); ``ys`` the
     duplicated labels.  Mask-pruning draws the presence Gumbel noise once,
-    from ``generator``, unless ``presence_noise`` (P, 2) is given."""
+    from ``generator``, unless ``presence_noise`` (P, 2) is given.
+    ``byol_online`` and ``byol_target`` (the EMA target's projection) give
+    BYOL's regression loss, outside the finetune phases."""
     missing = _unported(cfg, finetune, ood_present)
     if missing:
         raise NotImplementedError(f"losses {missing} are not ported yet")
     aux: Dict[str, torch.Tensor] = {}
     total = torch.zeros((), dtype=torch.float32, device=ys.device)
+
+    if cfg.byol and not finetune and byol_online is not None:
+        byol = C.byol_regression_loss(byol_online, byol_target)
+        total = total + weights.byol * byol
+        aux["byol"] = byol
+
     pooled, logits = outputs["pooled"], outputs["logits"]
 
     if not pretrain and cfg.mask_prune_overspecific and epoch >= cfg.mask_prune_start_epoch:

@@ -15,8 +15,8 @@ descendants absent from the batch (their pooled sum is 0, a constant
 ``-log(eps)``); the overspecificity denominator counts relevant prototypes
 of children with no in-batch descendant; the presence Gumbel noise is drawn
 once per step (by the caller).  Not ported yet (they raise in
-``aggregate.py``): the align/uniform feature losses, BYOL, the OOD losses
-and the entropy loss.
+``aggregate.py``): the align/uniform feature losses, the OOD losses and the
+entropy loss.
 """
 
 from __future__ import annotations
@@ -302,3 +302,20 @@ def min_contrast_loss(tc: TreeConsts, pooled: torch.Tensor, ys: torch.Tensor,
     numer = torch.where(valid_rows, top, torch.zeros_like(top)).sum(dim=1) * col_ok
     denom = valid_rows.sum(dim=1) * col_ok
     return _total(tc, _per_node(numer @ tc.node_onehot, denom @ tc.node_onehot))
+
+
+def byol_regression_loss(online: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """BYOL's normalised MSE between the crossed views, per patch (ref
+    regression_loss pipnet/train.py:1414-1419 and its use at 887-893):
+    ``online`` and ``target`` (2B, H, W, D) hold the two views stacked; each
+    view's online output regresses the other view's target (detached), both
+    l2-normalised over D (``F.normalize``'s eps 1e-12)."""
+    o1, o2 = online.chunk(2, dim=0)
+    t1, t2 = target.detach().chunk(2, dim=0)
+
+    def reg(x, y):
+        xn = x / torch.linalg.vector_norm(x, dim=-1, keepdim=True).clamp(min=1e-12)
+        yn = y / torch.linalg.vector_norm(y, dim=-1, keepdim=True).clamp(min=1e-12)
+        return ((xn - yn) ** 2).sum(dim=-1).mean()
+
+    return (reg(o1, t2) + reg(o2, t1)) / 2.0

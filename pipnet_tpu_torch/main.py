@@ -9,7 +9,8 @@ translate directly, and resolves them once into the static ``RunConfig``.
 Training runs on the card unless ``--device cpu`` asks for the CPU.
 Options the port does not have yet raise before any training, naming their
 ``ROADMAP.md`` item: the OOD dataset and the losses still to be ported
-(item 11), BYOL (item 8) and the mesh options (item 10).  After training,
+(item 11) and the mesh options (item 10).  Every backbone of the JAX
+package (``--net``) and ``--byol y`` train.  After training,
 ``--final_viz y`` draws the prototype galleries (``final_galleries``): for
 60 classes or fewer, or for the nodes of ``--final_viz_nodes``.
 """
@@ -182,7 +183,6 @@ def _refuse_unported(args) -> None:
                          "state_dict_dir_net too, main.py:291)")
     refused = [why for why, on in (
         ("--OOD_dataset: the OOD losses, ROADMAP item 11", args.OOD_dataset is not None),
-        ("--byol y: BYOL, ROADMAP item 8", (args.byol or "n").split("|")[0] == "y"),
         ("--align y / --uni y (the defaults; the flagship passes n): the align and "
          "uniformity losses, ROADMAP item 11", "y" in (args.align[:1], args.uni[:1])),
         ("--OOD_ent y: ROADMAP item 11", args.OOD_ent[:1] == "y"),

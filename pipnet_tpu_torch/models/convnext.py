@@ -44,8 +44,9 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
 
 class ChannelLayerNorm(nn.Module):
     """flax ``nn.LayerNorm(epsilon=1e-6, dtype=dtype)`` over the last axis:
-    statistics in f32 (variance as E[x^2] - E[x]^2, clipped at 0), scale and
-    bias applied in f32, result cast to ``dtype``."""
+    statistics in f32 (float64 inputs keep float64; variance as E[x^2] -
+    E[x]^2, clipped at 0), scale and bias applied in that type, result cast
+    to ``dtype``."""
 
     def __init__(self, dim: int, eps: float = 1e-6):
         super().__init__()
@@ -54,7 +55,7 @@ class ChannelLayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim))
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        x32 = x.float()
+        x32 = x.to(torch.promote_types(x.dtype, torch.float32))
         mu = x32.mean(-1, keepdim=True)
         var = torch.clamp((x32 * x32).mean(-1, keepdim=True) - mu * mu, min=0.0)
         y = (x32 - mu) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias

@@ -2,15 +2,16 @@
 
 Counterpart of the JAX package's ``models/pipnet.py`` (itself the reference
 ``PIPNet``, ``pipnet/pipnet.py:54-185``): the ConvNeXt backbones (each
-block's branch through K4 under ``use_pallas_backbone``), the conv add-on
-head over K1 (or K2 for a training step that fuses align_pf), the
-vectorized joint distribution over leaves, and the overspecificity mask's
-presence sample and degenerate-node verdict.
+block's branch through K4 under ``use_pallas_backbone``), the ResNets with
+their BatchNorm statistics and DINOv2 ViT-S/14, the conv add-on head over K1
+(or K2 for a training step that fuses align_pf), BYOL's projector and
+predictor, the vectorized joint distribution over leaves, and the
+overspecificity mask's presence sample and degenerate-node verdict.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple, Union
+from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -21,13 +22,24 @@ from ..device import resolve_device
 from ..ops.segment import gumbel_noise, segment_hard_gumbel, tree_tensor
 from ..tree.compile import TreeArrays, compile_tree
 from ..tree.node import Node
+from .byol import TARGET_PREFIXES, PatchMLP
 from .convnext import convnext_tiny_7, convnext_tiny_13, convnext_tiny_26
 from .heads import PrototypeHead
+from .resnet import (resnet18_features, resnet34_features, resnet50_features,
+                     resnet50_features_inat, resnet101_features, resnet152_features)
+from .vit import dinov2_vits14
 
 BACKBONES = {
     "convnext_tiny_26": (convnext_tiny_26, 768),
     "convnext_tiny_13": (convnext_tiny_13, 768),
     "convnext_tiny_7": (convnext_tiny_7, 768),
+    "resnet18": (resnet18_features, 512),
+    "resnet34": (resnet34_features, 512),
+    "resnet50": (resnet50_features, 2048),
+    "resnet50_inat": (resnet50_features_inat, 2048),
+    "resnet101": (resnet101_features, 2048),
+    "resnet152": (resnet152_features, 2048),
+    "dinov2_vits14": (dinov2_vits14, 384),
 }
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -35,10 +47,8 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 def _unported(cfg: ModelConfig) -> list:
     return [name for name, on in (
-        (f"backbone={cfg.backbone!r}", cfg.backbone not in BACKBONES),
         ("gaussian_stages", bool(cfg.gaussian_stages)),
-        ("stage4_reducer", bool(cfg.stage4_reducer)),
-        ("use_byol", cfg.use_byol)) if on]
+        ("stage4_reducer", bool(cfg.stage4_reducer))) if on]
 
 
 class PIPNet(nn.Module):
@@ -46,17 +56,28 @@ class PIPNet(nn.Module):
 
     def __init__(self, tree: TreeArrays, cfg: ModelConfig):
         super().__init__()
+        if cfg.backbone not in BACKBONES:
+            raise ValueError(f"unknown backbone {cfg.backbone}; options: {list(BACKBONES)}")
         missing = _unported(cfg)
         if missing:
             raise NotImplementedError(
-                f"model options {missing} are not ported yet; the port runs "
-                f"{sorted(BACKBONES)} with the conv prototype head")
+                f"model options {missing} are not ported yet (ROADMAP item 11); the "
+                f"port runs {sorted(BACKBONES)} with the conv prototype head")
         self.tree, self.cfg = tree, cfg
         self.dtype = _DTYPES[cfg.compute_dtype]
         ctor, channels = BACKBONES[cfg.backbone]
-        self.backbone = ctor(dtype=self.dtype, fast_gelu=cfg.fast_gelu,
-                             fused=cfg.use_pallas_backbone)
+        if cfg.backbone.startswith("convnext"):
+            self.backbone = ctor(dtype=self.dtype, fast_gelu=cfg.fast_gelu,
+                                 fused=cfg.use_pallas_backbone)
+        elif cfg.use_pallas_backbone:
+            raise ValueError(f"use_pallas_backbone fuses ConvNeXt blocks (K4); backbone "
+                             f"{cfg.backbone!r} has none")
+        else:
+            self.backbone = ctor(dtype=self.dtype)
         self.head = PrototypeHead(tree, cfg.head, channels)
+        if cfg.use_byol:
+            self.projector = PatchMLP(channels)
+            self.predictor = PatchMLP(channels)
 
     def features(self, xs: torch.Tensor, *, train: bool = False,
                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -66,20 +87,42 @@ class PIPNet(nn.Module):
                 generator: Optional[torch.Generator] = None,
                 inference: bool = False, apply_overspecificity_mask: bool = False,
                 keep: Optional[torch.Tensor] = None,
-                fuse_align_pf: bool = False) -> Dict[str, torch.Tensor]:
+                fuse_align_pf: bool = False,
+                with_byol: bool = False) -> Dict[str, torch.Tensor]:
         """xs (B, S, S, 3) -> {'features', 'proto_features', 'pooled',
         'logits'} with layouts (B,H,W,D), (B,H,W,P), (B,P), (B,C).  ``train``
-        turns stochastic depth on, drawing from ``generator``.
-        ``apply_overspecificity_mask`` masks pooled with the presence sample
-        ``keep`` (P,) (``presence_keep``).  ``fuse_align_pf`` (two stacked
-        views): 'align_pf_logsum' (B/2, N) replaces 'proto_features' (K2;
-        see ``PrototypeHead``)."""
+        turns stochastic depth on, drawing from ``generator``, and
+        normalises BatchNorm layers with the batch's statistics, updating
+        their running ones.  ``apply_overspecificity_mask`` masks pooled
+        with the presence sample ``keep`` (P,) (``presence_keep``).
+        ``fuse_align_pf`` (two stacked views): 'align_pf_logsum' (B/2, N)
+        replaces 'proto_features' (K2; see ``PrototypeHead``).
+        ``with_byol`` adds 'byol_online' = predictor(projector(features))
+        (ref pipnet_byol/pipnet_byol.py:105-110)."""
         f = self.features(xs, train=train, generator=generator)
         out = self.head(f, inference=inference,
                         apply_overspecificity_mask=apply_overspecificity_mask,
                         keep=keep, fuse_align_pf=fuse_align_pf)
         out["features"] = f
+        if with_byol:
+            if not self.cfg.use_byol:
+                raise ValueError("model built without use_byol")
+            out["byol_online"] = self.predictor(self.projector(f, train=train), train=train)
         return out
+
+    @torch.no_grad()
+    def byol_target_projection(self, xs: torch.Tensor,
+                               target: Mapping[str, torch.Tensor]) -> torch.Tensor:
+        """The target branch, projector(backbone(xs)) with the EMA target's
+        parameters ``target`` (``backbone.*``, ``projector.*``), in
+        inference mode: BatchNorm layers normalise with the online model's
+        running statistics as they stand (ref pipnet_byol/pipnet_byol.py:110;
+        the JAX step hands the target ``state.batch_stats``)."""
+        from torch.func import functional_call
+        bb, proj = ({n[len(pre):]: t for n, t in target.items() if n.startswith(pre)}
+                    for pre in TARGET_PREFIXES)
+        f = functional_call(self.backbone, bb, (xs,), {"train": False})
+        return functional_call(self.projector, proj, (f,), {"train": False})
 
 
 # ----------------------------------------------------------------------------
@@ -305,10 +348,14 @@ def build_pipnet(root: Node, cfg: ModelConfig, *, weighted: bool = False,
 
 
 def latent_shape(cfg: ModelConfig) -> Tuple[int, int]:
-    """Static latent (H, W) for an image_size (ConvNeXt backbones)."""
+    """Static latent (H, W) for an image_size."""
     s = cfg.image_size
+    if cfg.backbone.startswith("resnet"):
+        return (s // 8, s // 8)     # stride-1 layer3/4
+    if cfg.backbone.startswith("dinov2"):
+        return (s // 14, s // 14)   # ViT-S/14 patch grid (ref pipnet.py:1137)
     if not cfg.backbone.startswith("convnext"):
-        raise NotImplementedError(f"backbone {cfg.backbone!r} is not ported yet")
+        raise ValueError(cfg.backbone)
     s4 = s // 4
     if cfg.backbone.endswith("_26"):
         h = (s4 - 2) // 2 + 1   # down1 stride 2

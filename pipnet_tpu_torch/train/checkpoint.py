@@ -5,12 +5,12 @@ package's ``train/checkpoint.py``, which replaces the reference's
 
 A checkpoint ``<name>`` under ``<log_dir>/checkpoints`` is two files:
 
-* ``<name>.pt``: the model's bare ``state_dict``, the file
-  ``run_io.load_run`` reads;
+* ``<name>.pt``: the model's bare ``state_dict`` (BatchNorm running
+  statistics included), the file ``run_io.load_run`` reads;
 * ``<name>.state.pt``: the rest of the train state beside it: each
   parameter's Adam moments and step count, the ``torch.Generator`` state,
-  the run metadata (``epoch``, ``phase``) and the SHA-256 of the weights
-  file it belongs to.
+  BYOL's EMA target (empty without BYOL), the run metadata (``epoch``,
+  ``phase``) and the SHA-256 of the weights file it belongs to.
 
 Only a save that a crash cut leaves ``.new`` files behind; without them
 the final pair is whole by construction (``save_checkpoint``), so finding
@@ -149,6 +149,7 @@ def save_checkpoint(checkpoint_dir: str, name: str, model: torch.nn.Module,
         "opt_nu": {n: t.detach().cpu() for n, t in opt.nu.items()},
         "opt_count": dict(opt.count),
         "generator": state.generator.get_state(),
+        "byol": {n: t.detach().cpu() for n, t in state.byol.items()},
     }
     _write(weights + ".new", blob)
     _write(state_path + ".new", _serialize(record))
@@ -219,10 +220,12 @@ def _copy_into(params: Dict[str, torch.Tensor], tensors: Dict[str, torch.Tensor]
 
 def restore_checkpoint(path: str, state: TrainState) -> Tuple[TrainState, Dict[str, Any]]:
     """Restore checkpoint ``path`` into ``state``: the weights into its
-    parameters (the model's own tensors, in place), the Adam moments and
-    counts and the generator state; returns (state, meta)."""
+    parameters and buffers (the model's own tensors, in place), the Adam
+    moments and counts, the generator state and BYOL's EMA target; returns
+    (state, meta)."""
     weights, record = _load_weights(path)
-    _copy_into(state.params, weights, "weights")
+    _copy_into({**state.params, **state.buffers}, weights, "weights")
+    _copy_into(state.byol, record.get("byol", {}), "BYOL target")
     mu = {n: torch.empty_like(p) for n, p in state.params.items()}
     nu = {n: torch.empty_like(p) for n, p in state.params.items()}
     _copy_into(mu, record["opt_mu"], "Adam first moments")
@@ -238,8 +241,10 @@ def restore_checkpoint(path: str, state: TrainState) -> Tuple[TrainState, Dict[s
 def load_backbone_only(path: str, state: TrainState) -> TrainState:
     """Partial load of the backbone and the add-on, as
     ``--state_dict_dir_backbone`` (main.py:319-348): everything else
-    (classifier, presence) keeps its fresh init, the Adam state is
-    untouched, and the multiplier is pinned to 2.0."""
+    (classifier, presence) keeps its fresh init, the Adam state and BYOL's
+    target are untouched, and the multiplier is pinned to 2.0.  The
+    checkpoint's BatchNorm statistics replace the model's, as the JAX
+    package takes its ``batch_stats``."""
     weights, _ = _load_weights(path)
     keep = {n: t for n, t in weights.items()
             if n.startswith("backbone.") or n in ("head.add_on_kernel", "head.add_on_bias")}
@@ -247,5 +252,8 @@ def load_backbone_only(path: str, state: TrainState) -> TrainState:
         for n, t in keep.items():
             if n in state.params:
                 state.params[n].copy_(t)
+        for n, t in weights.items():
+            if n in state.buffers:
+                state.buffers[n].copy_(t)
         state.params["head.multiplier"].fill_(2.0)
     return state

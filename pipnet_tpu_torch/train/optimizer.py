@@ -15,6 +15,7 @@ position, and all scalars are Python floats.
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Callable, Dict, Mapping, Optional, Tuple
@@ -23,6 +24,8 @@ import torch
 
 from ..config import OptimConfig, TrainConfig
 from ..models.convnext import convnext_param_groups
+from ..models.resnet import resnet_param_groups
+from ..models.vit import vit_param_groups
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -38,17 +41,26 @@ _HEAD_GROUPS = {"add_on_kernel": "add_on", "cls_weight": "classifier",
 
 def label_params(names, backbone_arch: str) -> Dict[str, str]:
     """Group label of each parameter name of the port's ``PIPNet``
-    (``head.<leaf>``, ``backbone.<module>.<...>``), the reference's
-    partition (``util/args.py:464-556``)."""
-    if not backbone_arch.startswith("convnext"):
-        raise NotImplementedError(f"backbone {backbone_arch!r} is not ported yet")
+    (``head.<leaf>``, ``backbone.<module>.<...>``, BYOL's ``projector.*``
+    and ``predictor.*``), the reference's partition
+    (``util/args.py:464-556``).  BYOL's heads train with the net optimizer
+    at the backbone tail's rate, as in the JAX package (the reference's
+    BYOL optimizer is NotImplemented, util/args.py:453-454)."""
+    if backbone_arch.startswith("convnext"):
+        groups = convnext_param_groups
+    elif backbone_arch.startswith("dinov2"):
+        groups = vit_param_groups
+    else:
+        groups = functools.partial(resnet_param_groups, arch=backbone_arch)
     labels = {}
     for name in names:
         top, module = name.split(".")[:2]
         if top == "head":
             labels[name] = _HEAD_GROUPS.get(module, "frozen")
+        elif top in ("projector", "predictor"):
+            labels[name] = "train"
         elif top == "backbone":
-            labels[name] = convnext_param_groups([module])[module]
+            labels[name] = groups([module])[module]
         else:
             labels[name] = "frozen"
     return labels

@@ -9,8 +9,16 @@ state are updated in place.
 What the JAX step expresses with ``stop_gradient`` on the groups that do
 not train in a phase becomes ``requires_grad_(False)`` on those parameters,
 so autograd builds no backward for them (with the stem and stages 0-1
-frozen, the backward stops at ``down2``).  Metrics stay on the card: they
-add into the caller's ``acc`` dict without a host sync.
+frozen, the backward stops at ``down2``).  BatchNorm layers normalise with
+the batch's statistics in every train forward and update their running
+ones, in frozen groups too, as the JAX step's ``mutable=["batch_stats"]``
+does.  Metrics stay on the card: they add into the caller's ``acc`` dict
+without a host sync.
+
+With BYOL (``use_byol`` and the ``byol`` loss), the EMA target's
+projection of the batch is computed first, in inference mode with the
+online model's running statistics as they stand, then the online forward;
+the target moves towards the updated parameters after the Adam step.
 
 A uint8 batch (one shared view a sample, ``xs2`` None) is augmented on the
 device first, as the JAX step does: its spatial size picks the route
@@ -30,6 +38,7 @@ import torch
 from ..config import RunConfig
 from ..losses import LossWeights, compute_total_loss, make_tree_consts
 from ..losses.catalog import label_rows
+from ..models.byol import byol_tau_schedule, ema_update, init_byol_state
 from ..models.pipnet import PIPNet, joint_leaf_log_distribution, masked_decode_degenerates
 from ..ops.device_augment import ViewDraws, op_counts, sample_view, two_view_transform2
 from ..ops.device_geometric import GeometricDraws, sample_transform1, transform1_batch
@@ -43,12 +52,16 @@ Metrics = Dict[str, torch.Tensor]
 
 @dataclass
 class TrainState:
-    """The model's parameters (the module's own tensors, updated in place),
-    the Adam state, and the generator that the device augmentation,
-    stochastic depth and the presence Gumbel noise draw from."""
+    """The model's parameters and buffers (the module's own tensors,
+    updated in place: the buffers are BatchNorm's running statistics), the
+    Adam state, the generator that the device augmentation, stochastic
+    depth and the presence Gumbel noise draw from, and BYOL's EMA target
+    (``backbone.*`` and ``projector.*`` tensors; empty without BYOL)."""
     params: Dict[str, torch.nn.Parameter]
     opt: AdamState
     generator: torch.Generator = field(repr=False)
+    buffers: Dict[str, torch.Tensor] = field(default_factory=dict, repr=False)
+    byol: Dict[str, torch.Tensor] = field(default_factory=dict, repr=False)
 
 
 @dataclass(frozen=True)
@@ -148,12 +161,15 @@ def augment_views(x_u8: torch.Tensor, image_size: int, draws: AugmentDraws,
 
 def init_train_state(model: PIPNet, seed: int = 0) -> TrainState:
     """Adam state for the model's parameters (as they stand: load them
-    first) and a generator on the model's device seeded with ``seed``."""
+    first), a generator on the model's device seeded with ``seed``, and
+    under BYOL the EMA target as a copy of the backbone and projector."""
     params = dict(model.named_parameters())
     device = next(iter(params.values())).device
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    return TrainState(params=params, opt=adam_init(params), generator=gen)
+    buffers = {n: t for n, t in model.state_dict(keep_vars=True).items() if n not in params}
+    return TrainState(params=params, opt=adam_init(params), generator=gen, buffers=buffers,
+                      byol=init_byol_state(model) if model.cfg.use_byol else {})
 
 
 def reinit_optimizer(state: TrainState) -> TrainState:
@@ -180,8 +196,6 @@ def make_train_step(model: PIPNet, tree: TreeArrays, cfg: RunConfig,
     lcfg, ocfg, ph = cfg.train.loss, cfg.train.optim, statics.phase
     if statics.has_ood:
         raise NotImplementedError("the OOD losses are not ported yet")
-    if lcfg.byol:
-        raise NotImplementedError("BYOL is not ported yet")
     if fuse_align_pf:
         why = [reason for reason, bad in (
             ("align_pf is off", not lcfg.align_pf),
@@ -200,6 +214,7 @@ def make_train_step(model: PIPNet, tree: TreeArrays, cfg: RunConfig,
     eff_lcfg = dataclasses.replace(lcfg, mask_prune_overspecific=statics.mask_prune_active,
                                    mask_prune_start_epoch=0)
     weights_cl = 0.0 if ph.pretrain else lcfg.cl_weight
+    byol_active = lcfg.byol and model.cfg.use_byol and not ph.finetune
 
     def step(state: TrainState, xs1: torch.Tensor, xs2: torch.Tensor, ys: torch.Tensor,
              scalars: Scalars, acc: Optional[Metrics] = None,
@@ -218,7 +233,9 @@ def make_train_step(model: PIPNet, tree: TreeArrays, cfg: RunConfig,
             p.requires_grad_(trainable[n])
             p.grad = None
 
-        out = model(xs, train=True, generator=state.generator, fuse_align_pf=fuse_align_pf)
+        byol_target = model.byol_target_projection(xs, state.byol) if byol_active else None
+        out = model(xs, train=True, generator=state.generator, fuse_align_pf=fuse_align_pf,
+                    with_byol=byol_active)
         weights = LossWeights(align_pf=scalars.align_pf_weight,
                               byol=0.5 if ph.pretrain else 2.0,
                               tanh=scalars.tanh_weight, cl=weights_cl,
@@ -228,7 +245,8 @@ def make_train_step(model: PIPNet, tree: TreeArrays, cfg: RunConfig,
             add_on_kernel=head.add_on_kernel, proto_presence=head.proto_presence,
             multiplier=head.multiplier[0].detach(), cfg=eff_lcfg, weights=weights,
             tree=tree, pretrain=ph.pretrain, finetune=ph.finetune,
-            generator=state.generator, presence_noise=presence_noise)
+            generator=state.generator, presence_noise=presence_noise,
+            byol_online=out.get("byol_online"), byol_target=byol_target)
         loss.backward()       # .grad stays set (unclipped) until the next step
         grads = {n: p.grad for n, p in state.params.items()}
 
@@ -251,6 +269,10 @@ def make_train_step(model: PIPNet, tree: TreeArrays, cfg: RunConfig,
         masks, lrs = masks_and_lrs(labels, ph, ocfg, net_lr, cls_lr, backbone_lr)
         adam_update(state.params, grads, state.opt, lrs, masks,
                     weight_decay=ocfg.weight_decay)
+        if byol_active:
+            ema_update(state.byol, state.params,
+                       byol_tau_schedule(scalars.net_t, scalars.net_T, lcfg.byol_tau_base,
+                                         lcfg.byol_tau_max))
 
         with torch.no_grad():
             if statics.weight_reactivation and not ph.pretrain:

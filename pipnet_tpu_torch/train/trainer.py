@@ -31,7 +31,7 @@ import torch
 from ..config import RunConfig
 from ..data.loader import Loader, Loaders
 from ..device import host_to_device
-from ..models.convert import params_from_jax, random_jax_params
+from ..models.convert import random_jax_variables, state_dict_from_jax
 from ..losses import make_tree_consts
 from ..losses.catalog import label_rows
 from ..models.pipnet import PIPNet, presence_keep
@@ -88,13 +88,15 @@ class Trainer:
 
     # -- setup ---------------------------------------------------------------
     def init_state(self) -> TrainState:
-        """Fresh seeded parameters (``random_jax_params`` with the run's seed:
-        the JAX initializers' scales, from numpy) loaded into the model, a
-        zero Adam state and a generator seeded with the run's seed."""
-        bb, seed = self.model.backbone, self.cfg.train.seed
-        params = random_jax_params(self.cfg.model, self.tree, seed=seed,
-                                   depths=bb.depths, dims=bb.dims)
-        self.model.load_state_dict(params_from_jax(params))
+        """Fresh seeded parameters and BatchNorm statistics for the
+        configured backbone and BYOL heads (``random_jax_variables`` with the
+        run's seed: the JAX initializers' scales, from numpy) loaded into the
+        model, a zero Adam state, a generator seeded with the run's seed and
+        under BYOL the EMA target as a copy of the backbone and projector."""
+        seed = self.cfg.train.seed
+        variables = random_jax_variables(self.cfg.model, self.tree, seed=seed,
+                                         backbone=self.model.backbone)
+        self.model.load_state_dict(state_dict_from_jax(variables))
         self.state = init_train_state(self.model, seed=seed)
         return self.state
 

@@ -189,7 +189,6 @@ def test_short_run_serves_the_trainers_logits_and_resumes(tmp_path, port_small_b
 
 REFUSED = [
     (["--OOD_dataset", "synthetic:4:4:s9"], NotImplementedError, "ROADMAP item 11"),
-    (["--byol", "y"], NotImplementedError, "ROADMAP item 8"),
     (["--align", "y"], NotImplementedError, "ROADMAP item 11"),
     (["--uni", "y"], NotImplementedError, "ROADMAP item 11"),
     (["--OOD_ent", "y"], NotImplementedError, "ROADMAP item 11"),
@@ -279,3 +278,4 @@ def test_build_root(tmp_path, monkeypatch, layout):
         monkeypatch.delenv("XDG_CACHE_HOME")
         monkeypatch.setenv("HOME", str(tmp_path / "home"))
         assert build_root(pkg) == tmp_path / "home" / ".cache" / "pipnet_tpu_torch"
+

@@ -665,3 +665,99 @@ def test_device_augmentation_on_card_matches_cpu(card, cars):
                          augment_views(x_cpu, 64, cpu_draws, cars)):
         assert got.shape == (len(rows), 64, 64, 3)
         torch.testing.assert_close(got.cpu(), want, atol=0, rtol=0)
+
+
+# the head's input on the other backbones (at 224^2: ResNet-50/101/152
+# 28x28x2048, DINOv2 ViT-S/14 16x16x384), two images on the flagship tree
+BACKBONE_HEAD_SHAPES = [(2, 28, 28, 2048), (2, 16, 16, 384)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", BACKBONE_HEAD_SHAPES, ids=["resnet50", "dinov2"])
+def test_head_kernels_at_backbone_shapes(card, dtype, shape):
+    """K1, K1b (with and without g_pf) and K2 at the other backbones' head
+    shapes (32 and 6 K-tiles of the TMA ring, 784 and 256 patch rows in
+    K1b's slice) against their plain versions, with the bars above; f32 pf
+    within 1e-5 · D / 768 (the bar of the flagship's 768 grown with the
+    number of terms each logit sums in an order of its own: at D = 2048 the
+    card gave 1.95e-5)."""
+    from pipnet_tpu_torch.losses.catalog import ALIGN_EPS
+    from pipnet_tpu_torch.ops.fused_head import (fused_head, fused_head_reference,
+                                                 head_backward, head_backward_reference)
+    from pipnet_tpu_torch.ops.fused_head_nopf import (fused_head_nopf,
+                                                      fused_head_nopf_reference)
+    tree = _tree("flagship")
+    dt = getattr(torch, dtype)
+    f, k = _inputs(tree, *shape, seed=11, dtype=dt, scale=0.3 * (768 / shape[-1]) ** 0.5)
+    D = shape[-1]
+    with torch.inference_mode():
+        pf, pooled = fused_head(f, k, tree)
+        pf_r, pooled_r = fused_head_reference(f, k, tree)
+        if dtype == "float32":
+            bar = 1e-5 * max(D / 768, 1.0)
+            torch.testing.assert_close(pf, pf_r, atol=bar, rtol=0)
+            torch.testing.assert_close(pooled, pooled_r, atol=bar, rtol=0)
+        else:
+            assert_pf_close(pf, pf_r, dtype)
+            torch.testing.assert_close(pooled, pooled_r, atol=1e-5, rtol=0)
+        r = np.random.default_rng(12)
+        g_pf = torch.from_numpy(r.standard_normal(pf.shape).astype(np.float32)).to("cuda", dt)
+        g_pooled = torch.from_numpy(r.standard_normal(pooled.shape).astype(np.float32)).cuda()
+        for g in (g_pf, None):
+            d = head_backward(pf_r, g, g_pooled, tree).float()
+            w = head_backward_reference(pf_r, g, g_pooled, tree).float()
+            bar = (1e-5 if dtype == "float32" else 2.0 ** -7) * w.abs() + 1e-6 * w.abs().max()
+            assert ((d - w).abs() <= bar).all(), (d - w).abs().max()
+        pooled2, logsum = fused_head_nopf(f, k, tree, eps=ALIGN_EPS)
+        pooled2_r, logsum_r = fused_head_nopf_reference(f, k, tree, eps=ALIGN_EPS)
+        torch.testing.assert_close(pooled2, pooled2_r, atol=1e-5, rtol=0)
+        assert (logsum - logsum_r).abs().max() <= 1e-5 * logsum_r.abs().max() + 1e-4
+
+
+@pytest.mark.cuda
+def test_resnet18_step_on_card_matches_cpu(card):
+    """One joint-phase train step of the flagship run config on a full
+    ResNet-18 at 32^2, f32 (TF32 off), four images in two views, on the
+    card (K1, K1b) and on the CPU (their plain versions) from the same
+    weights, statistics, batch and presence noise: the loss within 1e-5,
+    every BatchNorm's running statistics within 1e-4 of their largest
+    value, and each parameter's gradient (Adam's first moment) within 1e-2
+    in norm (cuDNN and oneDNN sum in other orders, and the difference grows
+    through the backward of eight blocks and their BatchNorms: layer1's
+    gradients differed by 1.0e-3 in norm on the card; a ReLU input within
+    rounding of zero may also fall on either side)."""
+    import dataclasses
+    import os
+    from pipnet_tpu_torch.models import build_pipnet, random_jax_variables, state_dict_from_jax
+    from pipnet_tpu_torch.run_io import load_run_config
+    from pipnet_tpu_torch.train import (Scalars, StepStatics, init_train_state,
+                                        make_train_step, phase_for_epoch)
+    from torch_port_util import FLAGSHIP_META
+    cfg = load_run_config(os.path.dirname(FLAGSHIP_META))
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, backbone="resnet18", image_size=32, compute_dtype="float32"))
+    r = np.random.default_rng(13)
+    xs = torch.from_numpy(r.standard_normal((2, 2, 32, 32, 3)).astype(np.float32))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        _, root, classes = flagship_roots()
+        model, tree = build_pipnet(root, cfg.model, weighted=cfg.train.loss.weighted_ce,
+                                   class_names=classes, device=dev)
+        model.load_state_dict(state_dict_from_jax(random_jax_variables(cfg.model, tree, seed=3)))
+        ys = torch.from_numpy(np.random.default_rng(14).integers(0, tree.num_classes, 2))
+        statics = StepStatics(phase=phase_for_epoch(20, cfg.train, pretrain=False),
+                              mask_prune_active=True, eta_min_net=5e-6)
+        step = make_train_step(model, tree, cfg, statics)
+        state, m = step(init_train_state(model, seed=0), xs[0].to(dev), xs[1].to(dev),
+                        ys.to(dev), Scalars(3.0, 100.0, 0.5, 5.0, 2.0),
+                        presence_noise=torch.zeros((tree.num_protos_padded, 2), device=dev))
+        out[dev] = (float(m["loss"]), {k: v.cpu() for k, v in model.state_dict().items()},
+                    {k: v.cpu() for k, v in state.opt.mu.items()})
+    (loss_c, sd_c, mu_c), (loss_g, sd_g, mu_g) = out["cpu"], out["cuda"]
+    assert abs(loss_g - loss_c) <= 1e-5 * abs(loss_c)
+    for k, v in sd_c.items():
+        if "running_" in k:
+            assert (sd_g[k] - v).abs().max() <= 1e-4 * max(v.abs().max().item(), 1.0), k
+    for k, v in mu_c.items():
+        assert (mu_g[k] - v).norm() <= 1e-2 * v.norm() + 1e-12, k

@@ -211,7 +211,7 @@ def test_unported_losses_raise(case):
     _, tcfg = flagship_configs()
     v = {k: torch.tensor(a) for k, a in x.items()}
     out = {"pooled": v["pooled"], "logits": v["logits"], "proto_features": v["pf"]}
-    for change in (dict(align=True), dict(byol=True), dict(ood_loss=True)):
+    for change in (dict(align=True), dict(ood_loss=True)):
         cfg = dataclasses.replace(tcfg.train.loss, **change)
         with pytest.raises(NotImplementedError):
             port_losses.compute_total_loss(

@@ -141,7 +141,7 @@ def test_unported_options_raise(tiny_newick):
     from pipnet_tpu_torch.models import build_pipnet
     _, ct = _cfgs()
     for cfg in (dataclasses.replace(ct, head=dataclasses.replace(ct.head, focal=True)),
-                dataclasses.replace(ct, backbone="resnet50"),
+                dataclasses.replace(ct, stage4_reducer=((64, 32, True),)),
                 dataclasses.replace(ct, gaussian_stages=(3,))):
         _, rt = roots_from_newick(tiny_newick)
         with pytest.raises(NotImplementedError, match="not ported"):

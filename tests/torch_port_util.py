@@ -139,6 +139,32 @@ def small_backbones():
         yield
 
 
+# the small backbone zoo of the backbone and BYOL tests: ResNet-18 at full
+# width, resnet50's name on a stack of one Bottleneck per layer (so its
+# frozen-stem labels apply) and a narrow DINOv2 whose 5x5 pretrain grid
+# differs from a 42^2 image's 3x3
+ZOO_BOTTLENECK_LAYERS = (1, 1, 1, 1)
+ZOO_VIT = dict(dim=32, depth=2, num_heads=4, pretrain_grid=5)
+
+
+@contextlib.contextmanager
+def small_zoo():
+    """Both packages' ``BACKBONES`` tables give ``resnet50`` the Bottleneck
+    stack ``ZOO_BOTTLENECK_LAYERS`` and ``dinov2_vits14`` the ViT ``ZOO_VIT``
+    for the duration of the block (``resnet18`` stays as it is)."""
+    import pipnet_tpu.models.pipnet as jp
+    import pipnet_tpu_torch.models.pipnet as tp
+    from pipnet_tpu.models import resnet as jr, vit as jv
+    from pipnet_tpu_torch.models import resnet as tr, vit as tv
+    with pytest.MonkeyPatch.context() as mp:
+        for table, r, v in ((jp.BACKBONES, jr, jv), (tp.BACKBONES, tr, tv)):
+            mp.setitem(table, "resnet50", (functools.partial(
+                r.ResNetFeatures, block=r.Bottleneck, layers=ZOO_BOTTLENECK_LAYERS), 2048))
+            mp.setitem(table, "dinov2_vits14", (functools.partial(
+                v.DinoV2ViT, **ZOO_VIT), ZOO_VIT["dim"]))
+        yield
+
+
 def flagship_configs(image_size=48, batch_size=4, **loss_overrides):
     """(JAX-package RunConfig, port RunConfig) of the flagship run
     (``artifacts/lou_190_s2``) in f32 at a small image size and batch, with
