@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``pipnet_tpu_torch``) on one CUDA card.
 
-    python3 chip_smoke.py [--baseline CHECKOUT] [--only blocks|data|trainer|eval|interp|backbones]
+    python3 chip_smoke.py [--baseline CHECKOUT]
+                          [--only blocks|data|trainer|eval|interp|backbones|options]
 
 Phases, each of which fails the run loudly:
 
@@ -135,15 +136,35 @@ Phases, each of which fails the run loudly:
    ConvNeXt (pretraining and joint phases: K1 1, K1b 1 a step, the EMA
    target against tau * t + (1 - tau) * theta); the ResNet-50 run exported
    by the port's CLI and re-imported by ``convert_reference_pipnet``, its
-   logits equal bit for bit.
+   logits equal bit for bit;
+15. the options that once raised (the kernel phase first holds K1, K1b
+   and K2 on the flagship tree at the stage-4 reducer's width, 26x26x128,
+   as at the other backbones' widths): path A with the JAX CLI's default
+   ``align`` and ``uni`` losses on (pretraining at epoch 1, joint at 20)
+   beside path A without them, and the two losses' forward and backward
+   alone on the step's 43,264 patch rows a view; a step with an OOD chunk
+   of 64 images of ``synthetic:20:24:s9`` (the OOD set of
+   ``scripts/runs/eval_full_phase_190.sh``) beside the 64 labelled ones;
+   each head variant (unit, project and l2 add-ons, add-on bias, no
+   softmax, Gumbel, spatial, cosine-multiplied, focal) served at B = 8 off
+   K1 (0 launches), its f32 head on the card against the CPU's on the same
+   features, and the unit head trained; the Gaussian multiplier (stages 3
+   and 4) with the reducer served as in 5 and trained on path A, and with
+   the fused-backbone configuration (which the multiplier leaves: no K4);
+   one f32 joint step with every option and an OOD row on the card
+   against the CPU's; ``run_pipnet`` with the CLI's defaults for
+   ``--align``/``--uni`` and ``--OOD_dataset`` (one pretraining and two
+   joint epochs on ``synthetic:190:4``); every path's launches checked
+   exactly.
 
 The last two lines of standard output are the ``{"kernels": [...]}``
 record and ``{"ok": true, "device": {...}}``.  ``--only blocks`` runs
 phases 1, 2 and the K3 and K4 checks of phase 3, ``--only data`` phases
 1, 2 and 9, ``--only trainer`` phases 1, 2 and 11, ``--only eval`` phases
 1, 2 and 12, ``--only interp`` phases 1, 2 and 13, ``--only backbones``
-phases 1, 2, the kernel checks at the other backbones' shapes and 14, then
-each stops without
+phases 1, 2, the kernel checks at the other backbones' shapes and 14,
+``--only options`` phases 1, 2, the kernel checks at the reducer's width
+and 15, then each stops without
 either line: neither can pass for a full run.  Without a CUDA card, or without the rest of the repository
 beside it, it exits non-zero before printing either.
 """
@@ -2949,6 +2970,447 @@ def backbones_phase(card: str) -> dict:
     return paths
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the options that once raised (ROADMAP item 11)
+# ---------------------------------------------------------------------------
+
+# --stage4_reducer_net 768,256,gelu|256,128 (the reference's DSL; the head
+# then reads D = 128) and --basic_cnext_gaussian_multiplier 3,4|1.0|50
+REDUCER_LAYERS = ((768, 256, True), (256, 128, False))
+GAUSSIAN = {"gaussian_stages": (3, 4), "gaussian_sigma": 1.0, "gaussian_factor": 50.0}
+REDUCER_D = REDUCER_LAYERS[-1][1]
+# the OOD set of scripts/runs/eval_full_phase_190.sh
+OOD_FIXTURE = "synthetic:20:24:s9"
+# the head variants (HeadConfig changes), each served at B = 8 off K1
+VARIANT_HEADS = {
+    "unit": {"add_on_type": "unit"}, "unit_bias": {"add_on_type": "unit", "add_on_bias": True},
+    "project": {"add_on_type": "project"}, "l2": {"add_on_type": "l2"},
+    "conv_bias": {"add_on_bias": True}, "no_softmax": {"softmax_tau": None},
+    "gumbel": {"softmax_tau": None, "gumbel_softmax": True},
+    "spatial": {"softmax_over_channel": True}, "cosine": {"multiply_cs_softmax": True},
+    "focal": {"focal": True}}
+TRAINED_VARIANT = "unit"
+# timed steps of each phase-15 path (each after 2 warm-up steps)
+OPTION_STEPS = 5
+# a variant head's f32 logits on the card against the CPU's on the same
+# features (TF32 off): the two differ by summation order over D = 768, so
+# within 1e-5 of the largest logit, and pooled within 1e-5
+VARIANT_TOL = 1e-5
+# the f32 step of phase 15's cross-check, card against CPU: its losses within
+# 1e-4 relative (the bar of phase 14's BatchNorm check; summation order over
+# 18 blocks, the reducer and 2,704 patch rows a view)
+OPTION_LOSS_REL = 1e-4
+
+
+def with_loss(cfg, **loss):
+    return dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, loss=dataclasses.replace(cfg.train.loss, **loss)))
+
+
+def option_step(cfg, model, tree, epoch: int, pretrain: bool, has_ood: bool = False):
+    """``make_train_step`` at ``epoch`` (1 with ``pretrain``: the
+    pretraining phase; 20: the joint phase, mask-prune on) with the
+    Trainer's scalars for it."""
+    from pipnet_tpu_torch.train import (Scalars, StepStatics, make_train_step,
+                                        phase_for_epoch)
+    statics = StepStatics(phase=phase_for_epoch(epoch, cfg.train, pretrain=pretrain),
+                          mask_prune_active=not pretrain, has_ood=has_ood, eta_min_net=5e-6)
+    nr = cfg.train.epochs_pretrain
+    scalars = Scalars(net_t=5.0, net_T=100.0, epoch_frac=0.5,
+                      align_pf_weight=epoch / nr if pretrain else 5.0,
+                      tanh_weight=5.0 if pretrain else 2.0)
+    return make_train_step(model, tree, cfg, statics), scalars
+
+
+def timed_steps(card: str, label: str, step, state, batch, scalars, per_step: dict,
+                n: int = OPTION_STEPS):
+    """2 warm-up steps, then ``n`` timed by CUDA events with the kernels'
+    launches (exactly ``per_step`` a step), peak memory and the mean
+    losses; returns (state, record)."""
+    for _ in range(2):
+        state, _ = step(state, *batch, scalars)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    acc = None
+    for _ in range(n):
+        state, acc = step(state, *batch, scalars, acc=acc)
+    end.record()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    rec = {"path": label, "rows": int(batch[2].shape[0]), "timed_steps": n,
+           "step_ms": start.elapsed_time(end) / n, "host_step_ms": host_s * 1e3 / n,
+           "images_per_s": int(batch[2].shape[0]) * n / host_s,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": counts(),
+           "mean_losses": {k: float(v) / n for k, v in acc.items()
+                           if k == "loss" or k.startswith("loss/")}}
+    say(f"phase 15, {label}: {json.dumps(rec)} [{card}]")
+    if not all(np.isfinite(list(rec["mean_losses"].values()))):
+        fail(f"{label}: non-finite losses {rec}")
+    check_launches(label, rec["launches"], {**NO_LAUNCHES, **{
+        k: v * n for k, v in per_step.items()}})
+    return state, rec
+
+
+def option_kernel_checks(card: str):
+    """K1, K1b and K2 on the flagship tree at the reducer's width D = 128
+    (26x26 patches): K1 bf16 at B = 8 and 128 and f32 at 8, K1b bf16 at
+    128 and f32 at 8, K2 bf16 at 64 pairs and f32 at 4, each against its
+    plain version and timed beside its bound and the plain version's and
+    ``torch.matmul``'s times."""
+    flag, _ = flagship_tree()
+    bf16, f32 = torch.bfloat16, torch.float32
+    H, W, D = 26, 26, REDUCER_D
+    records, backward, nopf = {}, {}, {}
+    for B, dtype in ((8, bf16), (128, bf16), (8, f32)):
+        name = f"reducer{D}_b{B}_{_dtype_name(dtype)}"
+        records[name] = check_fused_head(flag, B, H, W, D, dtype, seed=70 + len(records),
+                                         timed=True)
+        say(f"kernel fused_head {name}: {json.dumps(records[name])} [{card}]")
+    for B, dtype in ((128, bf16), (8, f32)):
+        name = f"reducer{D}_b{B}_{_dtype_name(dtype)}"
+        backward[name] = check_head_backward(flag, B, H, W, D, dtype, seed=80 + len(backward),
+                                             timed=True)
+        say(f"kernel head_backward {name}: {json.dumps(backward[name])} [{card}]")
+    for pairs, dtype in ((64, bf16), (4, f32)):
+        name = f"reducer{D}_{pairs}pairs_{_dtype_name(dtype)}"
+        nopf[name] = check_nopf(flag, pairs, H, W, D, dtype, seed=90 + len(nopf), timed=True)
+        say(f"kernel fused_head_nopf {name}: {json.dumps(nopf[name])} [{card}]")
+    return records, backward, nopf
+
+
+def align_uniform_parts(card: str, model, image_size: int) -> dict:
+    """Where the align/uniform losses' time goes: random features of the
+    step's shape (flagship: 128 x 26 x 26 x 768 bf16, 43,264 rows a view),
+    the losses' forward and backward alone, timed by CUDA events and
+    profiled, with their own peak memory."""
+    from pipnet_tpu_torch.losses.catalog import align_and_uniform
+    with torch.inference_mode():
+        _, H, W, D = model.features(torch.zeros((1, image_size, image_size, 3),
+                                                device="cuda")).shape
+    r = np.random.default_rng(3)
+    f0 = torch.from_numpy(r.standard_normal((2 * TRAIN_BATCH, H, W, D)).astype(np.float32))
+    f0 = f0.to("cuda", model.dtype)
+
+    def run():
+        f = f0.detach().requires_grad_(True)
+        a, u = align_and_uniform(f, align=True, uni=True)
+        (0.5 * a + 3.0 * u).backward()
+        return a, u
+
+    a, u = run()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    n = TRAIN_BATCH * H * W
+    rec = {"rows_per_view": n, "align": float(a), "uniform": float(u),
+           "ms": time_ms(run, iters=3, warmup=1),
+           "peak_extra_gb": (torch.cuda.max_memory_allocated() - base) / 1e9}
+    rec["profile"] = profile_ms(run, n=2)
+    # the products: the forward's upper half and the backward's two full
+    # products, both views
+    rec["product_tflop"] = 2 * (2.0 * n * n * D / 2 + 2 * 2.0 * n * n * D) / 1e12
+    say(f"phase 15, align/uniform losses alone: {json.dumps(rec)} [{card}]")
+    return rec
+
+
+def ood_chunk(size: int, image_size: int):
+    """One chunk of ``size`` OOD images in two views (the host's
+    augmentation) from the OOD fixture's train loader, as
+    ``Trainer.run_epoch`` draws it (``_ood_chunks``)."""
+    from pipnet_tpu_torch.data import build_loaders
+    from pipnet_tpu_torch.datasets import resolve_dataset
+    from pipnet_tpu_torch.train.trainer import _ood_chunks
+    t0 = time.perf_counter()
+    otrain, otest, oproj, _ = resolve_dataset(OOD_FIXTURE, seed=1)
+    loaders = build_loaders(otrain, otest, project_dir=oproj, image_size=image_size,
+                            batch_size=size,
+                            batch_size_pretrain=size, seed=1, num_workers=4)
+    x1, x2 = next(_ood_chunks(loaders.train, 1, size))
+    return x1, x2, time.perf_counter() - t0
+
+
+def variant_heads_check(card: str, model, tree, cfg) -> dict:
+    """Each head variant on the flagship backbone's served features at
+    B = 8 (bf16): launches (K1 none), finite logits, the forward's time;
+    then in f32 on the same features, card (TF32 off) against CPU.
+    Restores the model's own head."""
+    from PIL import Image
+    from pipnet_tpu_torch.data.augment import EvalTransform
+    from pipnet_tpu_torch.models.heads import PrototypeHead
+    own = model.head
+    S = cfg.model.image_size
+    xs = torch.from_numpy(np.stack([EvalTransform(S)(Image.fromarray(im))
+                                    for im in synthetic_images(SERVE_IMAGES, 256, seed=2)])).cuda()
+    with torch.inference_mode():
+        f32_features = model.features(xs).float()
+    bias = torch.from_numpy(np.random.default_rng(4).normal(
+        0.0, 0.02, tree.num_protos_padded).astype(np.float32))
+    out = {}
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    try:
+        for name, changes in VARIANT_HEADS.items():
+            hcfg = dataclasses.replace(cfg.model.head, **changes)
+            head = PrototypeHead(tree, hcfg, own.add_on_kernel.shape[0])
+            state = {k: v.detach().cpu() for k, v in own.state_dict().items()}
+            if hcfg.add_on_bias:
+                state["add_on_bias"] = bias
+            head.load_state_dict(state)
+            model.head = head.cuda()
+            zero_counts()
+            with torch.inference_mode():
+                served = model(xs, inference=True)
+            torch.cuda.synchronize()
+            launches = counts()
+            rec = {"launches": launches, "fused": head.fused,
+                   "logits_finite": bool(torch.isfinite(served["logits"].float()).all()),
+                   "top1": served["logits"].float().argmax(-1).tolist()}
+            with torch.inference_mode():
+                rec["forward_ms"] = time_ms(lambda: model(xs, inference=True), iters=5)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            with torch.inference_mode():
+                card_out = head(f32_features)
+                cpu_out = head.cpu()(f32_features.cpu())
+            model.head = own
+            scale = cpu_out["logits"].abs().max().clamp(min=1e-30)
+            rec["logits_max_rel_err"] = ((card_out["logits"].cpu() - cpu_out["logits"]).abs()
+                                         .max() / scale).item()
+            rec["pooled_max_abs_err"] = (card_out["pooled"].cpu()
+                                         - cpu_out["pooled"]).abs().max().item()
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            say(f"phase 15, head variant {name} served at B = {SERVE_IMAGES}: "
+                f"{json.dumps(rec)} [{card}]")
+            if not rec["logits_finite"] or rec["fused"] or \
+                    rec["logits_max_rel_err"] > VARIANT_TOL or \
+                    rec["pooled_max_abs_err"] > VARIANT_TOL:
+                fail(f"head variant {name}: {rec}")
+            check_launches(f"head variant {name}", launches, NO_LAUNCHES)
+            out[name] = rec
+    finally:
+        model.head = own
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return out
+
+
+def option_cross_check(card: str) -> dict:
+    """One joint step in f32 (TF32 off) of the flagship with the Gaussian
+    multiplier, the reducer, the CLI's default align and uniformity losses
+    and one OOD row in each view's 2 images, on the card through the
+    kernels and on the CPU through their plain versions, from the same
+    weights and batch, stochastic depth off (the card's generator and the
+    CPU's draw different streams): every loss within ``OPTION_LOSS_REL``."""
+    from pipnet_tpu_torch.models.convnext import CNBlock
+    from pipnet_tpu_torch.train import init_train_state
+    setup = dataclasses.replace(flagship_setup(), name="options",
+                                model={"stage4_reducer": REDUCER_LAYERS, **GAUSSIAN})
+    cfg = with_loss(run_config(setup), align=True, uni=True)
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, compute_dtype="float32"))
+    r = np.random.default_rng(6)
+    S = cfg.model.image_size
+    xs = torch.from_numpy(r.standard_normal((2, 2, S, S, 3)).astype(np.float32))
+    out = {}
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        for dev in ("cuda", "cpu"):
+            model, tree, _ = build_model(setup, cfg, device=dev)
+            for block in model.modules():
+                if isinstance(block, CNBlock):
+                    block.sd_prob = 0.0
+            ys = torch.tensor([int(r.integers(0, tree.num_classes)), -1]) if dev == "cuda" \
+                else out["cuda"][1]
+            step, scalars = option_step(cfg, model, tree, JOINT_EPOCH, False, has_ood=True)
+            zero_counts()
+            _, m = step(init_train_state(model, seed=0), xs[0].to(dev), xs[1].to(dev),
+                        ys.to(dev), scalars, presence_noise=torch.zeros(
+                            (tree.num_protos_padded, 2), device=dev))
+            out[dev] = ({k: float(v) for k, v in m.items()
+                         if k == "loss" or k.startswith("loss/")}, ys, counts())
+            del model
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    card_l, cpu_l = out["cuda"][0], out["cpu"][0]
+    errs = {k: abs(card_l[k] - cpu_l[k]) / max(abs(cpu_l[k]), 1e-30) for k in cpu_l}
+    rec = {"losses_card": card_l, "losses_cpu": cpu_l, "rel_errs": errs,
+           "launches_card": out["cuda"][2]}
+    say(f"phase 15, f32 step with every option, card vs CPU: {json.dumps(rec)} [{card}]")
+    if set(card_l) != set(cpu_l) or max(errs.values()) > OPTION_LOSS_REL or \
+            not {"loss/align", "loss/uniform", "loss/ood_bce"} <= set(card_l):
+        fail(f"the options' f32 step disagrees between the card and the CPU: {rec}")
+    check_launches("phase 15 cross-check", out["cuda"][2],
+                   {**NO_LAUNCHES, "fused_head": 1, "head_backward": 1})
+    torch.cuda.empty_cache()
+    return rec
+
+
+def options_cli(card: str, log_dir: str) -> dict:
+    """``run_pipnet`` with the flagship's flags, the JAX CLI's own defaults
+    for ``--align`` and ``--uni`` (the flags left out) and ``--OOD_dataset``:
+    one pretraining epoch and two joint epochs (no classifier-only epochs,
+    backbone unfrozen) on ``synthetic:190:4``, half the images a class of
+    phase 11's set; each epoch's launches as derived (K1 and K1b once a
+    step) and its align, uniformity and OOD losses finite."""
+    from pipnet_tpu_torch.main import run_pipnet
+    argv = flagship_cli_argv(log_dir)
+    for flag in ("--align", "--uni"):
+        i = argv.index(flag)
+        del argv[i:i + 2]
+    changes = {"--dataset": "synthetic:190:4", "--epochs_finetune_classifier": "0",
+               "--epochs_finetune": "0", "--freeze_epochs": "0"}
+    for flag, value in changes.items():
+        argv[argv.index(flag) + 1] = value
+    argv += ["--OOD_dataset", OOD_FIXTURE]
+    calls, trainers = [], []
+    stdout = sys.stdout
+    t0 = time.perf_counter()
+    with recorded_trainer(calls, trainers):
+        if run_pipnet(argv) != 0:
+            fail("the options' CLI run returned non-zero")
+    if sys.stdout is not stdout:
+        fail("run_pipnet left sys.stdout replaced")
+    rec = {"argv": " ".join(argv), "cli_s": time.perf_counter() - t0, "calls": calls}
+    shape = [(c["call"], c.get("epoch"), c.get("phase")) for c in calls]
+    if shape != [("run_epoch", 1, "pretrain"), ("run_epoch", 1, "train"),
+                 ("evaluate", None, None), ("run_epoch", 2, "train"), ("evaluate", None, None)]:
+        fail(f"the options' CLI run's epochs {shape}")
+    for c in calls:
+        check_launches(f"options CLI {c['call']} {c.get('epoch')} {c.get('phase')}",
+                       c["launches"], expected_launches(c))
+    parts = {}
+    for split, want in (("pretrain", ("loss/align", "loss/uniform")),
+                        ("train", ("loss/align", "loss/uniform", "loss/ood_bce"))):
+        with open(os.path.join(log_dir, f"metrics_{split}.jsonl")) as f:
+            row = json.loads(f.read().splitlines()[-1])
+        parts[split] = {k: row.get(k) for k in want}
+        if any(v is None or not np.isfinite(v) for v in parts[split].values()):
+            fail(f"the options' CLI run's {split} losses: {parts[split]}")
+    rec["losses"] = parts
+    rec["run_dir"] = check_run_dir(log_dir, trainers[-1].tree)
+    say(f"phase 15, the CLI with --align/--uni defaults and --OOD_dataset: "
+        f"{json.dumps(rec)} [{card}]")
+    launches = {k: sum(c["launches"][k] for c in calls) for k in NO_LAUNCHES}
+    del trainers
+    torch.cuda.empty_cache()
+    return launches
+
+
+def options_phase(card: str) -> dict:
+    """Phase 15: the CLI's default align/uniform losses (path A, pretraining
+    and joint), an OOD step, the head variants served and one trained, the
+    Gaussian-multiplier and reducer model served and trained (and with the
+    fused backbone, which the multiplier leaves), the f32 cross-check
+    against the CPU and a CLI run; returns the launches by path."""
+    from pipnet_tpu_torch.train import init_train_state
+    t0 = time.perf_counter()
+    paths, seconds, recs = {}, {}, {}
+    flagship = flagship_setup()
+
+    # the CLI's default feature losses on path A, and path A without them
+    t = time.perf_counter()
+    cfg = with_loss(run_config(flagship), align=True, uni=True)
+    model, tree, _ = build_model(flagship, cfg)
+    batch = train_batch(cfg, tree)
+    state = init_train_state(model, seed=0)
+    for label, epoch, pretrain, c in (
+            ("align/uniform, pretraining", 1, True, cfg),
+            ("align/uniform, joint", JOINT_EPOCH, False, cfg),
+            ("path A without them, joint", JOINT_EPOCH, False, run_config(flagship))):
+        step, scalars = option_step(c, model, tree, epoch, pretrain)
+        state, recs[label] = timed_steps(card, label, step, state, batch, scalars,
+                                         {"fused_head": 1, "head_backward": 1})
+        paths[label] = recs[label]["launches"]
+    recs["align/uniform alone"] = align_uniform_parts(card, model, cfg.model.image_size)
+    seconds["align/uniform"] = time.perf_counter() - t
+
+    # a step with an OOD chunk: 64 labelled and 64 OOD images in two views
+    t = time.perf_counter()
+    ox1, ox2, ood_s = ood_chunk(TRAIN_BATCH, cfg.model.image_size)
+    xs1, xs2, ys = batch
+    ood_batch = (torch.cat([xs1, torch.from_numpy(ox1).cuda()]),
+                 torch.cat([xs2, torch.from_numpy(ox2).cuda()]),
+                 torch.cat([ys, torch.full((TRAIN_BATCH,), -1, device="cuda")]))
+    step, scalars = option_step(run_config(flagship), model, tree, JOINT_EPOCH, False,
+                                has_ood=True)
+    state, recs["OOD"] = timed_steps(card, "path A with an OOD chunk, joint", step, state,
+                                     ood_batch, scalars, {"fused_head": 1, "head_backward": 1})
+    recs["OOD"]["fixture_and_chunk_s"] = ood_s
+    if "loss/ood_bce" not in recs["OOD"]["mean_losses"]:
+        fail(f"the OOD step has no OOD loss: {recs['OOD']}")
+    paths["OOD"] = recs["OOD"]["launches"]
+    del ood_batch
+    seconds["OOD"] = time.perf_counter() - t
+
+    # the head variants off K1: served, then one trained for a few steps
+    t = time.perf_counter()
+    recs["variants"] = variant_heads_check(card, model, tree, run_config(flagship))
+    from pipnet_tpu_torch.models.heads import PrototypeHead
+    own = model.head
+    vcfg = run_config(flagship)
+    vcfg = dataclasses.replace(vcfg, model=dataclasses.replace(vcfg.model, head=dataclasses.replace(
+        vcfg.model.head, **VARIANT_HEADS[TRAINED_VARIANT])))
+    head = PrototypeHead(tree, vcfg.model.head, own.add_on_kernel.shape[0])
+    head.load_state_dict({k: v.detach().cpu() for k, v in own.state_dict().items()})
+    model.head = head.cuda()
+    step, scalars = option_step(vcfg, model, tree, JOINT_EPOCH, False)
+    _, recs["variant step"] = timed_steps(card, f"head variant {TRAINED_VARIANT}, joint step",
+                                          step, init_train_state(model, seed=0), batch,
+                                          scalars, {}, n=3)
+    paths["variant step"] = recs["variant step"]["launches"]
+    model.head = own
+    seconds["variants"] = time.perf_counter() - t
+    del model, state, step, head
+    torch.cuda.empty_cache()
+
+    # the Gaussian multiplier and the reducer: served and trained; with the
+    # fused backbone configuration the multiplier leaves K4 out
+    t = time.perf_counter()
+    # the add-on kernel scaled as the other backbones' (the seeded reducer's
+    # features differ in scale from the backbone's), so that the served
+    # images have a clear top class
+    options = dataclasses.replace(flagship, name="gaussian_reducer",
+                                  model={"stage4_reducer": REDUCER_LAYERS, **GAUSSIAN},
+                                  logit_std=BACKBONE_LOGIT_STD)
+    paths["serving, gaussian + reducer"] = serving_phase(card, options)
+    cfg = run_config(options)
+    model, tree, _ = build_model(options, cfg)
+    if model.head.add_on_kernel.shape[0] != REDUCER_D:
+        fail(f"the reducer's head reads D = {model.head.add_on_kernel.shape[0]}")
+    step, scalars = option_step(cfg, model, tree, JOINT_EPOCH, False)
+    _, recs["gaussian + reducer"] = timed_steps(
+        card, "gaussian + reducer, path A joint", step, init_train_state(model, seed=0),
+        train_batch(cfg, tree), scalars, {"fused_head": 1, "head_backward": 1})
+    paths["training A, gaussian + reducer"] = recs["gaussian + reducer"]["launches"]
+    del model, step
+    torch.cuda.empty_cache()
+    fcfg = run_config(options, fused_backbone=True)
+    model, tree, _ = build_model(options, fcfg)
+    xs = train_batch(fcfg, tree)[0][:SERVE_IMAGES]
+    zero_counts()
+    with torch.inference_mode():
+        model(xs, inference=True)
+    torch.cuda.synchronize()
+    paths["fused backbone with the multiplier"] = counts()
+    check_launches("fused backbone with the Gaussian multiplier", counts(),
+                   {**NO_LAUNCHES, "fused_head": 1})
+    del model
+    torch.cuda.empty_cache()
+    seconds["gaussian + reducer"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    recs["cross-check"] = option_cross_check(card)
+    seconds["cross-check"] = time.perf_counter() - t
+    t = time.perf_counter()
+    with scratch_dir("pipnet_options_") as log_dir:
+        paths["options CLI"] = options_cli(card, log_dir)
+    seconds["CLI"] = time.perf_counter() - t
+    say(f"phase 15 (the options): {time.perf_counter() - t0:.1f} s; seconds by part: "
+        f"{json.dumps(seconds)}")
+    return paths
+
+
 NO_LAUNCHES = {"fused_head": 0, "head_backward": 0, "fused_head_nopf": 0, "dwconv": 0,
                "cnblock": 0}
 
@@ -2965,15 +3427,17 @@ def main(argv=None) -> int:
                     help="an older checkout of this repository whose K1 and K2 are timed "
                          "in turns with this one's in the kernel phase")
     ap.add_argument("--only", choices=["blocks", "data", "trainer", "eval", "interp",
-                                       "backbones"],
+                                       "backbones", "options"],
                     help="blocks: build, check and time K3 and K4 only; data: build, then "
                          "run the training-from-data phase only; trainer: build, then run "
                          "the training-through-the-CLI phase only; eval: build, then "
                          "evaluate a run directory of seeded weights on the data phase's "
                          "fixture; interp: build, then run the interpretability phase on "
                          "such a run directory; backbones: build, check and time K1, K1b "
-                         "and K2 at the other backbones' shapes, then run phase 14; each "
-                         "stops without the kernels record or the ok line")
+                         "and K2 at the other backbones' shapes, then run phase 14; "
+                         "options: build, check and time K1, K1b and K2 at the reducer's "
+                         "width, then run phase 15; each stops without the kernels record "
+                         "or the ok line")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3033,9 +3497,15 @@ def main(argv=None) -> int:
         backbones_phase(card)
         say(f"--only backbones: done in {time.perf_counter() - t_start:.1f} s; no full run")
         return 0
+    if args.only == "options":
+        option_kernel_checks(card)
+        options_phase(card)
+        say(f"--only options: done in {time.perf_counter() - t_start:.1f} s; no full run")
+        return 0
     records, backward, nopf = kernel_phase(card, baseline)
-    for into, got in zip((records, backward, nopf), backbone_kernel_checks(card)):
-        into.update(got)
+    for checks in (backbone_kernel_checks, option_kernel_checks):
+        for into, got in zip((records, backward, nopf), checks(card)):
+            into.update(got)
     dw, blocks = block_kernel_phase(card, baseline)
 
     paths = {"depthwise conv op": dwconv_op_path(card),
@@ -3075,6 +3545,7 @@ def main(argv=None) -> int:
         _, evaluation = eval_phase(card, cli_dir)
         _, interpretability = interp_phase(card, cli_dir)
     paths.update(backbones_phase(card))
+    paths.update(options_phase(card))
     paths.update({"training A": train_a["launches"], "training B": train_b["launches"],
                   "training C": train_c["launches"], "training from data": train_data["launches"],
                   "training through the CLI": train_cli, "evaluation": evaluation,

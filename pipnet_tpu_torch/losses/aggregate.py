@@ -51,11 +51,9 @@ def resolve_tanh_eps(cfg: LossConfig, min_contrast_ran: bool) -> float:
     return 1e-12 if min_contrast_ran else C.EPS
 
 
-def _unported(cfg: LossConfig, finetune: bool, ood_present: bool) -> list:
-    return [name for name, on in (
-        ("align/uniform", not finetune and (cfg.align or cfg.uni)),
-        ("ood", ood_present or cfg.ood_loss or cfg.ood_ent),
-        ("minmaximize", cfg.minmaximize)) if on]
+MINMAXIMIZE_REFUSAL = (
+    "minmaximize survives in the reference only as a dead stub that would crash if "
+    "enabled (pipnet/train.py:1203-1214 backwards an int); not supported")
 
 
 def compute_total_loss(tc: TreeConsts, outputs: Dict[str, torch.Tensor], ys: torch.Tensor,
@@ -76,10 +74,10 @@ def compute_total_loss(tc: TreeConsts, outputs: Dict[str, torch.Tensor], ys: tor
     duplicated labels.  Mask-pruning draws the presence Gumbel noise once,
     from ``generator``, unless ``presence_noise`` (P, 2) is given.
     ``byol_online`` and ``byol_target`` (the EMA target's projection) give
-    BYOL's regression loss, outside the finetune phases."""
-    missing = _unported(cfg, finetune, ood_present)
-    if missing:
-        raise NotImplementedError(f"losses {missing} are not ported yet")
+    BYOL's regression loss, outside the finetune phases.  With
+    ``ood_present`` (OOD rows, label -1, in the batch) the OOD BCE loss
+    adds in outside pretraining; ``cfg.ood_ent`` changes nothing, as in the
+    JAX package.  ``minmaximize`` raises, as the JAX package does."""
     aux: Dict[str, torch.Tensor] = {}
     total = torch.zeros((), dtype=torch.float32, device=ys.device)
 
@@ -87,6 +85,18 @@ def compute_total_loss(tc: TreeConsts, outputs: Dict[str, torch.Tensor], ys: tor
         byol = C.byol_regression_loss(byol_online, byol_target)
         total = total + weights.byol * byol
         aux["byol"] = byol
+
+    if not finetune and (cfg.align or cfg.uni):
+        if cfg.uni and not cfg.align:
+            raise ValueError("uni can only be used together with align "
+                             "(ref pipnet/train.py:923-924)")
+        a, u = C.align_and_uniform(outputs["features"], align=cfg.align, uni=cfg.uni)
+        if cfg.align:
+            total = total + weights.align * a
+            aux["align"] = a
+        if cfg.uni:
+            total = total + weights.unif * u
+            aux["uniform"] = u
 
     pooled, logits = outputs["pooled"], outputs["logits"]
 
@@ -146,6 +156,14 @@ def compute_total_loss(tc: TreeConsts, outputs: Dict[str, torch.Tensor], ys: tor
         total = total + weights.cl * cl
         aux["class"] = cl
         aux["class_per_node"] = cl_pn
+
+        if ood_present:
+            ob, _ = C.ood_bce_loss(tc, logits, ys, multiplier)
+            total = total + weights.ood * ob
+            aux["ood_bce"] = ob
+
+    if cfg.minmaximize:
+        raise NotImplementedError(MINMAXIMIZE_REFUSAL)
 
     aux["total"] = total
     return total, aux

@@ -14,9 +14,18 @@ Reference quirks kept, as the JAX package keeps them: tanh_desc counts leaf
 descendants absent from the batch (their pooled sum is 0, a constant
 ``-log(eps)``); the overspecificity denominator counts relevant prototypes
 of children with no in-batch descendant; the presence Gumbel noise is drawn
-once per step (by the caller).  Not ported yet (they raise in
-``aggregate.py``): the align/uniform feature losses, the OOD losses and the
-entropy loss.
+once per step (by the caller).
+
+The global feature losses (alignment and uniformity of the l2-normalised
+patch features, ref pipnet/train.py:898-928,1376-1396) and the OOD losses
+(``ood_bce_loss``, and ``ood_entropy_loss``, which no loss total reads, as
+in the JAX package) come after the per-node ones.  ``uniform_loss`` sums
+over every pair of a view's patch rows (43,264 of them at the flagship
+size) in row blocks, and recomputes each block in its backward, so no
+(n, n) matrix and no block's intermediates outlive the block.  It
+accumulates the pair sum in float32 whatever the input's dtype (the JAX
+package carries it in the input's dtype, bf16 on the flagship): a
+deliberate difference.
 """
 
 from __future__ import annotations
@@ -302,6 +311,151 @@ def min_contrast_loss(tc: TreeConsts, pooled: torch.Tensor, ys: torch.Tensor,
     numer = torch.where(valid_rows, top, torch.zeros_like(top)).sum(dim=1) * col_ok
     denom = valid_rows.sum(dim=1) * col_ok
     return _total(tc, _per_node(numer @ tc.node_onehot, denom @ tc.node_onehot))
+
+
+# ---------------------------------------------------------------------------
+# global (non-tree) losses
+# ---------------------------------------------------------------------------
+
+def flatten_patches(features: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, D) -> (B*H*W, D) (ref flatten_tensor, pipnet/train.py:1344-1349)."""
+    return features.reshape(-1, features.shape[-1])
+
+
+def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
+    """``F.normalize``'s semantics: x / max(||x||, eps)."""
+    return x / torch.linalg.vector_norm(x, dim=dim, keepdim=True).clamp(min=eps)
+
+
+def align_loss_unit_space(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Mean of ||x - y||^2 over rows (Wang-Isola alignment at alpha = 2, the
+    only value used, ref pipnet/train.py:1395-1396), as a sum of squares:
+    the same value as the squared norm, but smooth where x == y, where the
+    norm's gradient is NaN (two augmented views can coincide)."""
+    return ((x - y) ** 2).sum(dim=-1).mean()
+
+
+UNIFORM_BLOCK = 2048
+
+
+def _pair_d2(xr: torch.Tensor, x: torch.Tensor, sqr: torch.Tensor,
+             sq: torch.Tensor) -> torch.Tensor:
+    """Squared distances (b, m) of the rows ``xr`` to the rows ``x``, as
+    ``|xr|^2 + |x|^2 - 2 xr x^T`` (products in the inputs' dtype, the rest
+    in ``sq``'s: f32, or float64 for float64 inputs), unclamped; one new
+    (b, m) tensor, the rest in place."""
+    d2 = (xr @ x.T).to(sq.dtype).mul_(-2.0)
+    return d2.add_(sqr[:, None]).add_(sq[None, :])
+
+
+def _acc_dtype(x: torch.Tensor) -> torch.dtype:
+    return torch.promote_types(x.dtype, torch.float32)
+
+
+class _UniformPairSum(torch.autograd.Function):
+    """S(x) = sum over i < j of exp(-t max(d2_ij, 0)) for the rows of x,
+    in f32 (float64 for float64 x), by row blocks; the backward recomputes
+    each block."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, t: float, block: int) -> torch.Tensor:
+        n = x.shape[0]
+        sq = (x.to(_acc_dtype(x)) ** 2).sum(dim=-1)
+        total = torch.zeros((), dtype=sq.dtype, device=x.device)
+        for r0 in range(0, n, block):
+            r1 = min(r0 + block, n)
+            # pairs i < j only: columns from the block's first row on
+            e = _pair_d2(x[r0:r1], x[r0:], sq[r0:r1], sq[r0:]).clamp_(min=0.0)
+            e.mul_(-t).exp_()
+            total += e[:, r1 - r0:].sum() + torch.triu(e[:, :r1 - r0], diagonal=1).sum()
+        ctx.save_for_backward(x)
+        ctx.t, ctx.block = t, block
+        return total
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        (x,) = ctx.saved_tensors
+        t, block, n = ctx.t, ctx.block, x.shape[0]
+        sq = (x.to(_acc_dtype(x)) ** 2).sum(dim=-1)
+        dx = torch.empty(x.shape, dtype=sq.dtype, device=x.device)
+        for r0 in range(0, n, block):
+            r1 = min(r0 + block, n)
+            d2 = _pair_d2(x[r0:r1], x, sq[r0:r1], sq)
+            m = d2.clamp(min=0.0).mul_(-t).exp_()
+            # max(d2, 0)'s derivative, split evenly at a tie as jnp.maximum's:
+            # 1 where d2 > 0 (nearly every pair), 1/2 at 0, 0 below
+            m.masked_fill_(d2 < 0, 0.0).masked_fill_(d2 == 0, 0.5)
+            del d2
+            m.mul_(-t * g)
+            m[:, r0:r1].fill_diagonal_(0.0)
+            # each pair (i, j) adds m_ij (2 x_i - 2 x_j) to x_i
+            rows = m.sum(dim=1, keepdim=True)
+            dx[r0:r1] = 2.0 * (x[r0:r1].to(m.dtype) * rows - (m.to(x.dtype) @ x).to(m.dtype))
+        return dx.to(x.dtype), None, None
+
+
+def uniform_loss(x: torch.Tensor, t: float = 2.0, block: int = UNIFORM_BLOCK) -> torch.Tensor:
+    """log(mean over i < j of exp(-t ||x_i - x_j||^2) + 1e-10) over the rows
+    of ``x`` (n, D) (ref pipnet/train.py:1376-1386), in f32 (float64 for
+    float64 ``x``): the pair sum
+    by blocks of ``block`` rows (``_UniformPairSum``), so the n^2 distance
+    matrix never exists at once."""
+    n = x.shape[0]
+    total = _UniformPairSum.apply(x, t, block)
+    return torch.log(total / (n * (n - 1) / 2.0) + 1e-10)
+
+
+def align_and_uniform(features: torch.Tensor, *, align: bool,
+                      uni: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Alignment of the two views' l2-normalised patch features and their
+    mean uniformity (ref pipnet/train.py:898-928); ``features`` (2B, H, W,
+    D) holds the views stacked.  A loss that is off is 0."""
+    f1, f2 = features.chunk(2, dim=0)
+    x1, x2 = l2_normalize(flatten_patches(f1)), l2_normalize(flatten_patches(f2))
+    zero = torch.zeros((), dtype=torch.float32, device=features.device)
+    a = align_loss_unit_space(x1, x2) if align else zero
+    u = (uniform_loss(x1) + uniform_loss(x2)) / 2.0 if uni else zero
+    return a, u
+
+
+def entropy_loss(probs: torch.Tensor) -> torch.Tensor:
+    """Mean entropy over the batch (ref pipnet/train.py:28-37)."""
+    p = probs.clamp(min=1e-9)
+    return (-(p * torch.log(p)).sum(dim=-1)).mean()
+
+
+def ood_bce_loss(tc: TreeConsts, logits: torch.Tensor, ys: torch.Tensor,
+                 multiplier: torch.Tensor) -> Loss:
+    """Push the node logits of rows not under a node (OOD rows, label -1,
+    are under none) towards 0: BCE(sigmoid(log1p(logits^m)), 0) =
+    softplus(log1p(logits^m)), averaged over (rows not under the node) x
+    (the node's children) (ref pipnet/train.py:1166-1178)."""
+    B = logits.shape[0]
+    bce = torch.nn.functional.softplus(torch.log1p(logits ** multiplier))    # (B, C)
+    not_under = (1.0 - tc.under[label_rows(ys, tc.num_leaves)])[:, :, None]  # (B, N, 1)
+    bce_n = bce[:, tc.node_cols.reshape(-1)].reshape(B, *tc.node_cols.shape)
+    valid = tc.node_cols_valid[None].to(bce.dtype)
+    num = (bce_n * not_under * valid).sum(dim=(0, 2))
+    den = (not_under * valid).sum(dim=(0, 2))
+    return _total(tc, _per_node(num, den))
+
+
+def ood_entropy_loss(tc: TreeConsts, logits: torch.Tensor, ys: torch.Tensor,
+                     multiplier: torch.Tensor) -> Loss:
+    """Mean per-node softmax entropy over the rows not under the node.  The
+    reference's ``--OOD_ent`` flag exists (util/args.py:251-255) but its live
+    loss never fills ``OOD_ent_loss`` (only a dead copy computes it,
+    pipnet/pipnet.py:840-851): like the JAX package, the port provides it
+    here and no loss total reads it."""
+    B = logits.shape[0]
+    z = torch.log1p(logits ** multiplier)
+    zc = z[:, tc.node_cols.reshape(-1)].reshape(B, *tc.node_cols.shape)
+    zc = torch.where(tc.node_cols_valid[None], zc, torch.full_like(zc, float("-inf")))
+    p = torch.softmax(zc, dim=-1)
+    plogp = torch.where(p > 0, p * torch.log(p.clamp(min=1e-9)), torch.zeros_like(p))
+    not_under = 1.0 - tc.under[label_rows(ys, tc.num_leaves)]
+    return _total(tc, _per_node((-plogp.sum(dim=-1) * not_under).sum(dim=0),
+                                not_under.sum(dim=0)))
 
 
 def byol_regression_loss(online: torch.Tensor, target: torch.Tensor) -> torch.Tensor:

@@ -7,10 +7,12 @@ Accepts the JAX package's flags, defaults and the reference's string DSLs
 (``util/args.py:14-402``), so the ``scripts/runs/run_*.sh`` invocations
 translate directly, and resolves them once into the static ``RunConfig``.
 Training runs on the card unless ``--device cpu`` asks for the CPU.
-Options the port does not have yet raise before any training, naming their
-``ROADMAP.md`` item: the OOD dataset and the losses still to be ported
-(item 11) and the mesh options (item 10).  Every backbone of the JAX
-package (``--net``) and ``--byol y`` train.  After training,
+The mesh options, which the port does not have yet, raise before any
+training, naming their ``ROADMAP.md`` item (10); so does ``--minmaximize
+y``, which the JAX package refuses too.  Every backbone of the JAX package
+(``--net``), ``--byol y``, the default ``--align y --uni y`` losses, the
+head variants, ``--OOD_dataset`` (its train loader feeds OOD rows into
+every phase-2 step) and ``--stage4_reducer_net`` train.  After training,
 ``--final_viz y`` draws the prototype galleries (``final_galleries``): for
 60 classes or fewer, or for the nodes of ``--final_viz_nodes``.
 """
@@ -177,16 +179,16 @@ def build_arg_parser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(args) -> None:
-    """Raise, before any work, on the flags whose code is not ported yet."""
+    """Raise, before any work, on the flags whose code is not ported yet (the
+    mesh flags) and on ``--minmaximize y``, which the JAX package refuses at
+    its first step."""
     if args.state_dict_dir_net:
         raise ValueError("use --state_dict_dir_backbone (the reference forbids "
                          "state_dict_dir_net too, main.py:291)")
+    if args.minmaximize[:1] == "y":
+        from .losses.aggregate import MINMAXIMIZE_REFUSAL
+        raise NotImplementedError(f"--minmaximize y: {MINMAXIMIZE_REFUSAL}")
     refused = [why for why, on in (
-        ("--OOD_dataset: the OOD losses, ROADMAP item 11", args.OOD_dataset is not None),
-        ("--align y / --uni y (the defaults; the flagship passes n): the align and "
-         "uniformity losses, ROADMAP item 11", "y" in (args.align[:1], args.uni[:1])),
-        ("--OOD_ent y: ROADMAP item 11", args.OOD_ent[:1] == "y"),
-        ("--minmaximize y: ROADMAP item 11", args.minmaximize[:1] == "y"),
         (f"--data_parallel {args.data_parallel}: ROADMAP item 10", args.data_parallel > 1),
         (f"--model_parallel {args.model_parallel}: ROADMAP item 10", args.model_parallel > 1),
         ("--zero1 y: ROADMAP item 10", args.zero1 == "y")) if on]
@@ -264,6 +266,16 @@ def _train(args, cfg, log, dev) -> int:
     if dkw.get("cars", False):
         cfg = dataclasses.replace(
             cfg, train=dataclasses.replace(cfg.train, device_augment_cars=True))
+    ood_loaders = None
+    if cfg.ood_dataset:
+        otrain, otest, oproj, _ = resolve_dataset(cfg.ood_dataset, seed=cfg.train.seed)
+        ood_loaders = build_loaders(
+            otrain, otest, project_dir=oproj, image_size=cfg.model.image_size,
+            batch_size=cfg.train.batch_size,
+            batch_size_pretrain=cfg.train.batch_size_pretrain,
+            validation_size=cfg.validation_size, num_workers=cfg.num_workers,
+            device_photometric=device_augment, device_geometric=device_geometric,
+            seed=cfg.train.seed)
 
     # tree: explicit phylogeny yaml, auto (synthetic bundles one), or flat
     phylo_path, distances = None, None
@@ -300,7 +312,7 @@ def _train(args, cfg, log, dev) -> int:
                                class_names=loaders.classes, device=dev)
     print(tree.summary())
 
-    trainer = Trainer(model, tree, cfg, loaders, log=log)
+    trainer = Trainer(model, tree, cfg, loaders, log=log, ood_loaders=ood_loaders)
     if args.profile_epoch > 0:
         trainer.trace_epoch = args.profile_epoch
     trainer.checkpoint_every = max(1, args.checkpoint_every)

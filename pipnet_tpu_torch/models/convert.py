@@ -18,7 +18,9 @@ names are the flax names; only leaves are renamed and re-laid out:
 * DINOv2: ``cls_token``, ``pos_embed`` and the blocks' ``ls1``/``ls2`` as
   they are;
 * ``head``: ``add_on_kernel`` (D,P), ``cls_weight`` (C,P), ``proto_presence``
-  (P,2), ``multiplier``, and ``cls_bias`` when present, as they are.
+  (P,2), ``multiplier``, and ``add_on_bias`` and ``cls_bias`` when present,
+  as they are;
+* the stage-4 reducer: ``reducer/reducer{i}`` dense layers -> ``reducer.reducer{i}``.
 
 Any leaf it cannot map, and any leaf a module needs but lacks, raises.
 ``opt_state_from_jax`` maps the JAX package's Adam state (moments laid out
@@ -65,7 +67,7 @@ _VIT_BLOCK = {"norm1": _NORM, "attn": {"qkv": _DENSE, "proj": _DENSE},
 _PATCH_MLP = {"fc_in": _DENSE, "bn": _NORM, "fc_out": _DENSE}
 _HEAD = {name: (name, None) for name in
          ("add_on_kernel", "cls_weight", "proto_presence", "multiplier")}
-_HEAD_OPTIONAL = {"cls_bias": ("cls_bias", None)}
+_HEAD_OPTIONAL = {"cls_bias": ("cls_bias", None), "add_on_bias": ("add_on_bias", None)}
 _STATS = {"mean": ("running_mean", None), "var": ("running_var", None)}
 
 # each backbone family: (pattern of its block modules, the modules it needs)
@@ -152,12 +154,17 @@ def params_from_jax(params: Mapping, leaf: Callable = _tensor, *,
     or BYOL heads with BatchNorm, their ``batch_stats`` -> the port's
     ``state_dict`` (float32 tensors on the CPU).  ``leaf(value, layout_fn)``
     makes each entry."""
-    unknown = sorted(set(params) - {"backbone", "head", "projector", "predictor"})
+    unknown = sorted(set(params) - {"backbone", "head", "reducer", "projector", "predictor"})
     if unknown or "backbone" not in params or "head" not in params:
-        raise KeyError(f"expected top-level 'backbone' and 'head' (and BYOL's 'projector' "
-                       f"and 'predictor'), got {sorted(params)}")
+        raise KeyError(f"expected top-level 'backbone' and 'head' (and the stage-4 "
+                       f"'reducer', BYOL's 'projector' and 'predictor'), got {sorted(params)}")
     out: Dict[str, torch.Tensor] = {}
     _map_backbone("backbone", params["backbone"], out, leaf)
+    if "reducer" in params:
+        layers = params["reducer"]
+        if not layers or any(not re.fullmatch(r"reducer\d+", k) for k in layers):
+            raise KeyError(f"unmapped reducer layers {sorted(layers)}")
+        _map_module("reducer", layers, {k: _DENSE for k in layers}, {}, out, leaf)
     _map_module("head", params["head"], _HEAD, _HEAD_OPTIONAL, out, leaf)
     for mlp in ("projector", "predictor"):
         if mlp in params:
@@ -241,8 +248,6 @@ def random_jax_variables(cfg: ModelConfig, tree: TreeArrays, seed: int = 0,
 
 
 def _random_variables(cfg: ModelConfig, tree: TreeArrays, seed: int, arch: tuple) -> Dict:
-    if cfg.head.classifier_bias:
-        raise NotImplementedError("random_jax_params makes no classifier bias")
     r = np.random.default_rng(seed)
 
     def normal(shape, std):
@@ -321,6 +326,9 @@ def _random_variables(cfg: ModelConfig, tree: TreeArrays, seed: int, arch: tuple
                                "ls2": layer_scale(D)}
         bb["norm"] = ln(D)
 
+    D_backbone = D
+    if cfg.stage4_reducer:
+        D = cfg.stage4_reducer[-1][1]                 # the head reads the reducer's width
     P, C = tree.num_protos_padded, tree.num_children_total
     limit = np.sqrt(6.0 / (D + P))
     mask = tree.class_mask if cfg.head.protopool else tree.child_block_mask
@@ -341,6 +349,16 @@ def _random_variables(cfg: ModelConfig, tree: TreeArrays, seed: int, arch: tuple
             params[mlp] = {"fc_in": dense(D, BYOL_HIDDEN), "bn": norm,
                            "fc_out": dense(BYOL_HIDDEN, D)}
             batch_stats[mlp] = {"bn": norm_stats}
+    if cfg.stage4_reducer:
+        params["reducer"] = {f"reducer{i}": dense(cin, cout)
+                             for i, (cin, cout, _) in enumerate(cfg.stage4_reducer)}
+        if cfg.stage4_reducer[0][0] != D_backbone:
+            raise ValueError(f"the reducer takes {cfg.stage4_reducer[0][0]} channels, the "
+                             f"backbone gives {D_backbone}")
+    if cfg.head.add_on_bias:
+        head["add_on_bias"] = normal((P,), 0.02)
+    if cfg.head.classifier_bias:
+        head["cls_bias"] = normal((C,), 0.02)
     return {"params": params, "batch_stats": batch_stats}
 
 

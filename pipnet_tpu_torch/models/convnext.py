@@ -16,13 +16,18 @@ as the JAX package does.  Training applies row-mode stochastic depth (a
 block's whole residual branch dropped per sample, with a probability that
 ramps linearly over the blocks) from an explicit ``torch.Generator``.
 ``fused`` (the configuration's ``use_pallas_backbone``) runs each block's
-branch through K4 (``ops/cnblock.py``); the Gaussian multiplier is not
-ported yet.
+branch through K4 (``ops/cnblock.py``).  The Gaussian multiplier
+(``gaussian_stages``, the reference's receptive-field surgery) multiplies
+the depthwise kernels of those stages' blocks by a fixed Gaussian window;
+with it set, no block runs K4, as no JAX block runs its Pallas kernel then.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Iterable, Optional, Sequence
+
+import math
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
@@ -62,17 +67,43 @@ class ChannelLayerNorm(nn.Module):
         return y.to(dtype)
 
 
+def gaussian_window(size: int, sigma: float) -> torch.Tensor:
+    """Normalised 2-D Gaussian window (size, size) in f32 (ref
+    BasicGaussianMultiplierConv2D.generate_gaussian_kernel,
+    features/convnext_features.py:65-74)."""
+    c = (size - 1) / 2.0
+    yy, xx = torch.meshgrid(torch.arange(size), torch.arange(size), indexing="ij")
+    k = torch.exp(-(((xx - c) ** 2 + (yy - c) ** 2) / (2.0 * sigma ** 2)).float())
+    k = k / (2.0 * math.pi * sigma ** 2)
+    return k / k.sum()
+
+
 class CNBlock(nn.Module):
     """ConvNeXt block: dw7x7 -> LN -> MLP(4x, GELU) -> layer-scale -> +residual.
     The block LN is computed in f32 and cast back (JAX ``convnext.py:107-111``).
     With ``fused`` the branch is K4 (``cnblock_branch``), in its own rounding
     order.  Parameters are cast to the compute dtype before the branch, so
-    autograd carries their gradients back to the f32 parameters."""
+    autograd carries their gradients back to the f32 parameters.
+
+    ``gaussian_multiplier=(sigma, factor)`` reproduces the reference's
+    receptive-field surgery (features/convnext_features.py:44-95): the
+    depthwise kernel is multiplied by the Gaussian window times ``factor``
+    at forward time, read through ``.data`` in the reference, so no
+    gradient reaches the kernel or its bias (detached here, as the JAX
+    package's ``stop_gradient``); such a block is never fused."""
 
     def __init__(self, dim: int, fast_gelu: bool = False, sd_prob: float = 0.0,
-                 fused: bool = False):
+                 fused: bool = False,
+                 gaussian_multiplier: Optional[Tuple[float, float]] = None):
         super().__init__()
+        if fused and gaussian_multiplier is not None:
+            raise ValueError("a block with the Gaussian multiplier is not fused (K4)")
         self.fast_gelu, self.sd_prob, self.fused = fast_gelu, sd_prob, fused
+        self.gaussian = gaussian_multiplier is not None
+        if self.gaussian:
+            sigma, factor = gaussian_multiplier
+            self.register_buffer("gaussian_window", gaussian_window(7, sigma) * factor,
+                                 persistent=False)
         self.dwconv = nn.Conv2d(dim, dim, 7, padding=3, groups=dim)
         self.norm_scale = nn.Parameter(torch.ones(dim))
         self.norm_bias = nn.Parameter(torch.zeros(dim))
@@ -85,8 +116,11 @@ class CNBlock(nn.Module):
         (dw kernel (7, 7, C), dense kernels (in, out)) as views."""
         C = self.norm_scale.shape[0]
         cast = lambda p: p.to(dtype)  # noqa: E731
-        return (cast(self.dwconv.weight).reshape(C, 7, 7).permute(1, 2, 0),
-                cast(self.dwconv.bias), cast(self.norm_scale), cast(self.norm_bias),
+        dw_k, dw_b = self.dwconv.weight, self.dwconv.bias
+        if self.gaussian:
+            dw_k, dw_b = dw_k.detach() * self.gaussian_window, dw_b.detach()
+        return (cast(dw_k).reshape(C, 7, 7).permute(1, 2, 0),
+                cast(dw_b), cast(self.norm_scale), cast(self.norm_bias),
                 cast(self.mlp_in.weight).t(), cast(self.mlp_in.bias),
                 cast(self.mlp_out.weight).t(), cast(self.mlp_out.bias), cast(self.layer_scale))
 
@@ -113,15 +147,21 @@ class ConvNeXtTiny(nn.Module):
     Submodule names follow the JAX parameter tree (``stem_conv``,
     ``down{i}_norm``, ``stage{s}_block{b}``, ...) so ``models/convert.py``
     maps checkpoints one to one.  ``fused`` runs every block's branch
-    through K4.
+    through K4.  ``gaussian_stages`` (1-based) are the stages whose blocks
+    get the Gaussian multiplier of ``gaussian_sigma`` and
+    ``gaussian_factor`` (the reference's ``--basic_cnext_gaussian_multiplier
+    'stages|sigma|factor'``); with any such stage no block is fused.
     """
 
     def __init__(self, stride_threshold: Optional[int] = 100,
                  depths: Sequence[int] = CONVNEXT_TINY_DEPTHS,
                  dims: Sequence[int] = CONVNEXT_TINY_DIMS,
                  fast_gelu: bool = False, dtype: torch.dtype = torch.float32,
-                 stochastic_depth_prob: float = 0.1, fused: bool = False):
+                 stochastic_depth_prob: float = 0.1, fused: bool = False,
+                 gaussian_stages: Sequence[int] = (), gaussian_sigma: float = 1.0,
+                 gaussian_factor: float = 50.0):
         super().__init__()
+        fused = fused and not gaussian_stages
         self.depths, self.dims, self.dtype = tuple(depths), tuple(dims), dtype
         self.stem_conv = nn.Conv2d(3, dims[0], 4, stride=4)
         self.stem_norm = ChannelLayerNorm(dims[0])
@@ -137,9 +177,11 @@ class ConvNeXtTiny(nn.Module):
                 self.add_module(f"down{stage}_norm", ChannelLayerNorm(in_ch))
                 self.add_module(f"down{stage}_conv",
                                 nn.Conv2d(in_ch, dim, 2, stride=stride))
+            gm = (gaussian_sigma, gaussian_factor) if stage + 1 in gaussian_stages else None
             for blk in range(depth):
                 sd = stochastic_depth_prob * block_id / max(total_blocks - 1, 1)
-                self.add_module(f"stage{stage}_block{blk}", CNBlock(dim, fast_gelu, sd, fused))
+                self.add_module(f"stage{stage}_block{blk}",
+                                CNBlock(dim, fast_gelu, sd, fused, gaussian_multiplier=gm))
                 block_id += 1
 
     @property

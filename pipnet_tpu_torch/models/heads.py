@@ -3,16 +3,27 @@
   features (B,H,W,D) --K1: matmul, per-node softmax, max-pool--> pf (B,H,W,P),
   pooled (B,P) --threshold--> --block-masked non-neg linear--> logits (B,C)
 
-Counterpart of the JAX package's ``PrototypeHead`` on its fused path
-(``models/heads.py:155-206``).  The port has one head path: K1 through
-``ops/fused_head.py`` (the CUDA kernel on the card, its plain version on the
-CPU; differentiable, with K1b as its backward), which computes the per-node
-temperature softmax that both of the JAX package's head paths compute.
-With ``fuse_align_pf`` a two-view training batch goes through K2 instead
+Counterpart of the JAX package's ``PrototypeHead`` (``models/heads.py``).
+The flagship's head (conv add-on, per-node temperature softmax, no bias,
+focal or cosine term: ``head_supports_fusion``) runs K1 through
+``ops/fused_head.py`` (the CUDA kernel on the card, its plain version on
+the CPU; differentiable, with K1b as its backward), which computes the
+per-node softmax that both of the JAX package's head paths compute.  With
+``fuse_align_pf`` a two-view training batch goes through K2 instead
 (``ops/fused_head_nopf.py``): pooled and align_pf's per-node log-reduction,
-with pf never materialised.  The other add-on types, the spatial, Gumbel
-and cosine-multiplied softmax variants and focal pooling come with later
-slices and raise here.
+with pf never materialised.
+
+Every other head (the unit, project and l2 add-ons, the add-on bias,
+``softmax_tau=None``, the spatial, Gumbel and cosine-multiplied softmaxes,
+focal pooling) runs the composed operations of ``ops/segment.py``, as the
+JAX head runs its XLA path there: the same predicate, so K1 launches
+exactly where the JAX head takes its kernel.  The add-on kernels that
+those add-ons normalise or read through ``.data`` in the reference
+(pipnet/pipnet.py:1069,1097-1103,1113) are detached, as the JAX package's
+``stop_gradient`` does.  The Gumbel softmax (``softmax_tau=None`` with
+``gumbel_softmax``) adds the Gumbel sample ``gumbel_noise`` when one is
+given; no training or serving path of either package gives one, so that
+head trains and serves as a plain per-node softmax at temperature 1.
 
 The overspecificity mask (``apply_overspecificity_mask`` with a presence
 sample ``keep``) multiplies pooled after the spatial max and before the
@@ -36,37 +47,43 @@ from ..config import HeadConfig
 from ..losses.catalog import ALIGN_EPS
 from ..ops.fused_head import fused_head
 from ..ops.fused_head_nopf import fused_head_nopf
+from ..ops.segment import segment_softmax, spatial_softmax
 from ..tree.compile import TreeArrays
 
 
-def _unported(cfg: HeadConfig) -> list:
-    return [name for name, on in (
-        (f"add_on_type={cfg.add_on_type!r}", cfg.add_on_type != "conv"),
-        ("add_on_bias", cfg.add_on_bias),
-        ("softmax_tau=None", cfg.softmax_tau is None),
-        ("softmax_over_channel", cfg.softmax_over_channel),
-        ("multiply_cs_softmax", cfg.multiply_cs_softmax),
-        ("gumbel_softmax", cfg.gumbel_softmax),
-        ("focal", cfg.focal)) if on]
+def head_supports_fusion(cfg: HeadConfig) -> bool:
+    """Whether the head runs the fused kernels (K1, or K2 for a step that
+    fuses align_pf): the conv add-on with the per-node temperature softmax
+    and none of the variants, the JAX package's ``head_supports_fusion``
+    (``ops/pallas_head.py:460-470``) on the configuration alone.  Its tree
+    test has no counterpart here: the port's kernels take every tree."""
+    return (cfg.add_on_type == "conv" and not cfg.add_on_bias
+            and cfg.softmax_tau is not None and not cfg.softmax_over_channel
+            and not cfg.multiply_cs_softmax and not cfg.gumbel_softmax and not cfg.focal)
+
+
+def _unit_columns(k: torch.Tensor) -> torch.Tensor:
+    """``k`` with each column scaled to unit norm, detached."""
+    return (k / (torch.linalg.vector_norm(k, dim=0, keepdim=True) + 1e-12)).detach()
 
 
 class PrototypeHead(nn.Module):
     """Stacked multi-node prototype head over compiled ``TreeArrays``.
     Parameter names and layouts are the JAX package's: ``add_on_kernel``
     (D, P), ``cls_weight`` (C, P), ``proto_presence`` (P, 2), ``multiplier``
-    (1,), and ``cls_bias`` (C,) with ``classifier_bias``."""
+    (1,), ``add_on_bias`` (P,) with ``add_on_bias`` and ``cls_bias`` (C,)
+    with ``classifier_bias``."""
 
     def __init__(self, tree: TreeArrays, cfg: HeadConfig, in_channels: int):
         super().__init__()
-        missing = _unported(cfg)
-        if missing:
-            raise NotImplementedError(
-                f"head options {missing} are not ported yet (they come with "
-                "the head-variants slice); the port serves the conv add-on "
-                "with the per-node softmax")
+        if cfg.add_on_type not in ("conv", "unit", "project", "l2"):
+            raise ValueError(f"unknown add_on_type {cfg.add_on_type}")
         self.tree, self.cfg = tree, cfg
+        self.fused = head_supports_fusion(cfg)
         P, C = tree.num_protos_padded, tree.num_children_total
         self.add_on_kernel = nn.Parameter(torch.zeros(in_channels, P))
+        if cfg.add_on_bias:
+            self.add_on_bias = nn.Parameter(torch.zeros(P))
         self.cls_weight = nn.Parameter(torch.zeros(C, P))
         self.proto_presence = nn.Parameter(torch.zeros(P, 2))
         self.multiplier = nn.Parameter(torch.full((1,), 2.0))
@@ -75,16 +92,43 @@ class PrototypeHead(nn.Module):
         mask = tree.class_mask if cfg.protopool else tree.child_block_mask
         self.register_buffer("cls_mask", torch.as_tensor(mask), persistent=False)
 
+    def _unit_bias(self, dtype: torch.dtype) -> torch.Tensor:
+        """The add-on bias scaled to unit norm, detached."""
+        b = self.add_on_bias.to(dtype)
+        return (b / (torch.linalg.vector_norm(b) + 1e-12)).detach()
+
+    def proto_maps(self, features: torch.Tensor) -> torch.Tensor:
+        """The raw add-on response (B, H, W, P) before any softmax, in the
+        features' dtype, for each add-on type (ref pipnet/pipnet.py:1060-1113):
+        ``conv`` F K (+ bias); ``unit`` the cosine of F's rows with K's
+        columns (+ the unit bias); ``project`` F against K's unit columns (+
+        the unit bias); ``l2`` the log similarity log((d + 1) / (d + 1e-4))
+        of the squared distance d to K's columns (ProtoPNet's)."""
+        cfg = self.cfg
+        k = self.add_on_kernel.to(features.dtype)
+        if cfg.add_on_type == "conv":
+            z = features @ k
+            return z + self.add_on_bias.to(features.dtype) if cfg.add_on_bias else z
+        if cfg.add_on_type == "unit":
+            return self.cosine_maps(features)
+        if cfg.add_on_type == "project":
+            z = features @ _unit_columns(k)
+            return z + self._unit_bias(features.dtype) if cfg.add_on_bias else z
+        kd = k.detach()
+        x2 = (features ** 2).sum(dim=-1, keepdim=True)                    # (B, H, W, 1)
+        d = torch.relu(x2 - 2 * (features @ kd) + (kd ** 2).sum(dim=0))
+        return torch.log((d + 1.0) / (d + 1e-4))
+
     def cosine_maps(self, features: torch.Tensor) -> torch.Tensor:
         """functional_UnitConv2D (ref pipnet/pipnet.py:34-41): cosine
         similarity (B, H, W, P) of each patch's features with each
-        prototype's add-on column, the normalised kernel detached (no
-        gradient reaches it), in the features' dtype.  A plain product: the
-        JAX package computes it outside its Pallas kernel too."""
-        k = self.add_on_kernel.to(features.dtype)
-        kn = (k / (torch.linalg.vector_norm(k, dim=0, keepdim=True) + 1e-12)).detach()
+        prototype's add-on column, the normalised kernel (and the add-on
+        bias, scaled to unit norm, when there is one) detached: no gradient
+        reaches them.  In the features' dtype; a plain product: the JAX
+        package computes it outside its Pallas kernel too."""
         fn = features / (torch.linalg.vector_norm(features, dim=-1, keepdim=True) + 1e-12)
-        return fn @ kn
+        z = fn @ _unit_columns(self.add_on_kernel.to(features.dtype))
+        return z + self._unit_bias(features.dtype) if self.cfg.add_on_bias else z
 
     def effective_cls_weight(self) -> torch.Tensor:
         """relu(W) under the static block mask — the weights the classifier
@@ -97,12 +141,15 @@ class PrototypeHead(nn.Module):
     def forward(self, features: torch.Tensor, *, inference: bool = False,
                 apply_overspecificity_mask: bool = False,
                 keep: Optional[torch.Tensor] = None,
-                fuse_align_pf: bool = False) -> Dict[str, torch.Tensor]:
+                fuse_align_pf: bool = False,
+                gumbel_noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """features (B, H, W, D) -> {'proto_features', 'pooled', 'logits'};
-        with ``fuse_align_pf`` (B = two stacked views) -> {'pooled',
-        'logits', 'align_pf_logsum' (B/2, N)}, pf never materialised.
-        ``apply_overspecificity_mask`` needs ``keep`` (P,), the hard-Gumbel
-        presence sample (``models/pipnet.py::presence_keep``)."""
+        with ``fuse_align_pf`` (B = two stacked views; the fused head only)
+        -> {'pooled', 'logits', 'align_pf_logsum' (B/2, N)}, pf never
+        materialised.  ``apply_overspecificity_mask`` needs ``keep`` (P,),
+        the hard-Gumbel presence sample (``models/pipnet.py::presence_keep``).
+        ``gumbel_noise`` (B, H, W, P), read only by the Gumbel-softmax head,
+        is the sample its softmax adds."""
         if apply_overspecificity_mask and keep is None:
             raise ValueError("apply_overspecificity_mask requires keep")
         if not apply_overspecificity_mask:
@@ -110,6 +157,11 @@ class PrototypeHead(nn.Module):
         cfg = self.cfg
         if cfg.sg_before_protos:
             features = features.detach()
+        if not self.fused:
+            if fuse_align_pf:
+                raise ValueError("fuse_align_pf runs K2, which computes the conv add-on's "
+                                 "per-node softmax only; this head is a variant")
+            return self._composed(features, inference, keep, gumbel_noise)
         kernel = self.add_on_kernel.to(features.dtype)
         if fuse_align_pf:
             pooled, logsum = fused_head_nopf(features, kernel, self.tree,
@@ -121,6 +173,30 @@ class PrototypeHead(nn.Module):
         # cast before the threshold, as the JAX head does (heads.py:199-201)
         pooled, logits = self.classify(pooled.to(features.dtype), inference=inference,
                                        keep=keep)
+        return {"proto_features": pf, "pooled": pooled, "logits": logits}
+
+    def _composed(self, features: torch.Tensor, inference: bool,
+                  keep: Optional[torch.Tensor],
+                  gumbel_noise: Optional[torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """A variant head, as the JAX head's XLA path computes it
+        (``models/heads.py:209-244``)."""
+        cfg = self.cfg
+        z = self.proto_maps(features)
+        if cfg.add_on_type == "unit":
+            z = z.abs()                                      # ref pipnet/pipnet.py:127-128
+        if cfg.softmax_tau is not None:
+            pf = (spatial_softmax(z) if cfg.softmax_over_channel
+                  else segment_softmax(z, self.tree, tau=cfg.softmax_tau))
+        elif cfg.gumbel_softmax:
+            pf = segment_softmax(z, self.tree, noise=gumbel_noise, gumbel_tau=cfg.gumbel_tau)
+        else:
+            pf = z
+        if cfg.multiply_cs_softmax:
+            pf = self.cosine_maps(features) * pf             # ref pipnet/pipnet.py:154-157
+        pooled = pf.amax(dim=(1, 2))                         # AdaptiveMaxPool2d
+        if cfg.focal:
+            pooled = pooled - pf.mean(dim=(1, 2))            # ref pipnet/pipnet.py:161-162
+        pooled, logits = self.classify(pooled, inference=inference, keep=keep)
         return {"proto_features": pf, "pooled": pooled, "logits": logits}
 
     def classify(self, pooled: torch.Tensor, *, inference: bool = False,

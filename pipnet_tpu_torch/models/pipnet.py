@@ -2,10 +2,13 @@
 
 Counterpart of the JAX package's ``models/pipnet.py`` (itself the reference
 ``PIPNet``, ``pipnet/pipnet.py:54-185``): the ConvNeXt backbones (each
-block's branch through K4 under ``use_pallas_backbone``), the ResNets with
-their BatchNorm statistics and DINOv2 ViT-S/14, the conv add-on head over K1
-(or K2 for a training step that fuses align_pf), BYOL's projector and
-predictor, the vectorized joint distribution over leaves, and the
+block's branch through K4 under ``use_pallas_backbone``, or with the
+Gaussian multiplier on some stages' depthwise kernels), the ResNets with
+their BatchNorm statistics and DINOv2 ViT-S/14, the optional stage-4
+reducer (dense layers after the backbone, whose last width the head
+takes), the prototype head over K1 (or K2 for a training step that fuses
+align_pf; the head variants on the composed operations), BYOL's projector
+and predictor, the vectorized joint distribution over leaves, and the
 overspecificity mask's presence sample and degenerate-node verdict.
 """
 
@@ -45,10 +48,28 @@ BACKBONES = {
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def _unported(cfg: ModelConfig) -> list:
-    return [name for name, on in (
-        ("gaussian_stages", bool(cfg.gaussian_stages)),
-        ("stage4_reducer", bool(cfg.stage4_reducer))) if on]
+class Stage4Reducer(nn.Module):
+    """The optional channel reducer after the backbone (ref
+    pipnet/pipnet.py:1167-1183, ``--stage4_reducer_net 'in,out,gelu|...'``):
+    a stack of 1x1 convolutions, dense layers ``reducer{i}`` over the last
+    axis here (the JAX package's names), each followed by the exact GELU
+    where its flag is set, computed in the compute dtype."""
+
+    def __init__(self, layers):
+        super().__init__()
+        self.layers = tuple((int(cin), int(cout), bool(gelu)) for cin, cout, gelu in layers)
+        for i, (cin, cout, _) in enumerate(self.layers):
+            self.add_module(f"reducer{i}", nn.Linear(cin, cout))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i, (cin, _, gelu) in enumerate(self.layers):
+            if x.shape[-1] != cin:
+                raise ValueError(f"reducer layer {i} expects {cin} channels, got {x.shape[-1]}")
+            dense = getattr(self, f"reducer{i}")
+            x = torch.nn.functional.linear(x, dense.weight.to(x.dtype), dense.bias.to(x.dtype))
+            if gelu:
+                x = torch.nn.functional.gelu(x)
+        return x
 
 
 class PIPNet(nn.Module):
@@ -58,22 +79,31 @@ class PIPNet(nn.Module):
         super().__init__()
         if cfg.backbone not in BACKBONES:
             raise ValueError(f"unknown backbone {cfg.backbone}; options: {list(BACKBONES)}")
-        missing = _unported(cfg)
-        if missing:
-            raise NotImplementedError(
-                f"model options {missing} are not ported yet (ROADMAP item 11); the "
-                f"port runs {sorted(BACKBONES)} with the conv prototype head")
         self.tree, self.cfg = tree, cfg
         self.dtype = _DTYPES[cfg.compute_dtype]
         ctor, channels = BACKBONES[cfg.backbone]
+        if cfg.gaussian_stages and not cfg.backbone.startswith("convnext"):
+            raise ValueError("gaussian multiplier surgery is a ConvNeXt-only option "
+                             "(ref pipnet/pipnet.py:1142-1143)")
         if cfg.backbone.startswith("convnext"):
+            # with the Gaussian multiplier no block is fused, as in the JAX
+            # package, which builds that backbone without its Pallas blocks
             self.backbone = ctor(dtype=self.dtype, fast_gelu=cfg.fast_gelu,
-                                 fused=cfg.use_pallas_backbone)
+                                 fused=cfg.use_pallas_backbone,
+                                 gaussian_stages=tuple(cfg.gaussian_stages),
+                                 gaussian_sigma=cfg.gaussian_sigma,
+                                 gaussian_factor=cfg.gaussian_factor)
         elif cfg.use_pallas_backbone:
             raise ValueError(f"use_pallas_backbone fuses ConvNeXt blocks (K4); backbone "
                              f"{cfg.backbone!r} has none")
         else:
             self.backbone = ctor(dtype=self.dtype)
+        if cfg.stage4_reducer:
+            if cfg.use_byol:
+                raise ValueError("BYOL with a stage-4 reducer: the JAX package's EMA target "
+                                 "holds no reducer (train/step.py:160-166)")
+            self.reducer = Stage4Reducer(cfg.stage4_reducer)
+            channels = cfg.stage4_reducer[-1][1]
         self.head = PrototypeHead(tree, cfg.head, channels)
         if cfg.use_byol:
             self.projector = PatchMLP(channels)
@@ -81,14 +111,16 @@ class PIPNet(nn.Module):
 
     def features(self, xs: torch.Tensor, *, train: bool = False,
                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        return self.backbone(xs, train=train, generator=generator)
+        f = self.backbone(xs, train=train, generator=generator)
+        return self.reducer(f) if self.cfg.stage4_reducer else f
 
     def forward(self, xs: torch.Tensor, *, train: bool = False,
                 generator: Optional[torch.Generator] = None,
                 inference: bool = False, apply_overspecificity_mask: bool = False,
                 keep: Optional[torch.Tensor] = None,
                 fuse_align_pf: bool = False,
-                with_byol: bool = False) -> Dict[str, torch.Tensor]:
+                with_byol: bool = False,
+                gumbel_noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """xs (B, S, S, 3) -> {'features', 'proto_features', 'pooled',
         'logits'} with layouts (B,H,W,D), (B,H,W,P), (B,P), (B,C).  ``train``
         turns stochastic depth on, drawing from ``generator``, and
@@ -98,11 +130,12 @@ class PIPNet(nn.Module):
         ``fuse_align_pf`` (two stacked views): 'align_pf_logsum' (B/2, N)
         replaces 'proto_features' (K2; see ``PrototypeHead``).
         ``with_byol`` adds 'byol_online' = predictor(projector(features))
-        (ref pipnet_byol/pipnet_byol.py:105-110)."""
+        (ref pipnet_byol/pipnet_byol.py:105-110).  ``gumbel_noise`` is the
+        Gumbel-softmax head's sample (``PrototypeHead``)."""
         f = self.features(xs, train=train, generator=generator)
         out = self.head(f, inference=inference,
                         apply_overspecificity_mask=apply_overspecificity_mask,
-                        keep=keep, fuse_align_pf=fuse_align_pf)
+                        keep=keep, fuse_align_pf=fuse_align_pf, gumbel_noise=gumbel_noise)
         out["features"] = f
         if with_byol:
             if not self.cfg.use_byol:

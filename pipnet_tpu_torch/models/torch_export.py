@@ -14,7 +14,8 @@ CLI (it reads the checkpoint on the host; no computation runs)::
     python -m pipnet_tpu_torch.models.torch_export --run_dir runs/x --out net.pth
 
 Not exported (no reference counterpart or no fixed reference naming): BYOL's
-heads and target, optimizer state, DINOv2 backbones (the reference loads
+heads and target, the stage-4 reducer's layers (the JAX package's export
+writes none either), optimizer state, DINOv2 backbones (the reference loads
 those from torch hub, not its checkpoints).
 """
 
@@ -112,6 +113,8 @@ def export_reference_pipnet(state: Mapping[str, torch.Tensor], tree: TreeArrays,
         sd[f"{mp}_{name}_add_on.weight"] = _t(add_on[:, sl].t()[:, :, None, None])
         sd[f"{mp}_{name}_classification.weight"] = _t(cls_w[cs, sl])
         sd[f"{mp}_{name}_proto_presence"] = _t(presence[sl])
+        if "head.add_on_bias" in state:
+            sd[f"{mp}_{name}_add_on.bias"] = _t(state["head.add_on_bias"][sl])
         if "head.cls_bias" in state:
             sd[f"{mp}_{name}_classification.bias"] = _t(state["head.cls_bias"][cs])
     sd[f"{mp}_multiplier"] = _t(state["head.multiplier"]).reshape(1)

@@ -150,13 +150,11 @@ def convert_reference_pipnet(sd: Mapping[str, Any], tree: TreeArrays, arch: str)
     whole ``state_dict``: the backbone's entries and the stacked head
     (``add_on_kernel`` (D, P), ``cls_weight`` (C, P) at -0.5 off the
     nodes' blocks, ``proto_presence`` (P, 2), ``multiplier``, ``cls_bias``
-    when the checkpoint has classifier biases).  Padding slots hold zeros.
-    Add-on biases raise: the port's head has none (ROADMAP item 11)."""
+    when the checkpoint has classifier biases, ``add_on_bias`` (P,) when it
+    has add-on biases).  Padding slots hold zeros."""
     pref = "module._net." if any(k.startswith("module._net.") for k in sd) else "_net."
     mpre = "module." if pref.startswith("module.") else ""
     out = convert_backbone(arch, sd, pref)
-    if f"{mpre}_{tree.node_names[0]}_add_on.bias" in sd:
-        raise NotImplementedError("add-on biases are not ported yet (ROADMAP item 11)")
     P, C = tree.num_protos_padded, tree.num_children_total
     add_on = presence = cls_b = None
     cls_w = torch.full((C, P), -0.5)
@@ -181,4 +179,9 @@ def convert_reference_pipnet(sd: Mapping[str, Any], tree: TreeArrays, arch: str)
                 "head.multiplier": _t(sd.get(f"{mpre}_multiplier", [2.0])).reshape(1)})
     if cls_b is not None:
         out["head.cls_bias"] = cls_b
+    if f"{mpre}_{tree.node_names[0]}_add_on.bias" in sd:
+        bias = torch.zeros(P)
+        for ni, name in enumerate(tree.node_names):
+            bias[tree.node_proto_slice(ni)] = _t(sd[f"{mpre}_{name}_add_on.bias"])
+        out["head.add_on_bias"] = bias
     return out

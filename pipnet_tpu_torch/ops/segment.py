@@ -75,8 +75,9 @@ def segment_max_to_nodes(x: torch.Tensor, tree: TreeArrays,
     return torch.cat(parts, dim=-1)
 
 
-def segment_softmax(x: torch.Tensor, tree: TreeArrays,
-                    tau: float = 1.0) -> torch.Tensor:
+def segment_softmax(x: torch.Tensor, tree: TreeArrays, tau: float = 1.0,
+                    noise: Optional[torch.Tensor] = None, gumbel_tau: float = 1.0
+                    ) -> torch.Tensor:
     """Per-node softmax over the prototype axis, per patch, computed in f32
     and returned in ``x``'s dtype.
 
@@ -85,7 +86,16 @@ def segment_softmax(x: torch.Tensor, tree: TreeArrays,
     by the true per-node max, exp clipped to [-80, 60], per-node sums and
     their broadcast back as matmuls against the (P, N) one-hot, denominator
     floor 1e-18.  Padded prototype slots come out exactly 0.
+
+    With ``noise`` (a Gumbel sample of ``x``'s shape) the softmax is the
+    soft ``F.gumbel_softmax``, ``softmax((x + noise) / gumbel_tau)`` per
+    node, and ``tau`` is not read (ref pipnet/pipnet.py:43-51,150-152; the
+    JAX package draws the sample from a key, the port takes it as a tensor,
+    as ``soft_gumbel`` does).
     """
+    if noise is not None:
+        x = (x + noise) / gumbel_tau
+        tau = 1.0
     onehot = tree_tensor(tree, "node_onehot", _node_onehot(tree), x.device,
                          torch.float32)
     valid = tree_tensor(tree, "proto_valid_f32",
@@ -101,6 +111,14 @@ def segment_softmax(x: torch.Tensor, tree: TreeArrays,
     denom = (e @ onehot) @ onehot.T
     p = e / torch.clamp(denom, min=1e-18)
     return p.to(x.dtype)
+
+
+def spatial_softmax(x: torch.Tensor) -> torch.Tensor:
+    """Softmax over the spatial axes of ``(B, H, W, P)`` per prototype: the
+    ``softmax_over_channel='y'`` variant (ref pipnet/pipnet.py:138-144,
+    which reshapes (B,C,H,W)->(B,C,HW) and softmaxes over the last axis)."""
+    B, H, W, P = x.shape
+    return torch.softmax(x.reshape(B, H * W, P), dim=1).reshape(B, H, W, P)
 
 
 def segment_sum_to_nodes(x: torch.Tensor, tree: TreeArrays) -> torch.Tensor:

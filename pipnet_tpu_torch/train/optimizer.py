@@ -34,18 +34,19 @@ Tensors = Dict[str, torch.Tensor]
 # group labels
 # ---------------------------------------------------------------------------
 
-_HEAD_GROUPS = {"add_on_kernel": "add_on", "cls_weight": "classifier",
+_HEAD_GROUPS = {"add_on_kernel": "add_on", "add_on_bias": "add_on", "cls_weight": "classifier",
                 "cls_bias": "classifier", "proto_presence": "presence",
                 "multiplier": "frozen"}       # frozen at 2.0 (main.py:347,368,387)
 
 
 def label_params(names, backbone_arch: str) -> Dict[str, str]:
     """Group label of each parameter name of the port's ``PIPNet``
-    (``head.<leaf>``, ``backbone.<module>.<...>``, BYOL's ``projector.*``
-    and ``predictor.*``), the reference's partition
-    (``util/args.py:464-556``).  BYOL's heads train with the net optimizer
-    at the backbone tail's rate, as in the JAX package (the reference's
-    BYOL optimizer is NotImplemented, util/args.py:453-454)."""
+    (``head.<leaf>``, ``backbone.<module>.<...>``, ``reducer.*``, BYOL's
+    ``projector.*`` and ``predictor.*``), the reference's partition
+    (``util/args.py:464-556``).  The stage-4 reducer and BYOL's heads train
+    with the net optimizer at the backbone tail's rate, as in the JAX
+    package (the reference's BYOL optimizer is NotImplemented,
+    util/args.py:453-454)."""
     if backbone_arch.startswith("convnext"):
         groups = convnext_param_groups
     elif backbone_arch.startswith("dinov2"):
@@ -57,7 +58,7 @@ def label_params(names, backbone_arch: str) -> Dict[str, str]:
         top, module = name.split(".")[:2]
         if top == "head":
             labels[name] = _HEAD_GROUPS.get(module, "frozen")
-        elif top in ("projector", "predictor"):
+        elif top in ("reducer", "projector", "predictor"):
             labels[name] = "train"
         elif top == "backbone":
             labels[name] = groups([module])[module]

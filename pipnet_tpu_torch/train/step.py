@@ -186,22 +186,25 @@ def make_train_step(model: PIPNet, tree: TreeArrays, cfg: RunConfig,
     ``xs1``/``xs2`` are the two views (B, S, S, 3) float, or ``xs1`` is one
     uint8 batch (the resized base or the host's geometric view) and ``xs2``
     None, augmented on the device (``augment_views``); ``ys`` (B,) the fine
-    labels.  ``fuse_align_pf`` runs the head through K2 (align_pf
-    reduced in-kernel, pf never materialised); it needs align_pf on, the
-    reference ``align_eps`` (None) and a phase that is not a finetune phase,
-    and raises otherwise.  ``presence_noise`` (P, 2), when given, replaces
+    labels, -1 for OOD rows (``statics.has_ood``: the OOD BCE loss adds in
+    outside pretraining; the loss tables map -1 to their sentinel row).
+    ``fuse_align_pf`` runs the head through K2 (align_pf reduced in-kernel,
+    pf never materialised); it needs align_pf on, the reference
+    ``align_eps`` (None), a phase that is not a finetune phase and the
+    fused head (``models/heads.py::head_supports_fusion``), and raises
+    otherwise.  ``presence_noise`` (P, 2), when given, replaces
     the step's draw of the presence Gumbel noise (tests hand both packages
     the same sample); ``augment_draws``, likewise, replaces the draws of
     the device augmentation."""
     lcfg, ocfg, ph = cfg.train.loss, cfg.train.optim, statics.phase
-    if statics.has_ood:
-        raise NotImplementedError("the OOD losses are not ported yet")
     if fuse_align_pf:
         why = [reason for reason, bad in (
             ("align_pf is off", not lcfg.align_pf),
             (f"align_eps={lcfg.align_eps} is set (K2 takes the reference 1e-12)",
              lcfg.align_eps is not None),
-            (f"phase {ph.name!r} computes no align_pf", ph.finetune)) if bad]
+            (f"phase {ph.name!r} computes no align_pf", ph.finetune),
+            ("the head is a variant that K2 does not compute",
+             not model.head.fused)) if bad]
         if why:
             raise ValueError(f"fuse_align_pf=True cannot apply: {'; '.join(why)}")
 
@@ -245,8 +248,9 @@ def make_train_step(model: PIPNet, tree: TreeArrays, cfg: RunConfig,
             add_on_kernel=head.add_on_kernel, proto_presence=head.proto_presence,
             multiplier=head.multiplier[0].detach(), cfg=eff_lcfg, weights=weights,
             tree=tree, pretrain=ph.pretrain, finetune=ph.finetune,
-            generator=state.generator, presence_noise=presence_noise,
-            byol_online=out.get("byol_online"), byol_target=byol_target)
+            ood_present=statics.has_ood, generator=state.generator,
+            presence_noise=presence_noise, byol_online=out.get("byol_online"),
+            byol_target=byol_target)
         loss.backward()       # .grad stays set (unclipped) until the next step
         grads = {n: p.grad for n, p in state.params.items()}
 

@@ -44,6 +44,33 @@ from .step import (Scalars, StepStatics, TrainState, init_train_state, make_eval
                    make_train_step, reinit_optimizer)
 
 
+def _ood_chunks(ood_loader: Loader, start_epoch: int, size: int):
+    """Endless stream of fixed-``size`` (xs1, xs2) OOD chunks (host arrays).
+
+    Cycles the OOD loader across epochs (its iterator restarted with the
+    next epoch number, so the augmentations stay fresh) and re-chunks the
+    rows, so every training step sees exactly ``size`` OOD rows.  The
+    reference silently truncates its zip where the OOD epoch is shorter
+    (pipnet/train.py:205-214); cycling is the JAX package's deliberate
+    deviation, kept for parity."""
+    buf1, buf2, have = [], [], 0
+    ep = start_epoch
+    while True:
+        for b in ood_loader.epoch(ep):
+            buf1.append(b.xs1)
+            if b.xs2 is not None:       # None under device-side transform2
+                buf2.append(b.xs2)
+            have += len(b.xs1)
+            while have >= size:
+                x1 = np.concatenate(buf1) if len(buf1) > 1 else buf1[0]
+                x2 = (np.concatenate(buf2) if len(buf2) > 1 else buf2[0]) if buf2 else None
+                yield x1[:size], (x2[:size] if x2 is not None else None)
+                buf1 = [x1[size:]]
+                buf2 = [x2[size:]] if x2 is not None else []
+                have = len(buf1[0])
+        ep += 1
+
+
 class Trainer:
     # per-node CSV columns (fixed, "n.a" when a loss is inactive in a phase:
     # the reference's fixed set, pipnet/train.py:186-194, plus the
@@ -51,7 +78,8 @@ class Trainer:
     NODE_LOSS_COLS = ("class", "tanh", "tanh_desc", "kernel_orth", "align_pf")
 
     def __init__(self, model: PIPNet, tree: TreeArrays, cfg: RunConfig,
-                 loaders: Loaders, log: Optional[RunLog] = None):
+                 loaders: Loaders, log: Optional[RunLog] = None,
+                 ood_loaders: Optional[Loaders] = None):
         t = cfg.train
         if t.data_parallel > 1 or t.model_parallel > 1 or t.zero1:
             raise NotImplementedError(
@@ -62,6 +90,9 @@ class Trainer:
         self.tree = tree
         self.cfg = cfg
         self.loaders = loaders
+        # the OOD dataset's loaders (--OOD_dataset): their train loader
+        # feeds OOD rows (label -1) into every phase-2 step
+        self.ood_loaders = ood_loaders
         self.log = log or RunLog(cfg.log_dir)
         self.device = model.head.add_on_kernel.device
         self._step_cache: Dict[tuple, Callable] = {}
@@ -150,7 +181,12 @@ class Trainer:
 
     # -- epochs --------------------------------------------------------------
     def run_epoch(self, epoch: int, *, pretrain: bool, net_t0: int, net_T: int,
-                  loader: Loader) -> Dict:
+                  loader: Loader, ood_loader: Optional[Loader] = None) -> Dict:
+        """One epoch of ``loader``'s batches.  With ``ood_loader`` each step
+        also takes a fixed-size chunk of OOD rows (``_ood_chunks``, label
+        -1) after the batch's own, and the epoch streams from the host: the
+        device cache holds one dataset, and the OOD rows come from a
+        second."""
         cfg = self.cfg.train
         phase = phase_for_epoch(epoch, cfg, pretrain=pretrain)
         mask_prune_active = (cfg.loss.mask_prune_overspecific and not pretrain
@@ -165,7 +201,7 @@ class Trainer:
         statics = StepStatics(
             phase=phase,
             mask_prune_active=mask_prune_active,
-            has_ood=False,
+            has_ood=ood_loader is not None,
             eta_min_net=(cfg.optim.lr_block / 100.0 if pretrain
                          else cfg.optim.lr_net / 100.0),
             t0_cls=5.0 if cfg.epochs <= 30 else 10.0,   # main.py:504-507
@@ -189,7 +225,12 @@ class Trainer:
         # the device gathers the uint8 bases itself (data/device_cache.py);
         # as in the JAX package, the epoch's clock includes building it
         t_start = time.time()
-        cache = self.device_cache_for(loader)
+        cache = self.device_cache_for(loader) if ood_loader is None else None
+        # fixed-size OOD chunks from a cycling stream, so every step sees one
+        # combined batch shape; the JAX trainer trims the chunk so that the
+        # combined batch divides its data mesh, one shard on one card
+        ood_iter = (_ood_chunks(ood_loader, epoch, ood_loader.batch_size)
+                    if ood_loader is not None else None)
         dev = self.device
 
         def batches():
@@ -198,9 +239,16 @@ class Trainer:
                     yield cache.fetch(rows), None, host_to_device(ys, dev), len(ys)
                 return
             for b in loader.epoch(epoch):
-                yield (host_to_device(b.xs1, dev),
-                       None if b.xs2 is None else host_to_device(b.xs2, dev),
-                       host_to_device(b.ys, dev), len(b.ys))
+                xs1, xs2, ys = b.xs1, b.xs2, b.ys
+                if ood_iter is not None:
+                    ox1, ox2 = next(ood_iter)
+                    xs1 = np.concatenate([xs1, ox1])
+                    if xs2 is not None:
+                        xs2 = np.concatenate([xs2, ox2])
+                    ys = np.concatenate([ys, np.full(len(ox1), -1, ys.dtype)])
+                yield (host_to_device(xs1, dev),
+                       None if xs2 is None else host_to_device(xs2, dev),
+                       host_to_device(ys, dev), len(ys))
 
         # profiling: trace steps 2..1+trace_steps of the chosen epoch (step 1
         # carries the warm-up and would dominate the trace)
@@ -332,11 +380,12 @@ class Trainer:
             self.state = reinit_optimizer(self.state)
         net_t = start_epoch * len(self.loaders.train)
         net_T = len(self.loaders.train) * n_epochs
+        ood_loader = self.ood_loaders.train if self.ood_loaders else None
         last_eval: Dict = {}
         info: Dict = {}   # stays empty when resuming an already-finished run
         for epoch in range(start_epoch + 1, n_epochs + 1):
             info = self.run_epoch(epoch, pretrain=False, net_t0=net_t, net_T=net_T,
-                                  loader=self.loaders.train)
+                                  loader=self.loaders.train, ood_loader=ood_loader)
             net_t = info["net_t_end"]
             self._log_epoch("train", epoch + n_pre_log, info)
             if (epoch % eval_every == 0 or epoch == n_epochs) and n_epochs > 1:

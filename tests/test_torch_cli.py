@@ -188,11 +188,7 @@ def test_short_run_serves_the_trainers_logits_and_resumes(tmp_path, port_small_b
 
 
 REFUSED = [
-    (["--OOD_dataset", "synthetic:4:4:s9"], NotImplementedError, "ROADMAP item 11"),
-    (["--align", "y"], NotImplementedError, "ROADMAP item 11"),
-    (["--uni", "y"], NotImplementedError, "ROADMAP item 11"),
-    (["--OOD_ent", "y"], NotImplementedError, "ROADMAP item 11"),
-    (["--minmaximize", "y"], NotImplementedError, "ROADMAP item 11"),
+    (["--minmaximize", "y"], NotImplementedError, "dead stub"),
     (["--data_parallel", "2"], NotImplementedError, "ROADMAP item 10"),
     (["--model_parallel", "2"], NotImplementedError, "ROADMAP item 10"),
     (["--zero1", "y"], NotImplementedError, "ROADMAP item 10"),

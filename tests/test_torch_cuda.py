@@ -761,3 +761,124 @@ def test_resnet18_step_on_card_matches_cpu(card):
             assert (sd_g[k] - v).abs().max() <= 1e-4 * max(v.abs().max().item(), 1.0), k
     for k, v in mu_c.items():
         assert (mu_g[k] - v).norm() <= 1e-2 * v.norm() + 1e-12, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_uniform_loss_on_card_matches_cpu(card, dtype):
+    """The blocked uniformity loss and its recomputing backward on the card
+    (cuBLAS products, TF32 off) against the CPU's on the same rows: f32
+    loss within 1e-5 relative and gradients within 1e-4 of their largest;
+    bf16 (products in bf16 on both, rounded in their own orders) loss
+    within 1e-3 and gradients within 2^-6 of their largest."""
+    from pipnet_tpu_torch.losses.catalog import uniform_loss
+    x = np.random.default_rng(21).standard_normal((3000, 64))
+    x = torch.from_numpy((x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32))
+    x = x.to(getattr(torch, dtype))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        xd = x.to(dev).clone().requires_grad_(True)
+        loss = uniform_loss(xd, block=512)
+        loss.backward()
+        out[dev] = (float(loss.detach()), xd.grad.float().cpu())
+    (lc, gc), (lg, gg) = out["cpu"], out["cuda"]
+    rel, grel = (1e-5, 1e-4) if dtype == "float32" else (1e-3, 2.0 ** -6)
+    assert abs(lg - lc) <= rel * abs(lc)
+    assert (gg - gc).abs().max() <= grel * gc.abs().max()
+
+
+VARIANTS_ON_CARD = {"unit": {"add_on_type": "unit", "add_on_bias": True},
+                    "project": {"add_on_type": "project"}, "l2": {"add_on_type": "l2"},
+                    "gumbel": {"softmax_tau": None, "gumbel_softmax": True},
+                    "spatial": {"softmax_over_channel": True},
+                    "cosine_focal": {"multiply_cs_softmax": True, "focal": True}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(VARIANTS_ON_CARD))
+def test_head_variants_on_card_match_cpu(card, name):
+    """A head variant (the composed operations, no kernel: K1 launches 0)
+    on the flagship tree at 26x26x768, f32 on the card (TF32 off) against
+    the CPU on the same weights and features: pf and pooled within 1e-5,
+    logits within 1e-5 of their largest."""
+    import dataclasses
+    from pipnet_tpu_torch.config import HeadConfig
+    from pipnet_tpu_torch.models.heads import PrototypeHead
+    from pipnet_tpu_torch.ops.fused_head import fused_head
+    tree = _tree("flagship")
+    cfg = dataclasses.replace(HeadConfig(protopool=False), **VARIANTS_ON_CARD[name])
+    r = np.random.default_rng(22)
+    P, C, D = tree.num_protos_padded, tree.num_children_total, 768
+    state = {"add_on_kernel": torch.from_numpy((0.05 * r.standard_normal((D, P)))
+                                               .astype(np.float32)),
+             "cls_weight": torch.from_numpy((1 + 0.1 * r.standard_normal((C, P)))
+                                            .astype(np.float32)),
+             "proto_presence": torch.zeros((P, 2)), "multiplier": torch.full((1,), 2.0)}
+    if cfg.add_on_bias:
+        state["add_on_bias"] = torch.from_numpy(r.standard_normal(P).astype(np.float32))
+    f = torch.from_numpy(r.standard_normal((2, 26, 26, D)).astype(np.float32))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        head = PrototypeHead(tree, cfg, D)
+        head.load_state_dict(state)
+        head.to(dev)
+        fused_head.launches = 0
+        with torch.inference_mode():
+            out[dev] = {k: v.cpu() for k, v in head(f.to(dev), inference=True).items()}
+        assert fused_head.launches == 0
+    for k in ("proto_features", "pooled"):
+        torch.testing.assert_close(out["cuda"][k], out["cpu"][k], atol=1e-5, rtol=0)
+    lc = out["cpu"]["logits"]
+    assert (out["cuda"]["logits"] - lc).abs().max() <= 1e-5 * lc.abs().max()
+
+
+@pytest.mark.cuda
+def test_options_step_on_card_matches_cpu(card, monkeypatch):
+    """One joint-phase step of a narrow ConvNeXt at 32^2 in f32 (TF32 off)
+    with the Gaussian multiplier, a stage-4 reducer, the align and
+    uniformity losses on and an OOD row in each view, on the card (K1, K1b
+    once each) and on the CPU from the same weights and batch: every loss
+    within 1e-5 relative."""
+    import dataclasses
+    import os
+    import pipnet_tpu_torch.models.pipnet as tp
+    from pipnet_tpu_torch.models import build_pipnet, random_jax_variables, state_dict_from_jax
+    from pipnet_tpu_torch.models.convnext import ConvNeXtTiny
+    from pipnet_tpu_torch.ops.fused_head import fused_head, head_backward
+    from pipnet_tpu_torch.run_io import load_run_config
+    from pipnet_tpu_torch.train import (Scalars, StepStatics, init_train_state,
+                                        make_train_step, phase_for_epoch)
+    from torch_port_util import FLAGSHIP_META, SMALL_DEPTHS, SMALL_DIMS, SMALL_THRESHOLDS
+    monkeypatch.setitem(tp.BACKBONES, "convnext_tiny_26", (functools.partial(
+        ConvNeXtTiny, stride_threshold=SMALL_THRESHOLDS["convnext_tiny_26"],
+        depths=SMALL_DEPTHS, dims=SMALL_DIMS, stochastic_depth_prob=0.0), SMALL_DIMS[-1]))
+    cfg = load_run_config(os.path.dirname(FLAGSHIP_META))
+    cfg = dataclasses.replace(
+        cfg, model=dataclasses.replace(
+            cfg.model, image_size=32, compute_dtype="float32", gaussian_stages=(3, 4),
+            stage4_reducer=((SMALL_DIMS[-1], 24, True), (24, 16, False))),
+        train=dataclasses.replace(cfg.train, loss=dataclasses.replace(
+            cfg.train.loss, align=True, uni=True, ood_loss=True)))
+    r = np.random.default_rng(23)
+    xs = torch.from_numpy(r.standard_normal((2, 3, 32, 32, 3)).astype(np.float32))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        _, root, classes = flagship_roots()
+        model, tree = build_pipnet(root, cfg.model, weighted=cfg.train.loss.weighted_ce,
+                                   class_names=classes, device=dev)
+        model.load_state_dict(state_dict_from_jax(random_jax_variables(
+            cfg.model, tree, seed=4, backbone=model.backbone)))
+        ys = torch.tensor([3, 77, -1])
+        statics = StepStatics(phase=phase_for_epoch(20, cfg.train, pretrain=False),
+                              mask_prune_active=True, has_ood=True, eta_min_net=5e-6)
+        fused_head.launches = head_backward.launches = 0
+        _, m = make_train_step(model, tree, cfg, statics)(
+            init_train_state(model, seed=0), xs[0].to(dev), xs[1].to(dev), ys.to(dev),
+            Scalars(3.0, 100.0, 0.5, 5.0, 2.0),
+            presence_noise=torch.zeros((tree.num_protos_padded, 2), device=dev))
+        out[dev] = {k: float(v) for k, v in m.items() if k.startswith("loss")}
+        if dev == "cuda":
+            assert fused_head.launches == 1 and head_backward.launches == 1
+    assert {"loss/align", "loss/uniform", "loss/ood_bce"} <= set(out["cpu"])
+    for k, v in out["cpu"].items():
+        assert abs(out["cuda"][k] - v) <= 1e-5 * max(abs(v), 1e-6), k

@@ -197,6 +197,30 @@ def _jax_head(tj, tau, interpret):
     return head
 
 
+def _which_side_moved(f, k, tree, tau, pf, pf_j, rerun):
+    """What a mismatch of the two heads' pf shows: each side's distance from a
+    float64 evaluation, the rows where it is off and their denominators'
+    relative error (the median over the row's node of pf / pf64 - 1), and
+    whether a second call of each side gives the same bits."""
+    z = f.astype(np.float64) @ k.astype(np.float64) / tau
+    want = np.zeros_like(z)
+    for n in np.unique(tree.proto_node[tree.proto_node >= 0]):
+        cols = tree.proto_node == n
+        e = np.exp(z[..., cols] - z[..., cols].max(-1, keepdims=True))
+        want[..., cols] = e / e.sum(-1, keepdims=True)
+    valid = tree.proto_valid
+    lines = []
+    for name, got, again in (("port", pf, rerun[0]), ("jax", pf_j, rerun[1])):
+        err = np.abs(got.astype(np.float64) - want)[..., valid].max(-1)
+        bad = np.argwhere(err > 1e-6)
+        ratio = np.median(got[..., valid] / want[..., valid], axis=-1) - 1.0
+        lines.append(f"{name}: max |pf - pf64| {err.max():.3g}; rows (b, h, w) off by "
+                     f"more than 1e-6: {bad.tolist()[:16]}; their denominators' "
+                     f"relative error {[float(ratio[tuple(i)]) for i in bad[:16]]}; "
+                     f"second call bit-equal: {np.array_equal(got, again)}")
+    return "\n".join(lines)
+
+
 FLAT_HEAD_CASES = [("flat256", 1.0, True), ("flat256", 0.5, True), ("flat300", 0.5, False),
                    ("flat2000", 1.0, False)]
 
@@ -209,8 +233,14 @@ def test_plain_fused_head_matches_jax_on_flat_trees(tree_name, tau, interpret):
     f, k = _inputs(tt, seed=1)
     pf, pooled = fused_head(torch.from_numpy(f), torch.from_numpy(k), tt, tau=tau)
     pf_j, pooled_j = _jax_head(tj, tau, interpret)(jnp.asarray(f), jnp.asarray(k))
-    np.testing.assert_allclose(pf.numpy(), np.asarray(pf_j), atol=2e-6, rtol=0)
-    np.testing.assert_allclose(pooled.numpy(), np.asarray(pooled_j), atol=2e-6, rtol=0)
+    try:
+        np.testing.assert_allclose(pf.numpy(), np.asarray(pf_j), atol=2e-6, rtol=0)
+        np.testing.assert_allclose(pooled.numpy(), np.asarray(pooled_j), atol=2e-6, rtol=0)
+    except AssertionError as e:
+        rerun = (fused_head(torch.from_numpy(f), torch.from_numpy(k), tt, tau=tau)[0].numpy(),
+                 np.asarray(_jax_head(tj, tau, interpret)(jnp.asarray(f), jnp.asarray(k))[0]))
+        raise AssertionError(f"{e}\n" + _which_side_moved(f, k, tt, tau, pf.numpy(),
+                                                         np.asarray(pf_j), rerun)) from None
     assert (pf.numpy()[..., ~tt.proto_valid] == 0).all()
     np.testing.assert_allclose(pf.numpy()[..., tt.proto_valid].sum(-1), 1.0, atol=1e-5)
 

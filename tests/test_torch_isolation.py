@@ -28,7 +28,7 @@ def test_importing_the_port_loads_no_jax():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'pipnet_tpu'))\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 64, names\n"
+        "assert len(names) >= 66, names\n"
         "for m in ('ops.fused_head_nopf', 'ops.dwconv', 'ops.cnblock', 'losses.catalog', "
         "'losses.aggregate', 'train.optimizer', 'train.step', 'data.loader', "
         "'data.device_cache', 'ops.device_augment', 'ops.device_geometric', 'native', "
@@ -37,7 +37,7 @@ def test_importing_the_port_loads_no_jax():
         "'interp.adversarial', 'interp.heatmaps', 'interp.hierarchy_viz', 'interp.mips', "
         "'interp.part_purity', 'interp.patches', 'interp.prediction', 'interp.pruning', "
         "'interp.topk', 'models.resnet', 'models.vit', 'models.byol', "
-        "'models.torch_import', 'models.torch_export'):\n"
+        "'models.torch_import', 'models.torch_export', 'tools', 'runtime.wandb_export'):\n"
         "    assert 'pipnet_tpu_torch.' + m in names, m\n"
         "print('ok', len(names))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

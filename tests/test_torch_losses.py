@@ -207,13 +207,19 @@ def test_resolve_tanh_eps():
 
 
 def test_unported_losses_raise(case):
+    """The align/uniformity and OOD losses are ported (their parity tests
+    are ``tests/test_torch_align_uniform.py`` and ``tests/test_torch_ood.py``);
+    what raises is what the JAX package refuses: ``minmaximize`` (its
+    reason), and ``uni`` without ``align``."""
     _, tt, x = case
     _, tcfg = flagship_configs()
     v = {k: torch.tensor(a) for k, a in x.items()}
-    out = {"pooled": v["pooled"], "logits": v["logits"], "proto_features": v["pf"]}
-    for change in (dict(align=True), dict(ood_loss=True)):
+    out = {"pooled": v["pooled"], "logits": v["logits"], "proto_features": v["pf"],
+           "features": v["features"]}
+    for change, error, match in ((dict(minmaximize=True), NotImplementedError, "dead stub"),
+                                 (dict(align=False, uni=True), ValueError, "together")):
         cfg = dataclasses.replace(tcfg.train.loss, **change)
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(error, match=match):
             port_losses.compute_total_loss(
                 TC.make_tree_consts(tt), out, v["ys"], v["w_eff"], v["kernel"],
                 v["presence_logits"], torch.tensor(2.0), cfg,

@@ -127,7 +127,7 @@ def test_params_from_jax_rejects_unmapped_or_missing(pair, edit):
     from pipnet_tpu_torch.models import params_from_jax
     params = copy.deepcopy(pair[4])
     if edit == "unknown_leaf":
-        params["head"]["add_on_bias"] = np.zeros(3, np.float32)
+        params["head"]["add_on_scale"] = np.zeros(3, np.float32)
     elif edit == "missing_leaf":
         del params["backbone"]["stage2_block1"]["layer_scale"]
     else:
@@ -137,6 +137,11 @@ def test_params_from_jax_rejects_unmapped_or_missing(pair, edit):
 
 
 def test_unported_options_raise(tiny_newick):
+    """The options that once raised "not ported" (the head variants, the
+    stage-4 reducer, the Gaussian multiplier) build; what still raises is
+    what the JAX package refuses too: the multiplier on a backbone that is
+    not a ConvNeXt (and BYOL with a reducer, whose EMA target the JAX
+    package does not hold)."""
     import dataclasses
     from pipnet_tpu_torch.models import build_pipnet
     _, ct = _cfgs()
@@ -144,7 +149,15 @@ def test_unported_options_raise(tiny_newick):
                 dataclasses.replace(ct, stage4_reducer=((64, 32, True),)),
                 dataclasses.replace(ct, gaussian_stages=(3,))):
         _, rt = roots_from_newick(tiny_newick)
-        with pytest.raises(NotImplementedError, match="not ported"):
+        with small_backbones():
+            model, _ = build_pipnet(rt, cfg, device="cpu")
+        assert model.head.fused == (not cfg.head.focal)
+    for cfg, match in ((dataclasses.replace(ct, backbone="resnet18", gaussian_stages=(3,)),
+                        "ConvNeXt-only"),
+                       (dataclasses.replace(ct, use_byol=True, stage4_reducer=((64, 32, True),)),
+                        "reducer")):
+        _, rt = roots_from_newick(tiny_newick)
+        with pytest.raises(ValueError, match=match):
             build_pipnet(rt, cfg, device="cpu")
 
 
