@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port (``pipnet_tpu_torch``) on one CUDA card.
 
     python3 chip_smoke.py [--baseline CHECKOUT]
-                          [--only blocks|data|trainer|eval|interp|backbones|options]
+                          [--only blocks|data|trainer|eval|interp|backbones|options|mesh]
 
 Phases, each of which fails the run loudly:
 
@@ -154,8 +154,18 @@ Phases, each of which fails the run loudly:
    one f32 joint step with every option and an OOD row on the card
    against the CPU's; ``run_pipnet`` with the CLI's defaults for
    ``--align``/``--uni`` and ``--OOD_dataset`` (one pretraining and two
-   joint epochs on ``synthetic:190:4``); every path's launches checked
-   exactly.
+   joint epochs on ``synthetic:190:2``); every path's launches checked
+   exactly;
+16. the train step on a data mesh (``runtime/mesh.py``): path A's flagship
+   step through the mesh step on a process group of one rank through NCCL
+   against path A's step on the same parameters and batch (loss, metrics,
+   head gradients), both timed in turns with the mesh step's launches (K1
+   1, K1b 1 a step) and busy share; then two ranks on the one card through
+   gloo on CUDA tensors (NCCL takes one rank a card), 32 of the 64 images
+   each, against the one-process step (loss, head gradients, each rank's
+   K1 and K1b in each step), and ZeRO-1's update against the plain one on
+   each rank; a rank that fails fails the phase.  Multi-card times are not
+   measured (one card).
 
 The last two lines of standard output are the ``{"kernels": [...]}``
 record and ``{"ok": true, "device": {...}}``.  ``--only blocks`` runs
@@ -164,7 +174,7 @@ phases 1, 2 and the K3 and K4 checks of phase 3, ``--only data`` phases
 1, 2 and 12, ``--only interp`` phases 1, 2 and 13, ``--only backbones``
 phases 1, 2, the kernel checks at the other backbones' shapes and 14,
 ``--only options`` phases 1, 2, the kernel checks at the reducer's width
-and 15, then each stops without
+and 15, ``--only mesh`` phases 1, 2 and 16, then each stops without
 either line: neither can pass for a full run.  Without a CUDA card, or without the rest of the repository
 beside it, it exits non-zero before printing either.
 """
@@ -3250,15 +3260,16 @@ def options_cli(card: str, log_dir: str) -> dict:
     """``run_pipnet`` with the flagship's flags, the JAX CLI's own defaults
     for ``--align`` and ``--uni`` (the flags left out) and ``--OOD_dataset``:
     one pretraining epoch and two joint epochs (no classifier-only epochs,
-    backbone unfrozen) on ``synthetic:190:4``, half the images a class of
-    phase 11's set; each epoch's launches as derived (K1 and K1b once a
-    step) and its align, uniformity and OOD losses finite."""
+    backbone unfrozen) on ``synthetic:190:2``, a quarter of the training
+    images a class of phase 11's set (the same test set); each epoch's
+    launches as derived (K1 and K1b once a step) and its align, uniformity
+    and OOD losses finite."""
     from pipnet_tpu_torch.main import run_pipnet
     argv = flagship_cli_argv(log_dir)
     for flag in ("--align", "--uni"):
         i = argv.index(flag)
         del argv[i:i + 2]
-    changes = {"--dataset": "synthetic:190:4", "--epochs_finetune_classifier": "0",
+    changes = {"--dataset": "synthetic:190:2", "--epochs_finetune_classifier": "0",
                "--epochs_finetune": "0", "--freeze_epochs": "0"}
     for flag, value in changes.items():
         argv[argv.index(flag) + 1] = value
@@ -3411,8 +3422,319 @@ def options_phase(card: str) -> dict:
     return paths
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the train step on a data mesh (runtime/mesh.py)
+# ---------------------------------------------------------------------------
+
+# the world-1 mesh step against path A's on the same parameters and batch:
+# the mesh step reduces align_pf from each row's log sums (the rows' maps
+# stay on their rank) and normalises nothing else differently, so its loss
+# and metrics differ from path A's by f32 summation order only (1e-5
+# relative); its head gradients pass through the same kernels on the same
+# bf16 pf, whose gradient may round one bf16 ulp apart (relative L2 1e-2)
+MESH_LOSS_REL, MESH_GRAD_REL = 1e-5, 1e-2
+# two ranks of 32 images against one process of 64: the backbone runs at
+# another batch, and cuDNN may pick other algorithms, whose bf16 outputs
+# round apart over the blocks; the loss within 2e-3 relative, the head
+# gradients within the kernels' bf16 bar of the cross-checks (relative L2
+# < 0.2, mass within 5%)
+RANKS_LOSS_REL = 2e-3
+# steps a timed turn of phase 16 (four turns: plain, mesh, mesh, plain)
+MESH_TIMED_STEPS = 5
+HEAD_GRADS = ("head.add_on_kernel", "head.cls_weight", "head.proto_presence")
+
+
+def _head_grads(model) -> dict:
+    params = dict(model.named_parameters())
+    return {n: params[n].grad.detach().float().clone() for n in HEAD_GRADS}
+
+
+def _grad_gap(got: dict, want: dict) -> dict:
+    out = {}
+    for n, w in want.items():
+        g = got[n].to(w.device)
+        out[n] = {"rel_l2": ((g - w).norm() / w.norm().clamp(min=1e-30)).item(),
+                  "mass_ratio": (g.abs().sum() / w.abs().sum().clamp(min=1e-30)).item()}
+    return out
+
+
+def mesh_one_rank(card: str, setup: Setup) -> dict:
+    """Path A's flagship step through the mesh step on a process group of
+    one rank through NCCL, against path A's step without a mesh on the
+    same parameters and batch (first step's loss, metrics and head
+    gradients), then both timed in turns (plain, mesh, mesh, plain) with
+    the mesh step's launches and its busy share."""
+    from pipnet_tpu_torch.runtime.mesh import close_ranks, data_mesh, init_ranks
+    from pipnet_tpu_torch.train import init_train_state, make_train_step
+    with scratch_dir("pipnet_mesh_") as tmp:
+        init_ranks(1, 0, "cuda:0",
+                   store=torch.distributed.FileStore(os.path.join(tmp, "store"), 1))
+        try:
+            backend = torch.distributed.get_backend()
+            mesh = data_mesh(1, device="cuda:0")
+            cfg = run_config(setup)
+            model, tree, _ = build_model(setup, cfg)
+            xs1, xs2, ys = train_batch(cfg, tree)
+            plain, scalars = train_step(cfg, model, tree, fuse=False)
+            meshed = make_train_step(model, tree, cfg, _joint_statics(cfg), mesh=mesh)
+            snapshot = {k: v.clone() for k, v in model.state_dict().items()}
+            first = {}
+            for name, step in (("plain", plain), ("plain again", plain), ("mesh", meshed)):
+                model.load_state_dict(snapshot)
+                _, m = step(init_train_state(model, seed=0), xs1, xs2, ys, scalars)
+                first[name] = ({k: v.detach().cpu() for k, v in m.items()}, _head_grads(model))
+            (mp, gp), (mq, _), (mm, gm) = first["plain"], first["plain again"], first["mesh"]
+
+            def rel(a, b):
+                return {k: ((a[k].double() - b[k].double()).abs().max()
+                            / b[k].double().abs().max().clamp(min=1e-30)).item() for k in b}
+            # path A against itself: the card's atomics (index_add, scatter)
+            # add in another order each run, which the per-node terms
+            # amplify (log(tanh(s) + eps) near s = 0); a metric is held at
+            # 1e-5, or 4x path A's own spread where that is larger (the
+            # gradient norm at the gradients' bar)
+            spread, gap = rel(mq, mp), rel(mm, mp)
+            bar = {k: max(MESH_GRAD_REL if k == "grad_norm" else MESH_LOSS_REL, 4 * spread[k])
+                   for k in gap}
+            gaps = _grad_gap(gm, gp)
+            rec = {"backend": backend, "world": mesh.world, "loss_plain": float(mp["loss"]),
+                   "loss_mesh": float(mm["loss"]), "metric_rel_diff": gap,
+                   "plain_rerun_rel_diff": spread, "head_grads": gaps}
+            if (set(mm) != set(mp) or any(gap[k] > bar[k] for k in gap)
+                    or any(g["rel_l2"] > MESH_GRAD_REL for g in gaps.values())):
+                fail(f"mesh: the world-1 mesh step disagrees with path A's: {rec}")
+
+            # both steps ran once above: one more each settles them
+            model.load_state_dict(snapshot)
+            state = init_train_state(model, seed=0)
+            for step in (plain, meshed):
+                state, _ = step(state, xs1, xs2, ys, scalars)
+            times = {"plain": [], "mesh": []}
+            for name in ("plain", "mesh", "mesh", "plain"):
+                step = plain if name == "plain" else meshed
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                if name == "mesh":
+                    zero_counts()
+                start.record()
+                for _ in range(MESH_TIMED_STEPS):
+                    state, _ = step(state, xs1, xs2, ys, scalars)
+                end.record()
+                torch.cuda.synchronize()
+                if name == "mesh":
+                    rec.setdefault("launches", counts())
+                    check_launches("mesh, one rank", counts(), {
+                        **NO_LAUNCHES, "fused_head": MESH_TIMED_STEPS,
+                        "head_backward": MESH_TIMED_STEPS})
+                times[name].append(start.elapsed_time(end) / MESH_TIMED_STEPS)
+            rec["step_ms"] = times
+            for name, step in (("plain", plain), ("mesh", meshed)):
+                def run(step=step):
+                    nonlocal state
+                    state, _ = step(state, xs1, xs2, ys, scalars)
+                prof = profile_ms(run)
+                rec[f"{name}_kernel_ms"] = prof["kernel_ms"]
+                if prof["kernel_ms"] != "not measured":
+                    rec[f"{name}_busy_share"] = prof["kernel_ms"] / np.mean(times[name])
+            ratio = np.mean(times["mesh"]) / np.mean(times["plain"])
+            rec["mesh_over_plain"] = ratio
+            say(f"mesh, one rank through {backend}: {json.dumps(rec)} [{card}]")
+        finally:
+            close_ranks()
+    del model, state
+    torch.cuda.empty_cache()
+    # path A's first step, the one-process step the two ranks are held to
+    return rec, (float(mp["loss"]), gp)
+
+
+def _joint_statics(cfg):
+    from pipnet_tpu_torch.train import StepStatics, phase_for_epoch
+    return StepStatics(phase=phase_for_epoch(20, cfg.train, pretrain=False),
+                       mask_prune_active=True, eta_min_net=5e-6)
+
+
+def mesh_rank(job_path: str, rank: int) -> int:
+    """One of two ranks on the one card through gloo (``mesh_two_ranks``):
+    joins the group and builds the model, waits for ``<job>.go``, then runs
+    the flagship's path A step from seeded weights on this rank's 32 rows
+    of the 64, plain and with ZeRO-1 from the same state; writes the loss,
+    the metrics, the head gradients, the launches and how far the ZeRO-1
+    update is from the plain one to ``<job>.rank<rank>``."""
+    import datetime
+    from pipnet_tpu_torch.runtime.mesh import (Mesh, close_ranks, data_mesh, init_ranks,
+                                               shard_batch, split_moments, state_shardings)
+    from pipnet_tpu_torch.train import init_train_state, make_train_step
+    sys.path.insert(0, FIXTURES)
+    store = torch.distributed.FileStore(job_path + ".store", 2)
+    init_ranks(2, rank, "cuda:0", store=store, backend="gloo",
+               timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = data_mesh(2, device="cuda:0")
+        setup = flagship_setup()
+        cfg = run_config(setup)
+        model, tree, _ = build_model(setup, cfg)
+        xs1, xs2, ys = shard_batch(mesh, *train_batch(cfg, tree))
+        _, scalars = train_step(cfg, model, tree, fuse=False)
+        snapshot = {k: v.clone() for k, v in model.state_dict().items()}
+        torch.cuda.synchronize()
+        deadline = time.monotonic() + 900
+        while not os.path.exists(job_path + ".go"):   # the one-rank part times the card
+            if time.monotonic() > deadline:
+                raise TimeoutError("no go from the parent within 900 s")
+            time.sleep(0.05)
+        out, updated = {}, {}
+        # the card's atomics (index_add, scatter) add in another order each
+        # run, so two runs' gradients differ at f32 rounding, and Adam's
+        # first step, ~lr sign(g), flips where g is at that rounding: the
+        # ZeRO-1 step records its summed gradients and the plain step takes
+        # them, so the two updates start from the same gradients
+        recorded, all_reduce = {}, Mesh.all_reduce_grads
+
+        def record(self, params):
+            all_reduce(self, params)
+            recorded.update({n: p.grad.clone() for n, p in params.items() if p.grad is not None})
+
+        def replay(self, params):
+            all_reduce(self, params)
+            for n, g in recorded.items():
+                params[n].grad.copy_(g)
+        try:
+            for zero1 in (True, False):
+                Mesh.all_reduce_grads = record if zero1 else replay
+                model.load_state_dict(snapshot)
+                state = init_train_state(model, seed=0)
+                if zero1:
+                    state.opt = split_moments(mesh, state.opt, state_shardings(mesh, state, True))
+                step = make_train_step(model, tree, cfg, _joint_statics(cfg), mesh=mesh,
+                                       zero1=zero1)
+                zero_counts()
+                state, m = step(state, xs1, xs2, ys, scalars)
+                torch.cuda.synchronize()
+                key = "zero1" if zero1 else "plain"
+                out[key] = {"loss": float(m["loss"]), "launches": counts(),
+                            "metrics": {k: v.detach().cpu() for k, v in m.items()},
+                            "head_grads": {n: g.cpu() for n, g in _head_grads(model).items()}}
+                updated[key] = {n: p.detach().clone() for n, p in model.named_parameters()}
+        finally:
+            Mesh.all_reduce_grads = all_reduce
+        out["zero1_max_param_diff"] = max(
+            (updated["zero1"][n] - p).abs().max().item() for n, p in updated["plain"].items())
+        out["zero1_split_moments"] = sum(
+            1 for s in state_shardings(mesh, state, True)["mu"].values() if s)
+    finally:
+        close_ranks()
+    torch.save(out, f"{job_path}.rank{rank}")
+    return 0
+
+
+def start_mesh_ranks(job: str) -> list:
+    """Start the two ranks of ``mesh_two_ranks`` (``mesh_rank``): they join
+    their group and build the model while this process runs the one-rank
+    part, then wait for ``<job>.go``.  Each writes its output to
+    ``<job>.log<rank>``."""
+    code = ("import sys; sys.path.insert(0, {!r}); import chip_smoke; "
+            "sys.exit(chip_smoke.mesh_rank({!r}, {}))")
+    procs = []
+    for r in range(2):
+        with open(f"{job}.log{r}", "w") as log:
+            procs.append(subprocess.Popen([sys.executable, "-c", code.format(REPO, job, r)],
+                                          cwd=REPO, stdout=log, stderr=subprocess.STDOUT))
+    return procs
+
+
+def mesh_two_ranks(card: str, procs: list, job: str, want_loss: float,
+                   want_grads: dict) -> dict:
+    """Path A's flagship step on two ranks sharing the one card through
+    gloo on CUDA tensors (NCCL takes one rank a card), 32 images a rank,
+    against the one-process step on the 64 (its loss ``want_loss`` and head
+    gradients ``want_grads``, from the same seeded weights and batch): loss
+    and head gradients; each rank's K1 and K1b launches in each of its two
+    steps; ZeRO-1's update against the plain one from the same gradients,
+    bit for bit, on each rank.  A rank that fails fails the phase.
+    ``procs`` (``start_mesh_ranks``) start their steps here."""
+    t0 = time.perf_counter()
+    with open(job + ".go", "w"):
+        pass
+    try:
+        for p in procs:
+            p.wait(timeout=600)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds = time.perf_counter() - t0
+    if any(p.returncode != 0 for p in procs):
+        tail = "\n".join(open(f"{job}.log{r}").read()[-3000:] for r in range(2))
+        fail(f"mesh: a rank of two failed:\n{tail}")
+    ranks = [torch.load(f"{job}.rank{r}", weights_only=False) for r in range(2)]
+    got = ranks[0]
+    rec = {"backend": "gloo", "images_per_rank": TRAIN_BATCH // 2, "steps_s": seconds,
+           "loss_one_process": want_loss, "loss_ranks": [r["plain"]["loss"] for r in ranks],
+           "loss_zero1_ranks": [r["zero1"]["loss"] for r in ranks],
+           "launches_per_rank": [r["plain"]["launches"] for r in ranks],
+           "zero1_launches_per_rank": [r["zero1"]["launches"] for r in ranks],
+           "zero1_max_param_diff_ranks": [r["zero1_max_param_diff"] for r in ranks],
+           "zero1_split_moments": got["zero1_split_moments"],
+           "head_grads": _grad_gap(got["plain"]["head_grads"], want_grads)}
+    rec["loss_rel_diff"] = abs(got["plain"]["loss"] - want_loss) / abs(want_loss)
+    for r, ran in enumerate(ranks):
+        for key in ("plain", "zero1"):
+            check_launches(f"mesh, two ranks, rank {r}, {key}", ran[key]["launches"],
+                           {**NO_LAUNCHES, "fused_head": 1, "head_backward": 1})
+    same = all(torch.equal(ranks[1]["plain"]["head_grads"][n], g)
+               for n, g in got["plain"]["head_grads"].items())
+    rec["ranks_agree"] = same
+    if (not same or rec["loss_rel_diff"] > RANKS_LOSS_REL
+            or any(g["rel_l2"] >= 0.2 or abs(g["mass_ratio"] - 1) >= 0.05
+                   for g in rec["head_grads"].values())
+            or any(r["zero1_max_param_diff"] != 0.0 for r in ranks)
+            or any(abs(r["zero1"]["loss"] - r["plain"]["loss"]) > 1e-6 * abs(r["plain"]["loss"])
+                   for r in ranks)):
+        fail(f"mesh: two ranks disagree with the one-process step: {rec}")
+    say(f"mesh, two ranks on one card through gloo: {json.dumps(rec)} [{card}]")
+    return rec
+
+
+def mesh_phase(card: str) -> dict:
+    """Phase 16: the world-1 mesh step through NCCL, then two ranks on the
+    card through gloo (started first, so that their start and build overlap
+    the one-rank part); returns the launches of each (the two ranks' as
+    their processes counted them, both steps of each rank)."""
+    t0 = time.perf_counter()
+    with scratch_dir("pipnet_ranks_") as tmp:
+        job = os.path.join(tmp, "job")
+        procs = start_mesh_ranks(job)
+        try:
+            one, reference = mesh_one_rank(card, flagship_setup())
+        except BaseException:
+            for p in procs:
+                p.kill()
+                p.wait()
+            raise
+        two = mesh_two_ranks(card, procs, job, *reference)
+    ranks = dict(NO_LAUNCHES)
+    for launches in two["launches_per_rank"] + two["zero1_launches_per_rank"]:
+        for k, v in launches.items():
+            ranks[k] += v
+    say(f"mesh phase: {time.perf_counter() - t0:.1f} s [{card}]")
+    return {"mesh, one rank": one["launches"], "mesh, two ranks": ranks}
+
+
 NO_LAUNCHES = {"fused_head": 0, "head_backward": 0, "fused_head_nopf": 0, "dwconv": 0,
                "cnblock": 0}
+
+
+class Laps:
+    """Seconds of each part of the full run, on the host's clock."""
+
+    def __init__(self, t0: float):
+        self.t, self.seconds = t0, {}
+
+    def lap(self, name: str) -> None:
+        now = time.perf_counter()
+        self.seconds[name] = round(now - self.t, 1)
+        self.t = now
 
 
 def check_launches(path: str, got: dict, want: dict) -> None:
@@ -3427,7 +3749,7 @@ def main(argv=None) -> int:
                     help="an older checkout of this repository whose K1 and K2 are timed "
                          "in turns with this one's in the kernel phase")
     ap.add_argument("--only", choices=["blocks", "data", "trainer", "eval", "interp",
-                                       "backbones", "options"],
+                                       "backbones", "options", "mesh"],
                     help="blocks: build, check and time K3 and K4 only; data: build, then "
                          "run the training-from-data phase only; trainer: build, then run "
                          "the training-through-the-CLI phase only; eval: build, then "
@@ -3436,7 +3758,8 @@ def main(argv=None) -> int:
                          "such a run directory; backbones: build, check and time K1, K1b "
                          "and K2 at the other backbones' shapes, then run phase 14; "
                          "options: build, check and time K1, K1b and K2 at the reducer's "
-                         "width, then run phase 15; each stops without the kernels record "
+                         "width, then run phase 15; mesh: build, then run phase 16 (the "
+                         "train step on a data mesh); each stops without the kernels record "
                          "or the ok line")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
@@ -3502,16 +3825,23 @@ def main(argv=None) -> int:
         options_phase(card)
         say(f"--only options: done in {time.perf_counter() - t_start:.1f} s; no full run")
         return 0
+    if args.only == "mesh":
+        mesh_phase(card)
+        say(f"--only mesh: done in {time.perf_counter() - t_start:.1f} s; no full run")
+        return 0
+    laps = Laps(t_start)
     records, backward, nopf = kernel_phase(card, baseline)
     for checks in (backbone_kernel_checks, option_kernel_checks):
         for into, got in zip((records, backward, nopf), checks(card)):
             into.update(got)
     dw, blocks = block_kernel_phase(card, baseline)
+    laps.lap("build and kernels")
 
     paths = {"depthwise conv op": dwconv_op_path(card),
              "serving": serving_phase(card, flagship),
              "serving, fused backbone": serving_phase(card, flagship, fused=True),
              "serving, flat": serving_phase(card, flat)}
+    laps.lap("serving")
     train_a = training_phase(card, flagship, fuse=False)
     check_launches("training path A", train_a["launches"], {
         **NO_LAUNCHES, "fused_head": TIMED_STEPS, "head_backward": TIMED_STEPS})
@@ -3526,7 +3856,9 @@ def main(argv=None) -> int:
     check_launches("training path C", train_c["launches"], {
         **NO_LAUNCHES, "fused_head": TIMED_STEPS, "head_backward": TIMED_STEPS,
         "cnblock": 3 * n_blocks * TIMED_STEPS})
+    laps.lap("training A, B, C")
     train_data = data_phase(card)
+    laps.lap("training from data")
     check_launches("training from data", train_data["launches"], {
         **NO_LAUNCHES, "fused_head": TIMED_STEPS, "head_backward": TIMED_STEPS})
     # flat PIP-Net: K1 and K1b run its 768-wide node as parts, two launches
@@ -3540,12 +3872,20 @@ def main(argv=None) -> int:
     check_launches("training path B, flat", train_fb["launches"], {
         **NO_LAUNCHES, "fused_head": 2 * TIMED_STEPS, "head_backward": 2 * TIMED_STEPS,
         "fused_head_nopf": 3 * TIMED_STEPS})
+    laps.lap("training flat")
     with scratch_dir("pipnet_cli_") as cli_dir:
         _, train_cli = trainer_phase(card, cli_dir)
+        laps.lap("trainer")
         _, evaluation = eval_phase(card, cli_dir)
+        laps.lap("evaluation")
         _, interpretability = interp_phase(card, cli_dir)
+        laps.lap("interpretability")
     paths.update(backbones_phase(card))
+    laps.lap("backbones")
     paths.update(options_phase(card))
+    laps.lap("options")
+    paths.update(mesh_phase(card))
+    laps.lap("mesh")
     paths.update({"training A": train_a["launches"], "training B": train_b["launches"],
                   "training C": train_c["launches"], "training from data": train_data["launches"],
                   "training through the CLI": train_cli, "evaluation": evaluation,
@@ -3577,6 +3917,7 @@ def main(argv=None) -> int:
     jax_modules = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "pipnet_tpu"))
     if jax_modules:
         fail(f"the run loaded JAX or the JAX package: {jax_modules}")
+    say(f"seconds by phase: {json.dumps(laps.seconds)}")
     say(f"total: {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -66,6 +66,7 @@ def compute_total_loss(tc: TreeConsts, outputs: Dict[str, torch.Tensor], ys: tor
                        presence_noise: Optional[torch.Tensor] = None,
                        byol_online: Optional[torch.Tensor] = None,
                        byol_target: Optional[torch.Tensor] = None,
+                       shard=None,
                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One step's total loss and its parts, for logging.
 
@@ -77,7 +78,11 @@ def compute_total_loss(tc: TreeConsts, outputs: Dict[str, torch.Tensor], ys: tor
     BYOL's regression loss, outside the finetune phases.  With
     ``ood_present`` (OOD rows, label -1, in the batch) the OOD BCE loss
     adds in outside pretraining; ``cfg.ood_ent`` changes nothing, as in the
-    JAX package.  ``minmaximize`` raises, as the JAX package does."""
+    JAX package.  ``minmaximize`` raises, as the JAX package does.  With
+    ``shard`` (a mesh's ``BatchShard`` of the two views)
+    ``outputs['features']`` are this rank's rows and the feature losses
+    the global batch's (``align_and_uniform``); the other outputs are the
+    global batch's."""
     aux: Dict[str, torch.Tensor] = {}
     total = torch.zeros((), dtype=torch.float32, device=ys.device)
 
@@ -90,7 +95,8 @@ def compute_total_loss(tc: TreeConsts, outputs: Dict[str, torch.Tensor], ys: tor
         if cfg.uni and not cfg.align:
             raise ValueError("uni can only be used together with align "
                              "(ref pipnet/train.py:923-924)")
-        a, u = C.align_and_uniform(outputs["features"], align=cfg.align, uni=cfg.uni)
+        a, u = C.align_and_uniform(outputs["features"], align=cfg.align, uni=cfg.uni,
+                                   shard=shard)
         if cfg.align:
             total = total + weights.align * a
             aux["align"] = a

@@ -25,11 +25,15 @@ size) in row blocks, and recomputes each block in its backward, so no
 (n, n) matrix and no block's intermediates outlive the block.  It
 accumulates the pair sum in float32 whatever the input's dtype (the JAX
 package carries it in the input's dtype, bf16 on the flagship): a
-deliberate difference.
+deliberate difference.  On a mesh (``shard``, ``runtime/mesh.py``) each
+rank holds its own rows' features: the alignment is the ranks' sums of
+squares summed, and each rank sums the pairs of its own rows against every
+rank's (``_UniformRowPairs``), so the pair work is split over the ranks.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
@@ -135,6 +139,18 @@ def align_pf_loss(tc: TreeConsts, proto_features: torch.Tensor, ys: torch.Tensor
     hw = pf1.shape[1] * pf1.shape[2]
     t = -torch.log(ip + eps) * under[:, None, None, :]
     return _total(tc, _per_node(t.sum(dim=(0, 1, 2)), counts * hw))
+
+
+def align_pf_row_logsum(tc: TreeConsts, proto_features: torch.Tensor,
+                        eps: float = ALIGN_EPS) -> torch.Tensor:
+    """``logsum[b, n] = sum_hw log(ip + eps)`` (B/2, N) of the two stacked
+    views' maps, the per-row part of ``align_pf_loss`` (the no-pf head's
+    reduction, K2's, computed from pf): on a mesh each rank reduces its own
+    rows and the ranks gather these, not the maps."""
+    B = proto_features.shape[0] // 2
+    pf1, pf2 = proto_features[:B], proto_features[B:]
+    prod = 0.5 * (pf1 * pf2.detach() + pf1.detach() * pf2)
+    return torch.log(prod.float() @ tc.node_onehot + eps).sum(dim=(1, 2))
 
 
 def align_pf_from_logsum(tc: TreeConsts, logsum: torch.Tensor, ys: torch.Tensor,
@@ -327,12 +343,23 @@ def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Te
     return x / torch.linalg.vector_norm(x, dim=dim, keepdim=True).clamp(min=eps)
 
 
-def align_loss_unit_space(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+def _split_rows(shard):
+    """``shard`` where it splits the batch over more than one data rank."""
+    return shard if shard is not None and shard.mesh.n_data > 1 else None
+
+
+def align_loss_unit_space(x: torch.Tensor, y: torch.Tensor, shard=None) -> torch.Tensor:
     """Mean of ||x - y||^2 over rows (Wang-Isola alignment at alpha = 2, the
     only value used, ref pipnet/train.py:1395-1396), as a sum of squares:
     the same value as the squared norm, but smooth where x == y, where the
-    norm's gradient is NaN (two augmented views can coincide)."""
-    return ((x - y) ** 2).sum(dim=-1).mean()
+    norm's gradient is NaN (two augmented views can coincide).  With
+    ``shard`` (one view's ``BatchShard``) the rows are this rank's and the
+    mean is over every rank's."""
+    shard = _split_rows(shard)
+    if shard is None:
+        return ((x - y) ** 2).sum(dim=-1).mean()
+    part = ((x - y) ** 2).sum(dtype=_acc_dtype(x))
+    return (shard.total(part) / shard.global_rows(x.shape[0])).to(x.dtype)
 
 
 UNIFORM_BLOCK = 2048
@@ -394,27 +421,82 @@ class _UniformPairSum(torch.autograd.Function):
         return dx.to(x.dtype), None, None
 
 
-def uniform_loss(x: torch.Tensor, t: float = 2.0, block: int = UNIFORM_BLOCK) -> torch.Tensor:
+class _UniformRowPairs(torch.autograd.Function):
+    """One rank's share of ``_UniformPairSum`` on a mesh: half the sum over
+    j != i of exp(-t max(d2_ij, 0)) for its rows i, ``xr``, which are the
+    rows ``at:at + len(xr)`` of ``x`` (every rank's rows, no gradient).
+    The ranks' shares add up to the pair sum, each for len(xr) * n pairs.
+    The gradient for ``xr`` is the whole pair sum's (a pair's term counts
+    for both its rows, where a share holds half of each); the forward
+    computes it block by block beside the sum, as it has each block at
+    hand."""
+
+    @staticmethod
+    def forward(ctx, xr: torch.Tensor, x: torch.Tensor, at: int, t: float,
+                block: int) -> torch.Tensor:
+        acc = _acc_dtype(x)
+        sq = (x.to(acc) ** 2).sum(dim=-1)
+        sqr = sq[at:at + xr.shape[0]]
+        total = torch.zeros((), dtype=acc, device=x.device)
+        ctx.dtype, ctx.dx = xr.dtype, None
+        if ctx.needs_input_grad[0]:
+            ctx.dx = torch.empty(xr.shape, dtype=acc, device=x.device)
+        for r0 in range(0, xr.shape[0], block):
+            r1 = min(r0 + block, xr.shape[0])
+            d2 = _pair_d2(xr[r0:r1], x, sqr[r0:r1], sq)
+            e = d2.clamp(min=0.0).mul_(-t).exp_()
+            e[:, at + r0:at + r1].fill_diagonal_(0.0)
+            total += e.sum()
+            if ctx.dx is not None:
+                # as _UniformPairSum.backward: max(d2, 0)'s derivative
+                m = e.masked_fill_(d2 < 0, 0.0).masked_fill_(d2 == 0, 0.5).mul_(-t)
+                del d2
+                m[:, at + r0:at + r1].fill_diagonal_(0.0)
+                rows = m.sum(dim=1, keepdim=True)
+                ctx.dx[r0:r1] = 2.0 * (xr[r0:r1].to(acc) * rows
+                                       - (m.to(x.dtype) @ x).to(acc))
+        return 0.5 * total
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return (ctx.dx * g).to(ctx.dtype), None, None, None, None
+
+
+def uniform_loss(x: torch.Tensor, t: float = 2.0, block: int = UNIFORM_BLOCK,
+                 shard=None) -> torch.Tensor:
     """log(mean over i < j of exp(-t ||x_i - x_j||^2) + 1e-10) over the rows
     of ``x`` (n, D) (ref pipnet/train.py:1376-1386), in f32 (float64 for
     float64 ``x``): the pair sum
     by blocks of ``block`` rows (``_UniformPairSum``), so the n^2 distance
-    matrix never exists at once."""
-    n = x.shape[0]
-    total = _UniformPairSum.apply(x, t, block)
+    matrix never exists at once.  With ``shard`` (one view's
+    ``BatchShard``) the rows are this rank's, the pairs every rank's: the
+    rank sums its rows' pairs against the gathered rows
+    (``_UniformRowPairs``) and the ranks' sums are added."""
+    shard = _split_rows(shard)
+    if shard is None:
+        n = x.shape[0]
+        total = _UniformPairSum.apply(x, t, block)
+    else:
+        whole = shard.gather(x.detach())
+        n = whole.shape[0]
+        share = _UniformRowPairs.apply(x, whole, shard.mesh.data_rank * x.shape[0], t, block)
+        total = shard.total(share)
     return torch.log(total / (n * (n - 1) / 2.0) + 1e-10)
 
 
-def align_and_uniform(features: torch.Tensor, *, align: bool,
-                      uni: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+def align_and_uniform(features: torch.Tensor, *, align: bool, uni: bool,
+                      shard=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Alignment of the two views' l2-normalised patch features and their
     mean uniformity (ref pipnet/train.py:898-928); ``features`` (2B, H, W,
-    D) holds the views stacked.  A loss that is off is 0."""
+    D) holds the views stacked.  A loss that is off is 0.  With ``shard``
+    (a mesh's ``BatchShard`` of the two views) ``features`` are this
+    rank's rows and the losses the global batch's."""
     f1, f2 = features.chunk(2, dim=0)
     x1, x2 = l2_normalize(flatten_patches(f1)), l2_normalize(flatten_patches(f2))
+    view = None if shard is None else dataclasses.replace(shard, views=1)
     zero = torch.zeros((), dtype=torch.float32, device=features.device)
-    a = align_loss_unit_space(x1, x2) if align else zero
-    u = (uniform_loss(x1) + uniform_loss(x2)) / 2.0 if uni else zero
+    a = align_loss_unit_space(x1, x2, view) if align else zero
+    u = (uniform_loss(x1, shard=view) + uniform_loss(x2, shard=view)) / 2.0 if uni else zero
     return a, u
 
 

@@ -7,9 +7,18 @@ Accepts the JAX package's flags, defaults and the reference's string DSLs
 (``util/args.py:14-402``), so the ``scripts/runs/run_*.sh`` invocations
 translate directly, and resolves them once into the static ``RunConfig``.
 Training runs on the card unless ``--device cpu`` asks for the CPU.
-The mesh options, which the port does not have yet, raise before any
-training, naming their ``ROADMAP.md`` item (10); so does ``--minmaximize
-y``, which the JAX package refuses too.  Every backbone of the JAX package
+
+``--data_parallel N`` (0, the default: every local card; one process on
+the CPU) trains on a data mesh of N ranks (``runtime/mesh.py``), one
+process a rank: this command starts them itself (``launch_ranks``: rank r
+on card r, or N processes on the CPU, joined through gloo; a rendezvous
+file in a fresh temporary directory), or ``torchrun --nproc_per_node N -m
+pipnet_tpu_torch.main ...`` starts them (NCCL on cards, gloo on the CPU).
+Every rank trains the same numbers; rank 0 writes the run directory.
+``--zero1 y`` splits the Adam moments over the ranks.  ``--model_parallel
+M > 1`` raises before any training, naming its ``ROADMAP.md`` item (10b);
+so does ``--minmaximize y``, which the JAX package refuses too.  Every
+backbone of the JAX package
 (``--net``), ``--byol y``, the default ``--align y --uni y`` losses, the
 head variants, ``--OOD_dataset`` (its train loader feeds OOD rows into
 every phase-2 step) and ``--stage4_reducer_net`` train.  After training,
@@ -22,8 +31,15 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
+import shutil
+import subprocess
 import sys
+import tempfile
 import time
+
+# the rendezvous a rank started by ``launch_ranks`` joins (torchrun's ranks
+# join through env://)
+RENDEZVOUS_ENV = "PIPNET_RANKS_RENDEZVOUS"
 
 
 def build_arg_parser() -> argparse.ArgumentParser:
@@ -133,11 +149,11 @@ def build_arg_parser() -> argparse.ArgumentParser:
     add("--cl_weight", type=float, default=2.0)
     add("--wandb", type=str, default="n")
     add("--copy_files", type=str, default="n")
-    # extensions of the JAX package (its mesh options raise here: the port
-    # trains on one device, ROADMAP item 10)
+    # extensions of the JAX package: the mesh (runtime/mesh.py; the port's
+    # model axis raises, ROADMAP item 10b)
     add("--data_parallel", type=int, default=0,
         help="data-parallel shards: 0 = all visible devices (the port: one "
-             "device; above 1 is not ported)")
+             "process a rank; every local card, or one process on the CPU)")
     add("--zero1", type=str, default="n",
         help="y: shard the Adam moments over the data axis (ZeRO-1; a "
              "dp-fold cut in optimizer-state HBM for one extra all-gather)")
@@ -179,34 +195,86 @@ def build_arg_parser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(args) -> None:
-    """Raise, before any work, on the flags whose code is not ported yet (the
-    mesh flags) and on ``--minmaximize y``, which the JAX package refuses at
-    its first step."""
+    """Raise, before any work, on the flags whose code is not ported yet
+    (``--model_parallel`` above 1; with ``--use_pallas_head y`` the JAX
+    package's own refusal) and on ``--minmaximize y``, which the JAX package
+    refuses at its first step."""
     if args.state_dict_dir_net:
         raise ValueError("use --state_dict_dir_backbone (the reference forbids "
                          "state_dict_dir_net too, main.py:291)")
     if args.minmaximize[:1] == "y":
         from .losses.aggregate import MINMAXIMIZE_REFUSAL
         raise NotImplementedError(f"--minmaximize y: {MINMAXIMIZE_REFUSAL}")
-    refused = [why for why, on in (
-        (f"--data_parallel {args.data_parallel}: ROADMAP item 10", args.data_parallel > 1),
-        (f"--model_parallel {args.model_parallel}: ROADMAP item 10", args.model_parallel > 1),
-        ("--zero1 y: ROADMAP item 10", args.zero1 == "y")) if on]
-    if refused:
-        raise NotImplementedError(f"not ported yet: {'; '.join(refused)}")
+    if args.model_parallel > 1:
+        if args.use_pallas_head == "y":
+            from .train.trainer import PALLAS_HEAD_REFUSAL
+            raise ValueError(PALLAS_HEAD_REFUSAL)
+        raise NotImplementedError(f"not ported yet: --model_parallel {args.model_parallel}: "
+                                  "ROADMAP item 10b")
+
+
+def launch_ranks(argv, world: int) -> int:
+    """Run the command line ``argv`` on ``world`` local processes, the ranks
+    of one data mesh (rank r on card r of a card run), joined through a
+    rendezvous file in a fresh temporary directory.  Rank 0 prints; the
+    others' output is dropped, their errors are not.  Returns 0 when every
+    rank does; when one fails the others are stopped and this raises."""
+    tmp = tempfile.mkdtemp(prefix="pipnet_ranks_")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    path = os.pathsep.join([root] + [p for p in [os.environ.get("PYTHONPATH")] if p])
+    procs = []
+    try:
+        for r in range(world):
+            env = dict(os.environ, WORLD_SIZE=str(world), RANK=str(r), LOCAL_RANK=str(r),
+                       PYTHONPATH=path,
+                       **{RENDEZVOUS_ENV: "file://" + os.path.join(tmp, "rendezvous")})
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "pipnet_tpu_torch.main", *argv], env=env,
+                stdout=None if r == 0 else subprocess.DEVNULL))
+        while True:
+            codes = [p.poll() for p in procs]
+            failed = [(r, c) for r, c in enumerate(codes) if c not in (None, 0)]
+            if failed:
+                raise RuntimeError(f"rank {failed[0][0]} of {world} exited {failed[0][1]}")
+            if all(c == 0 for c in codes):
+                return 0
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def run_pipnet(argv=None) -> int:
     """Train from the command line ``argv``.  ``sys.stdout`` is duplicated
     into ``<log_dir>/out.txt`` while the run lasts and restored when it
-    returns or raises."""
+    returns or raises.  With more than one data-parallel rank, either this
+    process is a rank (``WORLD_SIZE`` set, by ``torchrun`` or
+    ``launch_ranks``) or it starts the ranks (``launch_ranks``) and trains
+    nothing itself."""
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = build_arg_parser().parse_args(argv)
     _refuse_unported(args)
     from .config import from_reference_flags
     from .device import resolve_device
-    from .runtime.log import RunLog, Tee
+    from .runtime.log import Tee, open_run_log
+    from .runtime.mesh import close_ranks, data_mesh, init_ranks
 
     dev = resolve_device(args.device)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world > 1:
+        if args.data_parallel not in (0, world):
+            raise ValueError(f"--data_parallel {args.data_parallel} in a process group of "
+                             f"{world} ranks")
+        if dev.type == "cuda":
+            dev = resolve_device(f"cuda:{int(os.environ.get('LOCAL_RANK', '0'))}")
+    else:
+        import torch
+        world = args.data_parallel or (torch.cuda.device_count() if dev.type == "cuda" else 1)
+        if world > 1:
+            return launch_ranks(argv, world)
 
     cfg = from_reference_flags(args)
     cfg = dataclasses.replace(
@@ -215,21 +283,32 @@ def run_pipnet(argv=None) -> int:
                                   fast_gelu=args.fast_gelu == "y",
                                   use_pallas_head=args.use_pallas_head == "y",
                                   use_pallas_backbone=args.use_pallas_backbone == "y"),
-        train=dataclasses.replace(cfg.train, data_parallel=args.data_parallel,
+        train=dataclasses.replace(cfg.train, data_parallel=world,
                                   model_parallel=args.model_parallel,
                                   zero1=args.zero1 == "y"))
-    log = RunLog(cfg.log_dir)
-    stdout = sys.stdout
-    tee = Tee(os.path.join(cfg.log_dir, "out.txt"), stdout)
-    sys.stdout = tee
+    mesh = None
+    if world > 1:
+        init_ranks(world, int(os.environ["RANK"]), dev,
+                   init_method=os.environ.get(RENDEZVOUS_ENV, "env://"))
+        mesh = data_mesh(world, device=dev)
     try:
-        return _train(args, cfg, log, dev)
+        log = open_run_log(cfg.log_dir, 0 if mesh is None else mesh.rank)
+        if not log.writes:
+            return _train(args, cfg, log, dev, mesh)
+        stdout = sys.stdout
+        tee = Tee(os.path.join(cfg.log_dir, "out.txt"), stdout)
+        sys.stdout = tee
+        try:
+            return _train(args, cfg, log, dev, mesh)
+        finally:
+            sys.stdout = stdout
+            tee.close()
     finally:
-        sys.stdout = stdout
-        tee.close()
+        if mesh is not None:
+            close_ranks()
 
 
-def _train(args, cfg, log, dev) -> int:
+def _train(args, cfg, log, dev, mesh=None) -> int:
     import torch
 
     from .data import build_loaders
@@ -242,7 +321,8 @@ def _train(args, cfg, log, dev) -> int:
 
     t_start = time.time()
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "CPU"
-    print(f"pipnet_tpu_torch: device={dev} ({name}), torch {torch.__version__}")
+    ranks = "" if mesh is None else f", rank {mesh.rank} of {mesh.world}"
+    print(f"pipnet_tpu_torch: device={dev} ({name}), torch {torch.__version__}{ranks}")
     device_augment = args.device_augment in ("y", "full")
     device_geometric = args.device_augment == "full"
 
@@ -302,17 +382,14 @@ def _train(args, cfg, log, dev) -> int:
     print(f"tree: {len(root.nodes_with_children())} internal nodes, "
           f"{len(root.leaves())} leaves")
     log.save_tree(root)
-    try:
-        root.save_visualization(os.path.join(cfg.log_dir, "tree"))
-    except Exception as e:                      # the picture is best-effort
-        print(f"tree visualization skipped: {e!r}")
+    log.save_tree_picture(root)
 
     # model
     model, tree = build_pipnet(root, cfg.model, weighted=cfg.train.loss.weighted_ce,
                                class_names=loaders.classes, device=dev)
     print(tree.summary())
 
-    trainer = Trainer(model, tree, cfg, loaders, log=log, ood_loaders=ood_loaders)
+    trainer = Trainer(model, tree, cfg, loaders, log=log, ood_loaders=ood_loaders, mesh=mesh)
     if args.profile_epoch > 0:
         trainer.trace_epoch = args.profile_epoch
     trainer.checkpoint_every = max(1, args.checkpoint_every)
@@ -356,7 +433,8 @@ def _train(args, cfg, log, dev) -> int:
     if args.final_viz_nodes:
         names = {n: i for i, n in enumerate(tree.node_names)}
         viz_nodes = [names[n] for n in args.final_viz_nodes.split(",") if n in names]
-    if args.final_viz == "y" and (viz_nodes is not None or len(loaders.classes) <= 60):
+    if log.writes and args.final_viz == "y" and (viz_nodes is not None
+                                              or len(loaders.classes) <= 60):
         gallery_dir = os.path.join(cfg.log_dir, args.dir_for_saving_images)
         final_galleries(model, tree, loaders.project, gallery_dir,
                         image_size=cfg.model.image_size, nodes=viz_nodes)

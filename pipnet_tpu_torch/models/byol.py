@@ -34,10 +34,10 @@ class PatchMLP(nn.Module):
         self.bn = BatchNorm(hidden)
         self.fc_out = nn.Linear(hidden, channels)
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False, shard=None) -> torch.Tensor:
         dt = x.dtype
         h = F.linear(x, self.fc_in.weight.to(dt), self.fc_in.bias.to(dt))
-        h = F.relu(self.bn(h, train))
+        h = F.relu(self.bn(h, train, shard))
         return F.linear(h, self.fc_out.weight.to(dt), self.fc_out.bias.to(dt))
 
 

@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.cnblock import cnblock_branch, cnblock_branch_unfused
+from ..runtime.mesh import BatchShard
 
 CONVNEXT_TINY_DEPTHS = (3, 3, 9, 3)
 CONVNEXT_TINY_DIMS = (96, 192, 384, 768)
@@ -125,15 +126,19 @@ class CNBlock(nn.Module):
                 cast(self.mlp_out.weight).t(), cast(self.mlp_out.bias), cast(self.layer_scale))
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                shard: Optional[BatchShard] = None) -> torch.Tensor:
         residual = x
         branch = cnblock_branch if self.fused else cnblock_branch_unfused
         h = branch(x.to(dtype).contiguous(), *self.branch_params(dtype),
                    fast_gelu=self.fast_gelu)
         if train and self.sd_prob > 0.0:
             keep = 1.0 - self.sd_prob
-            mask = torch.rand((x.shape[0], 1, 1, 1), generator=generator,
-                              device=x.device) < keep
+            # on a mesh: the draw of the whole batch, this rank's rows of it
+            rows = x.shape[0] if shard is None else shard.global_rows(x.shape[0])
+            mask = torch.rand((rows, 1, 1, 1), generator=generator, device=x.device) < keep
+            if shard is not None:
+                mask = shard.local(mask)
             h = torch.where(mask, h / keep, torch.zeros_like(h))
         return residual + h
 
@@ -189,9 +194,12 @@ class ConvNeXtTiny(nn.Module):
         return self.dims[-1]
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                shard: Optional[BatchShard] = None) -> torch.Tensor:
         """x (B, H, W, 3) -> features (B, H', W', C) in the compute dtype.
-        With ``train``, stochastic depth draws from ``generator``."""
+        With ``train``, stochastic depth draws from ``generator``; with
+        ``shard`` (``x`` is this rank's rows of a batch split over a mesh)
+        it draws for the whole batch and keeps the rank's rows."""
         dt = self.dtype
         x = _nhwc(F.conv2d(_nchw(x.to(dt)), self.stem_conv.weight.to(dt),
                            self.stem_conv.bias.to(dt), stride=4))
@@ -203,7 +211,7 @@ class ConvNeXtTiny(nn.Module):
                 x = _nhwc(F.conv2d(_nchw(x), conv.weight.to(dt), conv.bias.to(dt),
                                    stride=self.strides[stage]))
             for blk in range(depth):
-                x = getattr(self, f"stage{stage}_block{blk}")(x, dt, train, generator)
+                x = getattr(self, f"stage{stage}_block{blk}")(x, dt, train, generator, shard)
         return x.contiguous()
 
 

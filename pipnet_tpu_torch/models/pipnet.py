@@ -23,6 +23,7 @@ from torch import nn
 from ..config import ModelConfig
 from ..device import resolve_device
 from ..ops.segment import gumbel_noise, segment_hard_gumbel, tree_tensor
+from ..runtime.mesh import BatchShard
 from ..tree.compile import TreeArrays, compile_tree
 from ..tree.node import Node
 from .byol import TARGET_PREFIXES, PatchMLP
@@ -110,8 +111,9 @@ class PIPNet(nn.Module):
             self.predictor = PatchMLP(channels)
 
     def features(self, xs: torch.Tensor, *, train: bool = False,
-                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        f = self.backbone(xs, train=train, generator=generator)
+                 generator: Optional[torch.Generator] = None,
+                 shard: Optional[BatchShard] = None) -> torch.Tensor:
+        f = self.backbone(xs, train=train, generator=generator, shard=shard)
         return self.reducer(f) if self.cfg.stage4_reducer else f
 
     def forward(self, xs: torch.Tensor, *, train: bool = False,
@@ -120,7 +122,8 @@ class PIPNet(nn.Module):
                 keep: Optional[torch.Tensor] = None,
                 fuse_align_pf: bool = False,
                 with_byol: bool = False,
-                gumbel_noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+                gumbel_noise: Optional[torch.Tensor] = None,
+                shard: Optional[BatchShard] = None) -> Dict[str, torch.Tensor]:
         """xs (B, S, S, 3) -> {'features', 'proto_features', 'pooled',
         'logits'} with layouts (B,H,W,D), (B,H,W,P), (B,P), (B,C).  ``train``
         turns stochastic depth on, drawing from ``generator``, and
@@ -131,8 +134,11 @@ class PIPNet(nn.Module):
         replaces 'proto_features' (K2; see ``PrototypeHead``).
         ``with_byol`` adds 'byol_online' = predictor(projector(features))
         (ref pipnet_byol/pipnet_byol.py:105-110).  ``gumbel_noise`` is the
-        Gumbel-softmax head's sample (``PrototypeHead``)."""
-        f = self.features(xs, train=train, generator=generator)
+        Gumbel-softmax head's sample (``PrototypeHead``).  ``shard``: ``xs``
+        is this rank's rows of a batch split over a mesh
+        (``runtime/mesh.py``); stochastic depth and BatchNorm then act on
+        the whole batch."""
+        f = self.features(xs, train=train, generator=generator, shard=shard)
         out = self.head(f, inference=inference,
                         apply_overspecificity_mask=apply_overspecificity_mask,
                         keep=keep, fuse_align_pf=fuse_align_pf, gumbel_noise=gumbel_noise)
@@ -140,7 +146,8 @@ class PIPNet(nn.Module):
         if with_byol:
             if not self.cfg.use_byol:
                 raise ValueError("model built without use_byol")
-            out["byol_online"] = self.predictor(self.projector(f, train=train), train=train)
+            out["byol_online"] = self.predictor(self.projector(f, train=train, shard=shard),
+                                                train=train, shard=shard)
         return out
 
     @torch.no_grad()

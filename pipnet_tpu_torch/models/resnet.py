@@ -21,6 +21,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..runtime.mesh import BatchShard
+
 BN_MOMENTUM, BN_EPS = 0.9, 1e-5
 
 
@@ -54,13 +56,16 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(dim))
         self.register_buffer("running_var", torch.ones(dim))
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                shard: Optional[BatchShard] = None) -> torch.Tensor:
         C = x.shape[-1]
         rows = x.reshape(-1, C)
         if not train:
             y = F.batch_norm(rows, self.running_mean, self.running_var, self.weight,
                              self.bias, training=False, eps=self.eps)
             return y.reshape(x.shape)
+        if shard is not None:
+            return self._global_batch(rows, shard).reshape(x.shape)
         # momentum 1 on scratch buffers: they receive the batch mean and the
         # unbiased batch variance, which this module converts and keeps
         mean = torch.zeros_like(self.running_mean)
@@ -73,6 +78,24 @@ class BatchNorm(nn.Module):
             self.running_mean.mul_(m).add_(mean * (1.0 - m))
             self.running_var.mul_(m).add_(var * ((n - 1) / n * (1.0 - m)))
         return y.reshape(x.shape)
+
+    def _global_batch(self, rows: torch.Tensor, shard: BatchShard) -> torch.Tensor:
+        """``train`` on this rank's ``rows`` of a batch split over a mesh,
+        with the whole batch's statistics: its mean, then its biased
+        variance about that mean, each a sum over the ranks
+        (differentiable), in f32 (or float64 for float64 rows); the running
+        statistics move alike on every rank."""
+        x = rows.to(torch.promote_types(rows.dtype, torch.float32))
+        n = shard.global_rows(rows.shape[0])
+        mean = shard.all_reduce(x.sum(dim=0)) / n
+        d = x - mean
+        var = shard.all_reduce((d * d).sum(dim=0)) / n
+        y = d * torch.rsqrt(var + self.eps) * self.weight + self.bias
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(m).add_(mean * (1.0 - m))
+            self.running_var.mul_(m).add_(var * (1.0 - m))
+        return y.to(rows.dtype)
 
 
 def _conv(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -95,10 +118,12 @@ class BasicBlock(nn.Module):
             self.down_bn = BatchNorm(planes)
         self.downsample = downsample
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype, train: bool) -> torch.Tensor:
-        out = F.relu(self.bn1(_conv(self.conv1, x, dtype), train))
-        out = self.bn2(_conv(self.conv2, out, dtype), train)
-        identity = self.down_bn(_conv(self.down_conv, x, dtype), train) if self.downsample else x
+    def forward(self, x: torch.Tensor, dtype: torch.dtype, train: bool,
+                shard: Optional[BatchShard] = None) -> torch.Tensor:
+        out = F.relu(self.bn1(_conv(self.conv1, x, dtype), train, shard))
+        out = self.bn2(_conv(self.conv2, out, dtype), train, shard)
+        identity = (self.down_bn(_conv(self.down_conv, x, dtype), train, shard)
+                    if self.downsample else x)
         return F.relu(out + identity)
 
 
@@ -118,11 +143,13 @@ class Bottleneck(nn.Module):
             self.down_bn = BatchNorm(planes * 4)
         self.downsample = downsample
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype, train: bool) -> torch.Tensor:
-        out = F.relu(self.bn1(_conv(self.conv1, x, dtype), train))
-        out = F.relu(self.bn2(_conv(self.conv2, out, dtype), train))
-        out = self.bn3(_conv(self.conv3, out, dtype), train)
-        identity = self.down_bn(_conv(self.down_conv, x, dtype), train) if self.downsample else x
+    def forward(self, x: torch.Tensor, dtype: torch.dtype, train: bool,
+                shard: Optional[BatchShard] = None) -> torch.Tensor:
+        out = F.relu(self.bn1(_conv(self.conv1, x, dtype), train, shard))
+        out = F.relu(self.bn2(_conv(self.conv2, out, dtype), train, shard))
+        out = self.bn3(_conv(self.conv3, out, dtype), train, shard)
+        identity = (self.down_bn(_conv(self.down_conv, x, dtype), train, shard)
+                    if self.downsample else x)
         return F.relu(out + identity)
 
 
@@ -148,16 +175,18 @@ class ResNetFeatures(nn.Module):
         return 512 * self.block.expansion
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                shard: Optional[BatchShard] = None) -> torch.Tensor:
         """x (B, S, S, 3) -> features (B, S/8, S/8, C) in the compute dtype.
         ``train`` normalises with batch statistics and updates the running
-        ones; ``generator`` is unused (no stochastic layer)."""
+        ones (with ``shard``, the statistics of the whole batch split over a
+        mesh); ``generator`` is unused (no stochastic layer)."""
         dt = self.dtype
-        x = F.relu(self.bn1(_conv(self.conv1, x.to(dt), dt), train))
+        x = F.relu(self.bn1(_conv(self.conv1, x.to(dt), dt), train, shard))
         x = _nhwc(F.max_pool2d(_nchw(x), 3, stride=2, padding=1))
         for li, blocks in enumerate(self.layers):
             for bi in range(blocks):
-                x = getattr(self, f"layer{li + 1}_block{bi}")(x, dt, train)
+                x = getattr(self, f"layer{li + 1}_block{bi}")(x, dt, train, shard)
         return x.contiguous()
 
 

@@ -100,9 +100,11 @@ class DinoV2ViT(nn.Module):
         return self.dim
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                shard=None) -> torch.Tensor:
         """x (B, S, S, 3) -> (B, S/14, S/14, dim) in the compute dtype.
-        ``train`` and ``generator`` are unused (no stochastic layer)."""
+        ``train``, ``generator`` and ``shard`` are unused (no stochastic
+        layer, no batch statistics)."""
         dt, D, G = self.dtype, self.dim, self.pretrain_grid
         B = x.shape[0]
         h = F.conv2d(x.to(dt).permute(0, 3, 1, 2), self.patch_embed.weight.to(dt),

@@ -1,6 +1,7 @@
-"""Runtime plumbing: the run directory's logs and profiling."""
+"""Runtime plumbing: the run directory's logs, profiling, and the mesh
+(``mesh.py``: data parallelism and ZeRO-1 on ``torch.distributed``)."""
 
-from .log import RunLog, Tee
+from .log import NullRunLog, RunLog, Tee, open_run_log
 from .profiling import StepTimer, annotate, trace
 
-__all__ = ["RunLog", "Tee", "StepTimer", "annotate", "trace"]
+__all__ = ["NullRunLog", "RunLog", "Tee", "open_run_log", "StepTimer", "annotate", "trace"]

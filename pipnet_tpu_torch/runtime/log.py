@@ -15,7 +15,7 @@ import dataclasses
 import json
 import os
 import sys
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 
 def _pid_alive(pid: int) -> bool:
@@ -33,7 +33,12 @@ class RunLog:
 
     ``create_log`` starts each CSV afresh, as the JAX package does, so a
     resumed run (``--resume``) rewrites the CSVs from its first epoch on;
-    the ``metrics_*.jsonl`` files are appended to and keep every epoch."""
+    the ``metrics_*.jsonl`` files are appended to and keep every epoch.
+
+    Everything a run writes into its directory goes through this object:
+    on a mesh only rank 0 holds one (``open_run_log``)."""
+
+    writes = True
 
     def __init__(self, log_dir: str):
         self.log_dir = log_dir
@@ -95,8 +100,96 @@ class RunLog:
             f.write(",".join(str(v) for v in values) + "\n")
 
     def message(self, msg: str) -> None:
-        with open(os.path.join(self.log_dir, "log.txt"), "a") as f:
-            f.write(msg + "\n")
+        self.append("log.txt", msg)
+
+    def save_checkpoint(self, name: str, model, state, **meta) -> None:
+        """``checkpoints/<name>`` (``train/checkpoint.py``) of whole
+        parameters and moments."""
+        from ..train.checkpoint import save_checkpoint
+        save_checkpoint(self.checkpoint_dir, name, model, state, **meta)
+
+    def save_curves(self, curves: Dict[str, Sequence[float]]) -> None:
+        """Each curve plotted to ``<name>.png``; skipped where matplotlib
+        is not installed."""
+        try:
+            import matplotlib
+            matplotlib.use("Agg")
+            import matplotlib.pyplot as plt
+        except ImportError:
+            return
+        for name, ys in curves.items():
+            plt.clf()
+            plt.plot(ys)
+            plt.savefig(os.path.join(self.log_dir, f"{name}.png"))
+        plt.close("all")
+
+    def save_tree_picture(self, root) -> None:
+        """The tree drawn to ``tree.png``, where graphviz can draw it (the
+        picture is best-effort)."""
+        try:
+            root.save_visualization(os.path.join(self.log_dir, "tree"))
+        except Exception as e:
+            print(f"tree visualization skipped: {e!r}")
+
+    def trace_dir(self, epoch: int) -> Optional[str]:
+        """Where a profile of ``epoch``'s steps goes."""
+        return os.path.join(self.log_dir, "traces", f"epoch_{epoch}")
+
+    def append(self, name: str, line: str) -> None:
+        """``line`` appended to the run directory's file ``name``."""
+        with open(os.path.join(self.log_dir, name), "a") as f:
+            f.write(line + "\n")
+
+
+class NullRunLog(RunLog):
+    """The run directory's paths for a rank of a mesh other than rank 0,
+    which reads the directory (checkpoints to resume from) but writes
+    nothing there and takes no lock: rank 0 writes the run."""
+
+    writes = False
+
+    def __init__(self, log_dir: str):
+        self.log_dir = log_dir
+        self.metadata_dir = os.path.join(log_dir, "metadata")
+        self.checkpoint_dir = os.path.join(log_dir, "checkpoints")
+        self._columns = {}
+
+    def save_config(self, cfg) -> None:
+        pass
+
+    def save_tree(self, root) -> None:
+        pass
+
+    def save_classes(self, classes) -> None:
+        pass
+
+    def create_log(self, name: str, *columns: str) -> None:
+        self._columns.setdefault(name, columns)
+
+    def log_values(self, name: str, *values) -> None:
+        pass
+
+    def append(self, name: str, line: str) -> None:
+        pass
+
+    def save_checkpoint(self, name: str, model, state, **meta) -> None:
+        pass
+
+    def save_curves(self, curves) -> None:
+        pass
+
+    def save_tree_picture(self, root) -> None:
+        pass
+
+    def trace_dir(self, epoch: int) -> Optional[str]:
+        return None
+
+
+def open_run_log(log_dir: str, rank: int = 0) -> RunLog:
+    """The run log of a process that is rank ``rank`` of its mesh (0
+    without one): rank 0 writes the run directory, the others only read
+    it (``NullRunLog``)."""
+    return RunLog(log_dir) if rank == 0 else NullRunLog(log_dir)
 
 
 class Tee:

@@ -25,6 +25,18 @@ device first, as the JAX step does: its spatial size picks the route
 (larger than ``image_size + 4``: the resized base, through transform1 and
 transform2; otherwise the host's geometric view, through transform2 only),
 with draws from the ``TrainState``'s generator.
+
+On a mesh (``runtime/mesh.py``) each rank takes its rows of the global
+batch and the step keeps the one-process step's numbers: every draw is
+made for the whole batch (each rank keeps its rows), the losses and
+metrics are computed on every rank from the gathered outputs they read
+(align_pf from each rank's per-row log sums, not from the maps; the
+feature losses from each rank's sums over its own patch rows, the
+uniformity's pairs those of its rows against every rank's),
+BatchNorm normalises with the whole batch's statistics, and one
+all-reduce sums the gradients before clipping and AdamW.  With ZeRO-1
+each rank updates its part of the parameters from its part of the Adam
+moments and the parts are all-gathered.
 """
 
 from __future__ import annotations
@@ -37,11 +49,12 @@ import torch
 
 from ..config import RunConfig
 from ..losses import LossWeights, compute_total_loss, make_tree_consts
-from ..losses.catalog import label_rows
+from ..losses.catalog import ALIGN_EPS, align_pf_row_logsum, label_rows
 from ..models.byol import byol_tau_schedule, ema_update, init_byol_state
 from ..models.pipnet import PIPNet, joint_leaf_log_distribution, masked_decode_degenerates
 from ..ops.device_augment import ViewDraws, op_counts, sample_view, two_view_transform2
 from ..ops.device_geometric import GeometricDraws, sample_transform1, transform1_batch
+from ..runtime.mesh import BatchShard, Mesh, split_of, state_shardings, whole_of
 from ..tree.compile import TreeArrays
 from .optimizer import (AdamState, Phase, adam_init, adam_update, clip_gradients,
                         cosine_annealing, cosine_warm_restarts, group_trainable,
@@ -105,27 +118,35 @@ class AugmentDraws:
         parts = ([self.geometric] if self.geometric is not None else []) + list(self.views)
         return [getattr(p, f.name) for p in parts for f in dataclasses.fields(p)]
 
+    def take(self, shard: BatchShard) -> "AugmentDraws":
+        """This rank's rows of the whole batch's draws (op counts unread)."""
+        def local(p):
+            return type(p)(*(shard.local(getattr(p, f.name)) for f in dataclasses.fields(p)))
+        return AugmentDraws(None if self.geometric is None else local(self.geometric),
+                            tuple(local(v) for v in self.views))
+
 
 def sample_augment(batch: int, size: int, image_size: int, generator: torch.Generator,
-                   cars: bool = False) -> AugmentDraws:
+                   cars: bool = False, shard: Optional[BatchShard] = None) -> AugmentDraws:
     """Draws for ``batch`` uint8 images of ``size``^2 (through transform1
     to ``image_size + 4`` when ``size`` is larger, then two views of
     transform2 at ``image_size``), with the views' op counts read on the
-    host.  On a card the draws are made on a high-priority stream of their
-    own, so that reading the counts waits for those few kernels only, not
-    for the work queued before them (the previous step): the host stays
-    ahead of the card."""
+    host.  With ``shard`` (one view), ``batch`` is the whole batch of a
+    mesh and the draws and counts are this rank's rows'.  On a card the
+    draws are made on a high-priority stream of their own, so that reading
+    the counts waits for those few kernels only, not for the work queued
+    before them (the previous step): the host stays ahead of the card."""
     if size < image_size:
         raise ValueError(f"uint8 input of {size}^2 is smaller than the image size "
                          f"{image_size}")
     dev = generator.device
     if dev.type != "cuda":
-        draws = _draw(batch, size, image_size, generator, cars)
+        draws = _draw(batch, size, image_size, generator, cars, shard)
         draws.op_counts = op_counts(draws.views, cars).tolist()
         return draws
     main, side = torch.cuda.current_stream(dev), torch.cuda.Stream(dev, priority=-1)
     with torch.cuda.stream(side):
-        draws = _draw(batch, size, image_size, generator, cars)
+        draws = _draw(batch, size, image_size, generator, cars, shard)
         counts = op_counts(draws.views, cars)
         host = torch.empty(counts.shape, dtype=counts.dtype, pin_memory=True)
         host.copy_(counts, non_blocking=True)
@@ -140,13 +161,14 @@ def sample_augment(batch: int, size: int, image_size: int, generator: torch.Gene
 
 
 def _draw(batch: int, size: int, image_size: int, generator: torch.Generator,
-          cars: bool) -> AugmentDraws:
+          cars: bool, shard: Optional[BatchShard] = None) -> AugmentDraws:
     geometric = None
     if size > image_size + 4:
         geometric = sample_transform1(batch, size, generator)
         size = image_size + 4
     views = tuple(sample_view(batch, size, image_size, generator, cars) for _ in range(2))
-    return AugmentDraws(geometric, views)
+    draws = AugmentDraws(geometric, views)
+    return draws if shard is None else draws.take(shard)
 
 
 def augment_views(x_u8: torch.Tensor, image_size: int, draws: AugmentDraws,
@@ -178,7 +200,8 @@ def reinit_optimizer(state: TrainState) -> TrainState:
 
 
 def make_train_step(model: PIPNet, tree: TreeArrays, cfg: RunConfig,
-                    statics: StepStatics, *, fuse_align_pf: bool = False) -> Callable:
+                    statics: StepStatics, *, fuse_align_pf: bool = False,
+                    mesh: Optional[Mesh] = None, zero1: bool = False) -> Callable:
     """The step function of one phase:
     ``step(state, xs1, xs2, ys, scalars, acc=None, presence_noise=None,
     augment_draws=None) -> (state, metrics)``.
@@ -195,7 +218,15 @@ def make_train_step(model: PIPNet, tree: TreeArrays, cfg: RunConfig,
     otherwise.  ``presence_noise`` (P, 2), when given, replaces
     the step's draw of the presence Gumbel noise (tests hand both packages
     the same sample); ``augment_draws``, likewise, replaces the draws of
-    the device augmentation."""
+    the device augmentation.
+
+    ``mesh`` (``runtime/mesh.py``, a data axis only): ``xs1``, ``xs2``
+    and ``ys`` are this rank's rows of the global batch
+    (``shard_batch``), every rank's the same count; ``augment_draws`` are
+    the whole batch's.  The state, the metrics and the updated parameters
+    are the one-process step's on every rank.  ``zero1`` (with more than
+    one data rank): ``state.opt`` holds this rank's parts of the moments
+    (``split_moments``)."""
     lcfg, ocfg, ph = cfg.train.loss, cfg.train.optim, statics.phase
     if fuse_align_pf:
         why = [reason for reason, bad in (
@@ -208,6 +239,16 @@ def make_train_step(model: PIPNet, tree: TreeArrays, cfg: RunConfig,
         if why:
             raise ValueError(f"fuse_align_pf=True cannot apply: {'; '.join(why)}")
 
+    if mesh is not None and mesh.n_model > 1:
+        raise NotImplementedError(
+            "a train step on a model axis (model_parallel > 1) is not ported: "
+            "ROADMAP item 10b")
+    rows = views1 = None
+    if mesh is not None:
+        rows, views1 = BatchShard(mesh, views=2), BatchShard(mesh, views=1)
+    zero1 = zero1 and mesh is not None and mesh.n_data > 1
+    apf_active = not ph.finetune and lcfg.align_pf
+    apf_eps = lcfg.align_eps if lcfg.align_eps is not None else ALIGN_EPS
     head = model.head
     device = head.add_on_kernel.device
     tc = make_tree_consts(tree, device)
@@ -227,8 +268,11 @@ def make_train_step(model: PIPNet, tree: TreeArrays, cfg: RunConfig,
             if xs2 is not None:
                 raise ValueError("a uint8 batch is one shared view a sample: pass xs2=None")
             S, cars = cfg.model.image_size, cfg.train.device_augment_cars
-            draws = augment_draws or sample_augment(xs1.shape[0], xs1.shape[1], S,
-                                                    state.generator, cars)
+            if augment_draws is not None:
+                draws = augment_draws if mesh is None else augment_draws.take(views1)
+            else:
+                n = xs1.shape[0] if mesh is None else views1.global_rows(xs1.shape[0])
+                draws = sample_augment(n, xs1.shape[1], S, state.generator, cars, views1)
             xs1, xs2 = augment_views(xs1, S, draws, cars)
         xs = torch.cat([xs1, xs2], dim=0)
         ys2 = torch.cat([ys, ys], dim=0)
@@ -238,20 +282,29 @@ def make_train_step(model: PIPNet, tree: TreeArrays, cfg: RunConfig,
 
         byol_target = model.byol_target_projection(xs, state.byol) if byol_active else None
         out = model(xs, train=True, generator=state.generator, fuse_align_pf=fuse_align_pf,
-                    with_byol=byol_active)
+                    with_byol=byol_active, shard=rows)
         weights = LossWeights(align_pf=scalars.align_pf_weight,
                               byol=0.5 if ph.pretrain else 2.0,
                               tanh=scalars.tanh_weight, cl=weights_cl,
                               ood=0.0 if ph.pretrain else 0.2)
+        w_eff, kernel, presence = head.effective_cls_weight(), head.add_on_kernel, \
+            head.proto_presence
+        if mesh is not None:
+            out = global_outputs(out)
+            ys2 = rows.gather(ys2)
+            if byol_target is not None:
+                byol_target = rows.gather(byol_target)
+            w_eff, kernel, presence = mesh.once(w_eff), mesh.once(kernel), mesh.once(presence)
         loss, aux = compute_total_loss(
-            tc, out, ys2, head.effective_cls_weight(),
-            add_on_kernel=head.add_on_kernel, proto_presence=head.proto_presence,
+            tc, out, ys2, w_eff, add_on_kernel=kernel, proto_presence=presence,
             multiplier=head.multiplier[0].detach(), cfg=eff_lcfg, weights=weights,
             tree=tree, pretrain=ph.pretrain, finetune=ph.finetune,
             ood_present=statics.has_ood, generator=state.generator,
             presence_noise=presence_noise, byol_online=out.get("byol_online"),
-            byol_target=byol_target)
+            byol_target=byol_target, shard=rows)
         loss.backward()       # .grad stays set (unclipped) until the next step
+        if mesh is not None:
+            mesh.all_reduce_grads(state.params)
         grads = {n: p.grad for n, p in state.params.items()}
 
         grad_norm = None
@@ -271,8 +324,11 @@ def make_train_step(model: PIPNet, tree: TreeArrays, cfg: RunConfig,
                            / statics.backbone_warmup_steps, 0.0), 1.0)
             backbone_lr = lambda base: net_lr(base) * ramp  # noqa: E731
         masks, lrs = masks_and_lrs(labels, ph, ocfg, net_lr, cls_lr, backbone_lr)
-        adam_update(state.params, grads, state.opt, lrs, masks,
-                    weight_decay=ocfg.weight_decay)
+        if zero1:
+            zero1_update(state, grads, lrs, masks)
+        else:
+            adam_update(state.params, grads, state.opt, lrs, masks,
+                        weight_decay=ocfg.weight_decay)
         if byol_active:
             ema_update(state.byol, state.params,
                        byol_tau_schedule(scalars.net_t, scalars.net_T, lcfg.byol_tau_base,
@@ -293,6 +349,31 @@ def make_train_step(model: PIPNet, tree: TreeArrays, cfg: RunConfig,
             if acc is not None:
                 metrics = {k: acc[k] + m.to(acc[k].dtype) for k, m in metrics.items()}
         return state, metrics
+
+    def global_outputs(out: Metrics) -> Metrics:
+        """The whole batch's outputs that the losses read, gathered from
+        every rank's rows: align_pf as each row's log sums (the maps stay
+        on their rank); the features stay the rank's own rows (the feature
+        losses add the ranks' sums, ``compute_total_loss``'s ``shard``)."""
+        g = {k: rows.gather(out[k]) for k in ("pooled", "logits", "byol_online") if k in out}
+        g["features"] = out["features"]
+        if apf_active:
+            logsum = (out["align_pf_logsum"] if "align_pf_logsum" in out
+                      else align_pf_row_logsum(tc, out["proto_features"], apf_eps))
+            g["align_pf_logsum"] = views1.gather(logsum)
+        return g
+
+    def zero1_update(state: TrainState, grads, lrs, masks) -> None:
+        """AdamW on this rank's parts of the parameters (views) from its
+        parts of the moments, then each updated parameter all-gathered."""
+        specs = state_shardings(mesh, state, zero1=True)["mu"]
+        parts = {n: split_of(mesh, p.detach(), specs[n]) for n, p in state.params.items()}
+        gparts = {n: None if g is None else split_of(mesh, g, specs[n]) for n, g in grads.items()}
+        adam_update(parts, gparts, state.opt, lrs, masks, weight_decay=ocfg.weight_decay)
+        with torch.no_grad():
+            for n, spec in specs.items():
+                if spec is not None and masks[n]:
+                    state.params[n].copy_(whole_of(mesh, parts[n], spec))
 
     return step
 

@@ -6,7 +6,15 @@ self-supervised pretraining, phase 2 staged training (finetune-classifier
 -> finetune -> frozen backbone -> full -> mask-only), periodic eval, CSV
 telemetry and checkpoints.  The per-step compute is the train step
 (``train/step.py``); this module is host-side control only.  It trains on
-one device, the model's.
+the model's device, one rank of a mesh or alone.
+
+On a mesh (``runtime/mesh.py``, ``--data_parallel N``: one process a
+rank) every rank runs the same seeded loaders and keeps its rows of each
+batch, trimmed as the JAX Trainer trims them (a ragged final batch cut to a
+multiple of the data axis, the OOD chunk shortened so the combined batch
+divides it); the device cache and the evaluation passes are whole on every
+rank; only rank 0 writes logs and checkpoints, and a checkpoint holds the
+whole parameters and moments whatever the mesh.
 
 The host never waits for the card inside an epoch: the batch indices and
 labels go to the card from pinned memory without waiting
@@ -20,6 +28,7 @@ side stream of its own.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import time
@@ -35,13 +44,38 @@ from ..models.convert import random_jax_variables, state_dict_from_jax
 from ..losses import make_tree_consts
 from ..losses.catalog import label_rows
 from ..models.pipnet import PIPNet, presence_keep
-from ..runtime.log import RunLog
+from ..runtime.log import RunLog, open_run_log
+from ..runtime.mesh import (Mesh, data_mesh, replicate, shard_batch, split_moments,
+                            state_shardings, whole_moments)
 from ..runtime.profiling import trace
 from ..tree.compile import TreeArrays
-from .checkpoint import save_checkpoint
 from .optimizer import cosine_annealing, cosine_warm_restarts, phase_for_epoch
 from .step import (Scalars, StepStatics, TrainState, init_train_state, make_eval_step,
                    make_train_step, reinit_optimizer)
+
+
+PALLAS_HEAD_REFUSAL = (
+    "model_parallel > 1 shards the prototype axis across devices; the fused "
+    "Pallas head is a single-device kernel — build the model with "
+    "use_pallas_head=False")
+
+
+def trimmed_rows(n: int, n_shards: int) -> int:
+    """Rows of a batch of ``n`` kept on a data axis of ``n_shards``: a
+    ragged final batch drops its remainder so that it splits evenly (0: the
+    batch is skipped; the JAX Trainer's rule, with OOD rows the trimmed
+    rows are OOD rows)."""
+    return n - n % n_shards
+
+
+def ood_chunk_size(batch_size: int, ood_batch_size: int, n_shards: int) -> int:
+    """OOD rows a step takes: the OOD loader's batch size, shortened so that
+    the combined batch divides the data axis (the JAX Trainer's rule)."""
+    size = ood_batch_size - (batch_size + ood_batch_size) % n_shards
+    if size <= 0:
+        raise ValueError(f"OOD batch size {ood_batch_size} too small to align batch "
+                         f"{batch_size}+OOD to {n_shards} shards")
+    return size
 
 
 def _ood_chunks(ood_loader: Loader, start_epoch: int, size: int):
@@ -79,13 +113,25 @@ class Trainer:
 
     def __init__(self, model: PIPNet, tree: TreeArrays, cfg: RunConfig,
                  loaders: Loaders, log: Optional[RunLog] = None,
-                 ood_loaders: Optional[Loaders] = None):
+                 ood_loaders: Optional[Loaders] = None, mesh: Optional[Mesh] = None):
+        """``mesh``: the data mesh this process is a rank of; by default
+        ``cfg.train.data_parallel`` ranks (0: every rank of the process
+        group), which needs a process group of that many ranks
+        (``runtime/mesh.py::init_ranks``; the CLI starts them).  One rank
+        trains without a mesh."""
         t = cfg.train
-        if t.data_parallel > 1 or t.model_parallel > 1 or t.zero1:
+        if t.model_parallel > 1:
+            if cfg.model.use_pallas_head:
+                raise ValueError(PALLAS_HEAD_REFUSAL)
             raise NotImplementedError(
-                f"data_parallel={t.data_parallel}, model_parallel={t.model_parallel}, "
-                f"zero1={t.zero1}: not ported: ROADMAP item 10 (the port trains on one "
-                "device)")
+                f"model_parallel={t.model_parallel}: prototype-axis model parallelism is "
+                "not ported: ROADMAP item 10b")
+        self.device = model.head.add_on_kernel.device
+        if mesh is None and t.data_parallel != 1:
+            mesh = data_mesh(t.data_parallel or None, device=self.device)
+        # one rank: no mesh, the one-device step as it is
+        self.mesh = mesh if mesh is not None and mesh.world > 1 else None
+        self.zero1 = t.zero1 and self.mesh is not None
         self.model = model
         self.tree = tree
         self.cfg = cfg
@@ -93,8 +139,8 @@ class Trainer:
         # the OOD dataset's loaders (--OOD_dataset): their train loader
         # feeds OOD rows (label -1) into every phase-2 step
         self.ood_loaders = ood_loaders
-        self.log = log or RunLog(cfg.log_dir)
-        self.device = model.head.add_on_kernel.device
+        # only rank 0 writes the run directory
+        self.log = log or open_run_log(cfg.log_dir, 0 if self.mesh is None else self.mesh.rank)
         self._step_cache: Dict[tuple, Callable] = {}
         self.eval_step = make_eval_step(model, tree)
         # eval steps by (path_prob_softmax_tau, apply_overspecificity_mask,
@@ -128,12 +174,37 @@ class Trainer:
         variables = random_jax_variables(self.cfg.model, self.tree, seed=seed,
                                          backbone=self.model.backbone)
         self.model.load_state_dict(state_dict_from_jax(variables))
-        self.state = init_train_state(self.model, seed=seed)
+        self.state = self._place(init_train_state(self.model, seed=seed))
         return self.state
 
     def adopt_state(self, state: TrainState) -> None:
         """Install a restored TrainState (checkpoint resume or partial load)."""
-        self.state = state
+        self.state = self._place(state)
+
+    def _place(self, state: TrainState) -> TrainState:
+        """On a mesh: rank 0's weights, BatchNorm statistics and BYOL target
+        on every rank, and under ZeRO-1 each whole moment cut to this rank's
+        part (the layout the step expects)."""
+        if self.mesh is None:
+            return state
+        replicate(self.mesh, [*state.params.values(), *state.buffers.values(),
+                              *state.byol.values()])
+        if self.zero1:
+            whole = all(state.opt.mu[n].shape == p.shape for n, p in state.params.items())
+            if whole:
+                state.opt = split_moments(self.mesh, state.opt, self._specs(state))
+        return state
+
+    def _specs(self, state: TrainState):
+        return state_shardings(self.mesh, state, zero1=self.zero1)
+
+    def whole_state(self) -> TrainState:
+        """The train state with whole Adam moments (under ZeRO-1 a
+        collective: every rank calls it)."""
+        if not self.zero1:
+            return self.state
+        return dataclasses.replace(self.state, opt=whole_moments(
+            self.mesh, self.state.opt, self._specs(self.state)))
 
     # -- device-resident data ------------------------------------------------
     def device_cache_for(self, loader: Loader):
@@ -176,7 +247,8 @@ class Trainer:
                statics.eta_min_net, statics.t0_cls, statics.weight_reactivation,
                statics.backbone_warmup_t0, statics.backbone_warmup_steps)
         if key not in self._step_cache:
-            self._step_cache[key] = make_train_step(self.model, self.tree, self.cfg, statics)
+            self._step_cache[key] = make_train_step(self.model, self.tree, self.cfg, statics,
+                                                    mesh=self.mesh, zero1=self.zero1)
         return self._step_cache[key]
 
     # -- epochs --------------------------------------------------------------
@@ -226,35 +298,24 @@ class Trainer:
         # as in the JAX package, the epoch's clock includes building it
         t_start = time.time()
         cache = self.device_cache_for(loader) if ood_loader is None else None
-        # fixed-size OOD chunks from a cycling stream, so every step sees one
-        # combined batch shape; the JAX trainer trims the chunk so that the
-        # combined batch divides its data mesh, one shard on one card
-        ood_iter = (_ood_chunks(ood_loader, epoch, ood_loader.batch_size)
-                    if ood_loader is not None else None)
         dev = self.device
 
         def batches():
-            if cache is not None:
-                for rows, ys in loader.epoch_index_batches(epoch):
-                    yield cache.fetch(rows), None, host_to_device(ys, dev), len(ys)
-                return
-            for b in loader.epoch(epoch):
-                xs1, xs2, ys = b.xs1, b.xs2, b.ys
-                if ood_iter is not None:
-                    ox1, ox2 = next(ood_iter)
-                    xs1 = np.concatenate([xs1, ox1])
-                    if xs2 is not None:
-                        xs2 = np.concatenate([xs2, ox2])
-                    ys = np.concatenate([ys, np.full(len(ox1), -1, ys.dtype)])
+            for b in self.epoch_batches(loader, epoch, cache is not None, ood_loader):
+                if cache is not None:
+                    rows, ys, nrows = b
+                    yield cache.fetch(rows), None, host_to_device(ys, dev), nrows
+                    continue
+                xs1, xs2, ys, nrows = b
                 yield (host_to_device(xs1, dev),
                        None if xs2 is None else host_to_device(xs2, dev),
-                       host_to_device(ys, dev), len(ys))
+                       host_to_device(ys, dev), nrows)
 
         # profiling: trace steps 2..1+trace_steps of the chosen epoch (step 1
         # carries the warm-up and would dominate the trace)
         trace_dir = None
         if self.trace_epoch is not None and not pretrain and epoch == self.trace_epoch:
-            trace_dir = os.path.join(self.log.log_dir, "traces", f"epoch_{epoch}")
+            trace_dir = self.log.trace_dir(epoch)
 
         # the epoch's metric totals add up ON THE DEVICE (the step's `acc`);
         # the host reads them once after the epoch
@@ -274,8 +335,10 @@ class Trainer:
                         tracing.close()
                         trace_dir = None
         if acc is None:
-            raise ValueError(f"epoch {epoch}: 0 training steps ran (the loader of "
-                             f"{len(loader)} batches is empty)")
+            raise ValueError(
+                f"epoch {epoch}: 0 training steps ran ({n_images} images from "
+                f"{len(loader)} batches survived sharding-alignment trimming; batch_size "
+                f"must be >= the data-parallel shard count and the loader non-empty)")
         metrics = self._read_epoch_metrics(acc)
 
         fine_correct = int(metrics.pop("fine_correct"))
@@ -315,6 +378,46 @@ class Trainer:
                                              node_correct / np.maximum(node_examples, 1), 0.0)
         info["per_node"] = {k: v / max(n_steps, 1) for k, v in per_node_sums.items()}
         return info
+
+    def epoch_batches(self, loader: Loader, epoch: int, indices: bool,
+                      ood_loader: Optional[Loader] = None):
+        """This rank's part of each batch of ``loader``'s epoch, on the
+        host: ``(rows, ys, n)`` (dataset rows for the device cache, with
+        ``indices``) or ``(xs1, xs2, ys, n)``, ``n`` the rows the whole
+        step takes.  With ``ood_loader`` each batch is followed by a
+        fixed-size chunk of OOD rows (label -1, ``_ood_chunks``).  On a
+        mesh the batches are trimmed to the data axis (``trimmed_rows``,
+        ``ood_chunk_size``; a batch trimmed to nothing is skipped) and split
+        (``shard_batch``)."""
+        mesh = self.mesh
+        n_shards = mesh.n_data if mesh is not None else 1
+        ood_iter = None
+        if ood_loader is not None:
+            size = ood_chunk_size(loader.batch_size, ood_loader.batch_size, n_shards)
+            ood_iter = _ood_chunks(ood_loader, epoch, size)
+
+        def part(*arrays):
+            keep = trimmed_rows(len(arrays[-1]), n_shards)
+            if keep == 0:
+                return None
+            arrays = tuple(None if a is None else a[:keep] for a in arrays)
+            return (shard_batch(mesh, *arrays) if mesh is not None else arrays) + (keep,)
+
+        if indices:
+            batches = (part(rows, ys) for rows, ys in loader.epoch_index_batches(epoch))
+            yield from (b for b in batches if b is not None)
+            return
+        for b in loader.epoch(epoch):
+            xs1, xs2, ys = b.xs1, b.xs2, b.ys
+            if ood_iter is not None:
+                ox1, ox2 = next(ood_iter)
+                xs1 = np.concatenate([xs1, ox1])
+                if xs2 is not None:
+                    xs2 = np.concatenate([xs2, ox2])
+                ys = np.concatenate([ys, np.full(len(ox1), -1, ys.dtype)])
+            b = part(xs1, xs2, ys)
+            if b is not None:
+                yield b
 
     @torch.no_grad()
     def _read_epoch_metrics(self, acc: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
@@ -377,7 +480,7 @@ class Trainer:
 
         # phase 2: fresh optimizer + schedulers (main.py:501-507)
         if start_epoch == 0:
-            self.state = reinit_optimizer(self.state)
+            self.state = self._place(reinit_optimizer(self.state))
         net_t = start_epoch * len(self.loaders.train)
         net_T = len(self.loaders.train) * n_epochs
         ood_loader = self.ood_loaders.train if self.ood_loaders else None
@@ -408,19 +511,13 @@ class Trainer:
 
     def _save(self, name: str, **meta) -> None:
         t0 = time.perf_counter()
-        save_checkpoint(self.log.checkpoint_dir, name, self.model, self.state, **meta)
+        self.log.save_checkpoint(name, self.model, self.whole_state(), **meta)
         self.save_seconds.append((name, time.perf_counter() - t0))
 
     def _save_lr_curves(self, n_epochs: int) -> None:
         """lr_net.png / lr_class.png run artifacts (ref main.py:714-721),
         reconstructed from the schedules (pure functions of the step
-        counter); skipped where matplotlib is not installed."""
-        try:
-            import matplotlib
-            matplotlib.use("Agg")
-            import matplotlib.pyplot as plt
-        except ImportError:
-            return
+        counter)."""
         cfg = self.cfg.train
         spe = max(len(self.loaders.train), 1)
         T = spe * max(n_epochs, 1)
@@ -430,11 +527,7 @@ class Trainer:
         t0 = 5.0 if cfg.epochs <= 30 else 10.0     # main.py:504-507
         lrs_cls = [cosine_warm_restarts(cfg.optim.lr, 1e-3, float(i) / spe, t0)
                    for i in t[::max(1, T // 2000)]]
-        for name, ys in (("lr_net", lrs_net), ("lr_class", lrs_cls)):
-            plt.clf()
-            plt.plot(ys)
-            plt.savefig(os.path.join(self.log.log_dir, f"{name}.png"))
-        plt.close("all")
+        self.log.save_curves({"lr_net": lrs_net, "lr_class": lrs_cls})
 
     # -- eval ----------------------------------------------------------------
     def eval_batches(self, loader: Loader):
@@ -519,11 +612,9 @@ class Trainer:
                             f"{info.get('loss/total', 0.0):.5f}",
                             f"{info['images_per_sec']:.2f}")
         # full loss detail as JSONL (columns vary by phase)
-        with open(os.path.join(self.log.log_dir, f"metrics_{split}.jsonl"), "a") as f:
-            row = {k: float(v) for k, v in info.items()
-                   if not isinstance(v, (dict, np.ndarray))}
-            row["epoch"] = epoch
-            f.write(json.dumps(row) + "\n")
+        row = {k: float(v) for k, v in info.items() if not isinstance(v, (dict, np.ndarray))}
+        row["epoch"] = epoch
+        self.log.append(f"metrics_{split}.jsonl", json.dumps(row))
         # per-node loss CSVs (ref pipnet/train.py:503-518)
         per_node = info.get("per_node", {})
         sub = f"node_wise_metrics_{split}"

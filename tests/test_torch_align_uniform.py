@@ -74,6 +74,27 @@ def test_blocked_backward_equals_autograd_of_the_unblocked_form():
     torch.testing.assert_close(x.grad, y.grad, atol=1e-10, rtol=0)
 
 
+@pytest.mark.parametrize("parts,block", [(2, 16), (4, 2048), (3, 7)])
+def test_rank_shares_of_the_pair_sum_add_up(parts, block):
+    """float64: a mesh rank's share of the pair sum (``_UniformRowPairs``,
+    its rows against every row) over ``parts`` rows blocks adds up to the
+    whole pair sum, and each share's gradient is the whole sum's for its
+    rows (1e-12)."""
+    x0 = torch.from_numpy(_rows(seed=7, n=96)).double()
+    x = x0.clone().requires_grad_(True)
+    whole = TC._UniformPairSum.apply(x, 2.0, 40)
+    whole.backward()
+    shares, grads, b = [], [], 96 // parts
+    for r in range(parts):
+        xr = x0[r * b:(r + 1) * b].clone().requires_grad_(True)
+        share = TC._UniformRowPairs.apply(xr, x0, r * b, 2.0, block)
+        share.backward()
+        shares.append(float(share.detach()))
+        grads.append(xr.grad)
+    assert sum(shares) == pytest.approx(float(whole.detach()), rel=1e-12)
+    torch.testing.assert_close(torch.cat(grads), x.grad, atol=1e-12, rtol=0)
+
+
 def test_align_loss_matches_jax():
     x, y = _rows(seed=3), _rows(seed=4)
     vj, (gx, gy) = jax.value_and_grad(JC.align_loss_unit_space, argnums=(0, 1))(

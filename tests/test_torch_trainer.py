@@ -150,8 +150,15 @@ def _record_fit(monkeypatch, module, trainer, recorder, fit_kw, events):
         events.append(("eval",)), {"top1": 0.5, "top5": 1.0, "n": 4})[1])
     monkeypatch.setattr(module, "reinit_optimizer",
                         lambda state: (events.append(("reinit",)), state)[1])
-    monkeypatch.setattr(module, "save_checkpoint", lambda d, name, *a, **meta: events.append(
-        ("save", name, meta["epoch"], meta["phase"])))
+    def save(name, **meta):
+        events.append(("save", name, meta["epoch"], meta["phase"]))
+    # the port's Trainer saves through its run log (only rank 0 writes)
+    if module is port_trainer:
+        monkeypatch.setattr(trainer.log, "save_checkpoint",
+                            lambda name, *a, **meta: save(name, **meta))
+    else:
+        monkeypatch.setattr(module, "save_checkpoint",
+                            lambda d, name, *a, **meta: save(name, **meta))
     trainer.checkpoint_every = 2
     trainer.fit(eval_every=2, save_every=3, **fit_kw)
 
