@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port (``pipnet_tpu_torch``) on one CUDA card.
 
     python3 chip_smoke.py [--baseline CHECKOUT]
-                          [--only blocks|data|trainer|eval|interp|backbones|options|mesh]
+                          [--only blocks|data|trainer|eval|interp|backbones|options|mesh|model]
 
 Phases, each of which fails the run loudly:
 
@@ -165,7 +165,22 @@ Phases, each of which fails the run loudly:
    each, against the one-process step (loss, head gradients, each rank's
    K1 and K1b in each step), and ZeRO-1's update against the plain one on
    each rank; a rank that fails fails the phase.  Multi-card times are not
-   measured (one card).
+   measured (one card);
+17. the train step on a model axis (``--model_parallel``): two ranks of a
+   (1, 2) mesh on the one card through gloo on CUDA tensors, each holding
+   half of the head's 3840 prototype columns (and their moments) and the
+   whole batch, with ``use_pallas_head`` off: first one evaluation pass
+   (``Trainer.evaluate``, 2 batches of 32 seeded images) on the head
+   gathered whole (K1 once a batch), its report equal to a one-process
+   Trainer's on the same model and to the parent's; then two joint steps
+   in bf16 (64 images in two views) and in f32 with TF32 off (32 images)
+   against the one-process step with the composed head on the same seeded
+   parameters and batch (loss, metrics, whole head gradients, updated head
+   parameters), each rank launching none of K1, K1b and K2; three bf16
+   steps timed on each rank, with its peak memory, beside the one-process
+   composed step's and path A's; one step in the fused-backbone
+   configuration (K4 54 a step a rank) against the one-process step.  A
+   rank that fails fails the phase.
 
 The last two lines of standard output are the ``{"kernels": [...]}``
 record and ``{"ok": true, "device": {...}}``.  ``--only blocks`` runs
@@ -174,8 +189,8 @@ phases 1, 2 and the K3 and K4 checks of phase 3, ``--only data`` phases
 1, 2 and 12, ``--only interp`` phases 1, 2 and 13, ``--only backbones``
 phases 1, 2, the kernel checks at the other backbones' shapes and 14,
 ``--only options`` phases 1, 2, the kernel checks at the reducer's width
-and 15, ``--only mesh`` phases 1, 2 and 16, then each stops without
-either line: neither can pass for a full run.  Without a CUDA card, or without the rest of the repository
+and 15, ``--only mesh`` phases 1, 2 and 16, ``--only model`` phases 1, 2
+and 17, then each stops without either line: neither can pass for a full run.  Without a CUDA card, or without the rest of the repository
 beside it, it exits non-zero before printing either.
 """
 
@@ -3721,6 +3736,447 @@ def mesh_phase(card: str) -> dict:
     return {"mesh, one rank": one["launches"], "mesh, two ranks": ranks}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the train step on a model axis (runtime/mesh.py, --model_parallel)
+# ---------------------------------------------------------------------------
+
+# the f32 check's images: on a (1, 2) mesh both ranks run the backbone on
+# the same rows, so two f32 ranks hold two whole backbones' activations on
+# the one card (~0.3 GB an image in f32 at 224^2): 64 images would not fit
+# beside each other; 32 do.  bf16 runs the 64 of path A.
+MODEL_F32_IMAGES = 32
+# steps timed on each path of phase 17, after the two compared steps
+MODEL_TIMED_STEPS = 3
+# the evaluation pass: batches of seeded images at 224^2
+MODEL_EVAL_BATCHES, MODEL_EVAL_IMAGES = 2, 32
+# the model-axis step against the one-process composed step on the same
+# parameters and batch.  f32 (TF32 off): the column split changes only the
+# summation order of the logits (two partial products summed) and of the
+# cut nodes' statistics (none at the flagship), so loss and metrics within
+# 1e-5 relative, or 4x the one-process step's own spread where the card's
+# atomics (index_add, scatter) make that larger; head gradients within
+# 1e-4 relative L2.  bf16: the logits' partial products are each rounded to
+# bf16 before they are summed (one bf16 ulp, 2^-8 relative, of each), which
+# moves the per-node losses that read them: the loss, and each loss term
+# against the loss it adds into, within 2e-3 relative, and the head gradients within the cross-checks' bf16 bar (relative L2 <
+# 0.2, mass within 5%).  Updated head parameters: Adam's first steps move a
+# parameter by at most ~lr a step, and its sign follows the gradient's,
+# which may flip where the gradient is at rounding: every change within
+# 2 lr a step of the one-process step's, and (f32) within 1e-6 where the
+# first gradient is larger than 1e-3 in magnitude.
+MODEL_F32_REL, MODEL_F32_GRAD_REL, MODEL_BF16_LOSS_REL = 1e-5, 1e-4, 2e-3
+
+
+def model_configs(setup: Setup) -> dict:
+    """The flagship run config of phase 17's paths, ``use_pallas_head`` off
+    (the JAX Trainer refuses it on a model axis): bf16 (path A's), f32 and
+    the fused-backbone configuration (bf16)."""
+    def head_off(cfg, **model):
+        return dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, use_pallas_head=False, **model))
+    cfg = run_config(setup)
+    return {"bf16": head_off(cfg), "f32": head_off(cfg, compute_dtype="float32"),
+            "fused": head_off(run_config(setup, fused_backbone=True))}
+
+
+def model_batch(cfg, tree, images: int):
+    xs1, xs2, ys = train_batch(cfg, tree)
+    return xs1[:images], xs2[:images], ys[:images]
+
+
+def _whole_param(mesh, name: str, t: torch.Tensor) -> torch.Tensor:
+    from pipnet_tpu_torch.runtime.mesh import PROTO_AXIS_PARAMS
+    if mesh is not None and name in PROTO_AXIS_PARAMS:
+        t = mesh.all_gather(t.contiguous(), dim=PROTO_AXIS_PARAMS[name], axis="model")
+    return t.detach().float().cpu()
+
+
+def composed_steps(cfg, model, tree, batch, steps: int, mesh=None, timed: int = 0,
+                   fused_head: bool = False) -> dict:
+    """``steps`` joint steps from the seeded state with the head's composed
+    operations: its columns on each model rank of ``mesh``, or without one
+    the whole head with K1 off (``fused_head``: path A, K1 on); each step's
+    metrics, whole head gradients and launches, the whole head parameters
+    after them; then ``timed`` more steps timed by CUDA events with the
+    peak memory they take."""
+    from pipnet_tpu_torch.train import init_train_state, make_train_step
+    head = model.head
+    scalars = train_step(cfg, model, tree, False)[1]
+    if mesh is not None:
+        head.shard_columns(mesh)
+    else:
+        head.fused = fused_head
+    try:
+        xs1, xs2, ys = batch
+        step = make_train_step(model, tree, cfg, _joint_statics(cfg), mesh=mesh)
+        state = init_train_state(model, seed=0)
+        params = dict(model.named_parameters())
+        rec = {"metrics": [], "head_grads": [], "launches": []}
+        for _ in range(steps):
+            zero_counts()
+            state, m = step(state, xs1, xs2, ys, scalars)
+            torch.cuda.synchronize()
+            rec["launches"].append(counts())
+            rec["metrics"].append({k: v.detach().double().cpu() for k, v in m.items()})
+            rec["head_grads"].append({n: _whole_param(mesh, n, params[n].grad)
+                                      for n in HEAD_GRADS})
+        rec["head_params"] = {n: _whole_param(mesh, n, params[n]) for n in HEAD_GRADS}
+        if timed:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            zero_counts()
+            start.record()
+            for _ in range(timed):
+                state, _ = step(state, xs1, xs2, ys, scalars)
+            end.record()
+            torch.cuda.synchronize()
+            rec["timed_launches"] = counts()
+            rec["step_ms"] = start.elapsed_time(end) / timed
+            rec["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        if mesh is not None:
+            head.gather_columns()
+        head.fused = True
+    del state, step
+    torch.cuda.empty_cache()
+    return rec
+
+
+class ArrayLoader:
+    """A loader over fixed host batches ``(xs, ys)``, as ``Trainer.evaluate``
+    reads one (no device cache: its dataset is a range)."""
+
+    def __init__(self, batches):
+        self.batches = batches
+        self.dataset = range(sum(len(ys) for _, ys in batches))
+
+    def __len__(self) -> int:
+        return len(self.batches)
+
+    def epoch(self, epoch: int):
+        from types import SimpleNamespace
+        for xs, ys in self.batches:
+            yield SimpleNamespace(xs1=xs, xs2=None, ys=ys)
+
+
+def model_eval(cfg, model, tree, mesh=None) -> dict:
+    """One ``Trainer.evaluate`` pass over seeded images, on the whole head
+    (gathered from the model ranks of ``mesh`` by ``whole_model``), with its
+    launches; beside it on a model rank the same pass by a Trainer without
+    a mesh on the gathered model.  Half the images are labelled with the
+    class the whole model decodes for them, the other half at random, so
+    that the report counts hits and misses."""
+    from pipnet_tpu_torch.runtime.log import NullRunLog
+    from pipnet_tpu_torch.train.step import make_eval_step
+    from pipnet_tpu_torch.train.trainer import Trainer
+    r = np.random.default_rng(3)
+    S = cfg.model.image_size
+    batches = []
+    for _ in range(MODEL_EVAL_BATCHES):
+        xs = r.standard_normal((MODEL_EVAL_IMAGES, S, S, 3)).astype(np.float32)
+        ys = r.integers(0, tree.num_classes, MODEL_EVAL_IMAGES)
+        pred = make_eval_step(model, tree)(torch.from_numpy(xs).cuda())["pred"].cpu().numpy()
+        ys[::2] = pred[::2]
+        batches.append((xs, ys))
+    loader = ArrayLoader(batches)
+    log = NullRunLog(tempfile.gettempdir())
+    one = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, data_parallel=1))
+    out = {}
+    if mesh is not None:
+        cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, data_parallel=1, model_parallel=mesh.n_model))
+        trainer = Trainer(model, tree, cfg, None, log=log, mesh=mesh)
+        model.head.shard_columns(mesh)
+        zero_counts()
+        out["report"] = trainer.evaluate(loader)
+        out["launches"] = counts()
+        out["split_after"] = model.head.columns is not None
+        model.head.gather_columns()
+    zero_counts()
+    out["one_process_report"] = Trainer(model, tree, one, None, log=log).evaluate(loader)
+    out["one_process_launches"] = counts()
+    return out
+
+
+def model_rank(job_path: str, rank: int) -> int:
+    """One of the two ranks of a (1, 2) mesh on the one card through gloo
+    (``model_phase``): joins the group and builds phase 17's three models,
+    waits for ``<job>.go``, then on its half of the head's columns runs the
+    evaluation pass, the bf16 and f32 steps and the fused-backbone step, and
+    writes their records to ``<job>.rank<rank>``."""
+    import datetime
+    from pipnet_tpu_torch.runtime.mesh import close_ranks, dp_mp_mesh, init_ranks
+    sys.path.insert(0, FIXTURES)
+    store = torch.distributed.FileStore(job_path + ".store", 2)
+    init_ranks(2, rank, "cuda:0", store=store, backend="gloo",
+               timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = dp_mp_mesh(1, 2, device="cuda:0")
+        laps = Laps(time.perf_counter())
+        setup = flagship_setup()
+        cfgs = model_configs(setup)
+        built = {k: build_model(setup, cfg)[:2] for k, cfg in cfgs.items()}
+        torch.cuda.synchronize()
+        laps.lap("build")
+        with open(f"{job_path}.ready{rank}", "w"):
+            pass
+        deadline = time.monotonic() + 900
+        while not os.path.exists(job_path + ".go"):   # the parent's part times the card
+            if time.monotonic() > deadline:
+                raise TimeoutError("no go from the parent within 900 s")
+            time.sleep(0.05)
+        laps.lap("wait")
+        out = {"eval": model_eval(cfgs["bf16"], *built["bf16"], mesh=mesh)}
+        laps.lap("eval")
+        cfg, (model, tree) = cfgs["bf16"], built.pop("bf16")
+        out["bf16"] = composed_steps(cfg, model, tree, model_batch(cfg, tree, TRAIN_BATCH), 2,
+                                     mesh=mesh, timed=MODEL_TIMED_STEPS)
+        laps.lap("bf16")
+        del model
+        cfg, (model, tree) = cfgs["f32"], built.pop("f32")
+        with tf32_off():
+            out["f32"] = composed_steps(cfg, model, tree,
+                                        model_batch(cfg, tree, MODEL_F32_IMAGES), 2, mesh=mesh)
+        laps.lap("f32")
+        del model
+        cfg, (model, tree) = cfgs["fused"], built.pop("fused")
+        out["fused"] = composed_steps(cfg, model, tree, model_batch(cfg, tree, TRAIN_BATCH), 1,
+                                      mesh=mesh)
+        laps.lap("fused")
+        out["seconds"] = laps.seconds
+    finally:
+        close_ranks()
+    torch.save(out, f"{job_path}.rank{rank}")
+    return 0
+
+
+@contextlib.contextmanager
+def tf32_off():
+    old = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
+
+
+def start_model_ranks(job: str) -> list:
+    """Start the two ranks of phase 17 (``model_rank``); each writes its
+    output to ``<job>.log<rank>``."""
+    code = ("import sys; sys.path.insert(0, {!r}); import chip_smoke; "
+            "sys.exit(chip_smoke.model_rank({!r}, {}))")
+    procs = []
+    for r in range(2):
+        with open(f"{job}.log{r}", "w") as log:
+            procs.append(subprocess.Popen([sys.executable, "-c", code.format(REPO, job, r)],
+                                          cwd=REPO, stdout=log, stderr=subprocess.STDOUT))
+    return procs
+
+
+def model_references(card: str, wait_ranks) -> dict:
+    """The one-process records phase 17 holds the ranks to, on the same
+    seeded weights and batches: the evaluation pass (K1), the composed
+    step in f32 (twice: its own spread), the fused-backbone
+    configuration's composed step, and last the composed step in bf16,
+    timed with path A beside it after ``wait_ranks()`` (the ranks have
+    built their models and left the host)."""
+    laps = Laps(time.perf_counter())
+    setup = flagship_setup()
+    cfgs = model_configs(setup)
+    ref = {}
+    cfg = cfgs["bf16"]
+    model, tree, _ = build_model(setup, cfg)
+    laps.lap("build bf16")
+    ref["eval"] = model_eval(cfg, model, tree)
+    laps.lap("eval")
+    bf16 = model, tree
+    cfg = cfgs["f32"]
+    model, tree, _ = build_model(setup, cfg)
+    batch = model_batch(cfg, tree, MODEL_F32_IMAGES)
+    snapshot = {k: v.clone() for k, v in model.state_dict().items()}
+    with tf32_off():
+        ref["f32"] = composed_steps(cfg, model, tree, batch, 2)
+        model.load_state_dict(snapshot)
+        ref["f32_again"] = composed_steps(cfg, model, tree, batch, 2)
+    laps.lap("f32")
+    del model, snapshot
+    cfg = cfgs["fused"]
+    model, tree, _ = build_model(setup, cfg)
+    ref["fused"] = composed_steps(cfg, model, tree, model_batch(cfg, tree, TRAIN_BATCH), 1)
+    laps.lap("fused")
+    del model
+    # the timed steps last, once the ranks have built their models
+    cfg, (model, tree) = cfgs["bf16"], bf16
+    batch = model_batch(cfg, tree, TRAIN_BATCH)
+    snapshot = {k: v.clone() for k, v in model.state_dict().items()}
+    wait_ranks()
+    laps.lap("wait for the ranks' build")
+    ref["bf16"] = composed_steps(cfg, model, tree, batch, 2, timed=MODEL_TIMED_STEPS)
+    model.load_state_dict(snapshot)
+    ref["path_a"] = composed_steps(cfg, model, tree, batch, 1, timed=MODEL_TIMED_STEPS,
+                                   fused_head=True)
+    laps.lap("bf16 and path A")
+    del model, bf16, snapshot
+    torch.cuda.empty_cache()
+    ref["seconds"] = laps.seconds
+    return ref
+
+
+def _metric_gap(got: dict, want: dict) -> dict:
+    return {k: ((got[k] - want[k]).abs().max() / want[k].abs().max().clamp(min=1e-30)).item()
+            for k in want}
+
+
+def _param_check(got: dict, want: dict, grads: dict, lr_steps: float, f32: bool) -> dict:
+    out = {}
+    for n, w in want.items():
+        diff = (got[n] - w).abs()
+        rec = {"max_abs_diff": diff.max().item()}
+        ok = rec["max_abs_diff"] <= 2 * lr_steps + 1e-6
+        if f32:
+            big = grads[n].abs() > 1e-3
+            rec["max_abs_diff_where_g_large"] = diff[big].max().item() if big.any() else 0.0
+            ok = ok and rec["max_abs_diff_where_g_large"] <= 1e-6
+        rec["ok"] = ok
+        out[n] = rec
+    return out
+
+
+def model_phase(card: str) -> dict:
+    """Phase 17: the train step on a (1, 2) mesh, two ranks on the one card
+    through gloo on CUDA tensors (NCCL takes one rank a card), each holding
+    half of the head's columns of the flagship's P = 3840 and the whole
+    batch, against the one-process step with the composed head on the same
+    parameters and batch: in f32 (TF32 off, 32 images) and bf16 (64 images)
+    two steps each (loss, metrics, whole head gradients, updated head
+    parameters), each rank launching no head kernel; their times and peak
+    memory beside the one-process composed step's and path A's; one step in
+    the fused-backbone configuration (K4 54 a step a rank); one evaluation
+    pass on the gathered head (K1 a batch), its report the one-process
+    one's.  A rank that fails fails the phase.  Returns the ranks' launches
+    (both ranks summed)."""
+    from pipnet_tpu_torch.models.convnext import CONVNEXT_TINY_DEPTHS
+    t0 = time.perf_counter()
+    n_blocks = sum(CONVNEXT_TINY_DEPTHS)
+    with scratch_dir("pipnet_model_ranks_") as tmp:
+        job = os.path.join(tmp, "job")
+        procs = start_model_ranks(job)
+
+        def wait_ranks():
+            deadline = time.monotonic() + 300
+            while not all(os.path.exists(f"{job}.ready{r}") for r in range(2)):
+                if any(p.poll() is not None for p in procs) or time.monotonic() > deadline:
+                    tail = "\n".join(open(f"{job}.log{r}").read()[-3000:] for r in range(2))
+                    fail(f"model axis: a rank did not build its models:\n{tail}")
+                time.sleep(0.05)
+        try:
+            ref = model_references(card, wait_ranks)
+            with open(job + ".go", "w"):
+                pass
+            t_go = time.perf_counter()
+            for p in procs:
+                p.wait(timeout=600)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if any(p.returncode != 0 for p in procs):
+            tail = "\n".join(open(f"{job}.log{r}").read()[-3000:] for r in range(2))
+            fail(f"model axis: a rank of two failed:\n{tail}")
+        ranks = [torch.load(f"{job}.rank{r}", weights_only=False) for r in range(2)]
+    rec = {"backend": "gloo", "mesh": [1, 2], "ranks_s": time.perf_counter() - t_go,
+           "seconds": {"parent": ref["seconds"], "ranks": [r["seconds"] for r in ranks]}}
+    bad = []
+    optim = run_config(flagship_setup()).train.optim
+    lr = max(optim.lr, 10 * optim.lr_block, optim.lr_net)   # the add-on takes 10x lr_block
+    for key, steps in (("f32", 2), ("bf16", 2), ("fused", 1)):
+        want, got = ref[key], ranks[0][key]
+        part = {"loss_one_process": [float(m["loss"]) for m in want["metrics"]],
+                "loss_ranks": [[float(m["loss"]) for m in r[key]["metrics"]] for r in ranks],
+                "launches_per_step_rank": [r[key]["launches"] for r in ranks]}
+        gaps = [_metric_gap(g, w) for g, w in zip(got["metrics"], want["metrics"])]
+        part["loss_rel_diff"] = [g["loss"] for g in gaps]
+        part["head_grads"] = [_grad_gap(g, w) for g, w in zip(got["head_grads"],
+                                                               want["head_grads"])]
+        if key == "f32":
+            spread = [_metric_gap(a, w) for a, w in zip(ref["f32_again"]["metrics"],
+                                                       want["metrics"])]
+            part["metric_rel_diff"], part["one_process_rel_spread"] = gaps, spread
+            if any(g[k] > max(MODEL_F32_GRAD_REL if k == "grad_norm" else MODEL_F32_REL,
+                              4 * s[k]) for g, s in zip(gaps, spread) for k in g):
+                bad.append(f"{key} metrics")
+            if any(v["rel_l2"] > MODEL_F32_GRAD_REL for g in part["head_grads"]
+                   for v in g.values()):
+                bad.append(f"{key} head gradients")
+        else:
+            part["metric_rel_diff"] = {k: max(g[k] for g in gaps) for k in gaps[0]}
+            # each loss term against the total it adds into
+            terms = [max(abs(float(gm[k] - wm[k])) / abs(float(wm["loss"]))
+                         for k in wm if k.startswith("loss/"))
+                     for gm, wm in zip(got["metrics"], want["metrics"])]
+            part["loss_term_diff_over_loss"] = terms
+            if any(g["loss"] > MODEL_BF16_LOSS_REL for g in gaps) or \
+                    any(t > MODEL_BF16_LOSS_REL for t in terms):
+                bad.append(f"{key} loss")
+            if any(v["rel_l2"] >= 0.2 or abs(v["mass_ratio"] - 1) >= 0.05
+                   for g in part["head_grads"] for v in g.values()):
+                bad.append(f"{key} head gradients")
+        part["head_params"] = _param_check(got["head_params"], want["head_params"],
+                                           want["head_grads"][0], lr * steps, key == "f32")
+        if not all(v["ok"] for v in part["head_params"].values()):
+            bad.append(f"{key} updated head parameters")
+        k4 = 3 * n_blocks if key == "fused" else 0
+        for r in ranks:
+            for launches in r[key]["launches"]:
+                check_launches(f"model axis, {key} step", launches, {**NO_LAUNCHES, "cnblock": k4})
+        same = all(torch.equal(ranks[1][key]["head_params"][n], v)
+                   for n, v in got["head_params"].items())
+        part["ranks_agree"] = same
+        if not same:
+            bad.append(f"{key}: the two ranks' gathered heads differ")
+        rec[key] = part
+    # times and memory: the ranks' step beside the one-process steps
+    rec["step_ms"] = {"one_process_composed": ref["bf16"]["step_ms"],
+                      "path_a": ref["path_a"]["step_ms"],
+                      "ranks": [r["bf16"]["step_ms"] for r in ranks]}
+    rec["peak_memory_gb"] = {"one_process_composed": ref["bf16"]["peak_memory_gb"],
+                             "path_a": ref["path_a"]["peak_memory_gb"],
+                             "ranks": [r["bf16"]["peak_memory_gb"] for r in ranks]}
+    for r in ranks:
+        check_launches("model axis, timed bf16 steps", r["bf16"]["timed_launches"], NO_LAUNCHES)
+    check_launches("model axis, path A's timed steps", ref["path_a"]["timed_launches"], {
+        **NO_LAUNCHES, "fused_head": MODEL_TIMED_STEPS, "head_backward": MODEL_TIMED_STEPS})
+    # the evaluation pass on the gathered head
+    ev = {"report_one_process": ref["eval"]["one_process_report"],
+          "reports_ranks": [r["eval"]["report"] for r in ranks],
+          "launches_ranks": [r["eval"]["launches"] for r in ranks],
+          "split_after": [r["eval"]["split_after"] for r in ranks]}
+    rec["eval"] = ev
+    for launches in [r["eval"]["launches"] for r in ranks] + [
+            ref["eval"]["one_process_launches"]]:
+        check_launches("model axis, evaluation pass", launches,
+                       {**NO_LAUNCHES, "fused_head": MODEL_EVAL_BATCHES})
+    for r in ranks:
+        if (r["eval"]["report"] != r["eval"]["one_process_report"]
+                or r["eval"]["report"] != ref["eval"]["one_process_report"]
+                or not r["eval"]["split_after"]):
+            bad.append("the evaluation pass on the gathered head")
+    if bad:
+        fail(f"model axis: {sorted(set(bad))}: {json.dumps(rec, default=str)}")
+    say(f"model axis, two ranks on one card through gloo: {json.dumps(rec)} [{card}]")
+    say(f"model phase: {time.perf_counter() - t0:.1f} s [{card}]")
+    ranks_launches = dict(NO_LAUNCHES)
+    for r in ranks:
+        for part in ([r["eval"]["launches"], r["bf16"]["timed_launches"]]
+                     + r["bf16"]["launches"] + r["f32"]["launches"] + r["fused"]["launches"]):
+            for k, v in part.items():
+                ranks_launches[k] += v
+    return {"model axis, two ranks": ranks_launches}
+
+
 NO_LAUNCHES = {"fused_head": 0, "head_backward": 0, "fused_head_nopf": 0, "dwconv": 0,
                "cnblock": 0}
 
@@ -3749,7 +4205,7 @@ def main(argv=None) -> int:
                     help="an older checkout of this repository whose K1 and K2 are timed "
                          "in turns with this one's in the kernel phase")
     ap.add_argument("--only", choices=["blocks", "data", "trainer", "eval", "interp",
-                                       "backbones", "options", "mesh"],
+                                       "backbones", "options", "mesh", "model"],
                     help="blocks: build, check and time K3 and K4 only; data: build, then "
                          "run the training-from-data phase only; trainer: build, then run "
                          "the training-through-the-CLI phase only; eval: build, then "
@@ -3759,8 +4215,9 @@ def main(argv=None) -> int:
                          "and K2 at the other backbones' shapes, then run phase 14; "
                          "options: build, check and time K1, K1b and K2 at the reducer's "
                          "width, then run phase 15; mesh: build, then run phase 16 (the "
-                         "train step on a data mesh); each stops without the kernels record "
-                         "or the ok line")
+                         "train step on a data mesh); model: build, then run phase 17 (the "
+                         "train step on a model axis); each stops without the kernels "
+                         "record or the ok line")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3829,6 +4286,10 @@ def main(argv=None) -> int:
         mesh_phase(card)
         say(f"--only mesh: done in {time.perf_counter() - t_start:.1f} s; no full run")
         return 0
+    if args.only == "model":
+        model_phase(card)
+        say(f"--only model: done in {time.perf_counter() - t_start:.1f} s; no full run")
+        return 0
     laps = Laps(t_start)
     records, backward, nopf = kernel_phase(card, baseline)
     for checks in (backbone_kernel_checks, option_kernel_checks):
@@ -3886,6 +4347,8 @@ def main(argv=None) -> int:
     laps.lap("options")
     paths.update(mesh_phase(card))
     laps.lap("mesh")
+    paths.update(model_phase(card))
+    laps.lap("model")
     paths.update({"training A": train_a["launches"], "training B": train_b["launches"],
                   "training C": train_c["launches"], "training from data": train_data["launches"],
                   "training through the CLI": train_cli, "evaluation": evaluation,

@@ -142,15 +142,25 @@ def align_pf_loss(tc: TreeConsts, proto_features: torch.Tensor, ys: torch.Tensor
 
 
 def align_pf_row_logsum(tc: TreeConsts, proto_features: torch.Tensor,
-                        eps: float = ALIGN_EPS) -> torch.Tensor:
+                        eps: float = ALIGN_EPS, columns=None) -> torch.Tensor:
     """``logsum[b, n] = sum_hw log(ip + eps)`` (B/2, N) of the two stacked
     views' maps, the per-row part of ``align_pf_loss`` (the no-pf head's
     reduction, K2's, computed from pf): on a mesh each rank reduces its own
-    rows and the ranks gather these, not the maps."""
+    rows and the ranks gather these, not the maps.  With ``columns`` (a
+    model rank's ``ops/segment.py::ProtoColumns``) the maps are the rank's
+    columns: a node's inner products sum over the ranks where a boundary
+    cuts it, each node's log sum counts on the rank that owns it, and the
+    ranks' (B/2, N) parts are summed."""
     B = proto_features.shape[0] // 2
     pf1, pf2 = proto_features[:B], proto_features[B:]
     prod = 0.5 * (pf1 * pf2.detach() + pf1.detach() * pf2)
-    return torch.log(prod.float() @ tc.node_onehot + eps).sum(dim=(1, 2))
+    if columns is None:
+        return torch.log(prod.float() @ tc.node_onehot + eps).sum(dim=(1, 2))
+    dev = prod.device
+    logsum = torch.log(columns.node_sum(prod) + eps).sum(dim=(1, 2))       # (B/2, N_local)
+    logsum = logsum * columns.owner(dev)
+    part = logsum.new_zeros(B, tc.num_nodes).index_copy(-1, columns.node_ids(dev), logsum)
+    return columns.mesh.model_sum(part)
 
 
 def align_pf_from_logsum(tc: TreeConsts, logsum: torch.Tensor, ys: torch.Tensor,

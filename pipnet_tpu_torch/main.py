@@ -15,10 +15,14 @@ on card r, or N processes on the CPU, joined through gloo; a rendezvous
 file in a fresh temporary directory), or ``torchrun --nproc_per_node N -m
 pipnet_tpu_torch.main ...`` starts them (NCCL on cards, gloo on the CPU).
 Every rank trains the same numbers; rank 0 writes the run directory.
-``--zero1 y`` splits the Adam moments over the ranks.  ``--model_parallel
-M > 1`` raises before any training, naming its ``ROADMAP.md`` item (10b);
-so does ``--minmaximize y``, which the JAX package refuses too.  Every
-backbone of the JAX package
+``--zero1 y`` splits the Adam moments over the data ranks.
+``--model_parallel M`` adds a model axis: N * M ranks (``launch_ranks`` or
+``torchrun`` start them; ``--data_parallel 0`` then means the ranks over
+M, one data rank on the CPU), each holding its columns of the head's
+stacked prototype axis (``runtime/mesh.py``); the head runs its composed
+operations there, and ``--use_pallas_head y`` with it raises the JAX
+package's refusal.  ``--minmaximize y`` raises, as the JAX package refuses
+it too.  Every backbone of the JAX package
 (``--net``), ``--byol y``, the default ``--align y --uni y`` losses, the
 head variants, ``--OOD_dataset`` (its train loader feeds OOD rows into
 every phase-2 step) and ``--stage4_reducer_net`` train.  After training,
@@ -149,8 +153,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
     add("--cl_weight", type=float, default=2.0)
     add("--wandb", type=str, default="n")
     add("--copy_files", type=str, default="n")
-    # extensions of the JAX package: the mesh (runtime/mesh.py; the port's
-    # model axis raises, ROADMAP item 10b)
+    # extensions of the JAX package: the mesh (runtime/mesh.py)
     add("--data_parallel", type=int, default=0,
         help="data-parallel shards: 0 = all visible devices (the port: one "
              "process a rank; every local card, or one process on the CPU)")
@@ -195,27 +198,23 @@ def build_arg_parser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(args) -> None:
-    """Raise, before any work, on the flags whose code is not ported yet
-    (``--model_parallel`` above 1; with ``--use_pallas_head y`` the JAX
-    package's own refusal) and on ``--minmaximize y``, which the JAX package
-    refuses at its first step."""
+    """Raise, before any work, on the flags the JAX package refuses:
+    ``--model_parallel`` above 1 with ``--use_pallas_head y`` (its Trainer's
+    refusal) and ``--minmaximize y`` (at its first step)."""
     if args.state_dict_dir_net:
         raise ValueError("use --state_dict_dir_backbone (the reference forbids "
                          "state_dict_dir_net too, main.py:291)")
     if args.minmaximize[:1] == "y":
         from .losses.aggregate import MINMAXIMIZE_REFUSAL
         raise NotImplementedError(f"--minmaximize y: {MINMAXIMIZE_REFUSAL}")
-    if args.model_parallel > 1:
-        if args.use_pallas_head == "y":
-            from .train.trainer import PALLAS_HEAD_REFUSAL
-            raise ValueError(PALLAS_HEAD_REFUSAL)
-        raise NotImplementedError(f"not ported yet: --model_parallel {args.model_parallel}: "
-                                  "ROADMAP item 10b")
+    if args.model_parallel > 1 and args.use_pallas_head == "y":
+        from .train.trainer import PALLAS_HEAD_REFUSAL
+        raise ValueError(PALLAS_HEAD_REFUSAL)
 
 
 def launch_ranks(argv, world: int) -> int:
     """Run the command line ``argv`` on ``world`` local processes, the ranks
-    of one data mesh (rank r on card r of a card run), joined through a
+    of one mesh (rank r on card r of a card run), joined through a
     rendezvous file in a fresh temporary directory.  Rank 0 prints; the
     others' output is dropped, their errors are not.  Returns 0 when every
     rank does; when one fails the others are stopped and this raises."""
@@ -250,8 +249,8 @@ def launch_ranks(argv, world: int) -> int:
 def run_pipnet(argv=None) -> int:
     """Train from the command line ``argv``.  ``sys.stdout`` is duplicated
     into ``<log_dir>/out.txt`` while the run lasts and restored when it
-    returns or raises.  With more than one data-parallel rank, either this
-    process is a rank (``WORLD_SIZE`` set, by ``torchrun`` or
+    returns or raises.  With more than one rank (data times model ranks),
+    either this process is a rank (``WORLD_SIZE`` set, by ``torchrun`` or
     ``launch_ranks``) or it starts the ranks (``launch_ranks``) and trains
     nothing itself."""
     argv = list(sys.argv[1:] if argv is None else argv)
@@ -260,19 +259,22 @@ def run_pipnet(argv=None) -> int:
     from .config import from_reference_flags
     from .device import resolve_device
     from .runtime.log import Tee, open_run_log
-    from .runtime.mesh import close_ranks, data_mesh, init_ranks
+    from .runtime.mesh import close_ranks, data_mesh, dp_mp_mesh, init_ranks
 
     dev = resolve_device(args.device)
+    n_model = max(args.model_parallel, 1)
     world = int(os.environ.get("WORLD_SIZE", "1"))
     if world > 1:
-        if args.data_parallel not in (0, world):
-            raise ValueError(f"--data_parallel {args.data_parallel} in a process group of "
-                             f"{world} ranks")
+        if world % n_model or args.data_parallel not in (0, world // n_model):
+            raise ValueError(f"--data_parallel {args.data_parallel} --model_parallel "
+                             f"{n_model} in a process group of {world} ranks")
         if dev.type == "cuda":
             dev = resolve_device(f"cuda:{int(os.environ.get('LOCAL_RANK', '0'))}")
     else:
         import torch
-        world = args.data_parallel or (torch.cuda.device_count() if dev.type == "cuda" else 1)
+        n_data = args.data_parallel or max(
+            (torch.cuda.device_count() if dev.type == "cuda" else 1) // n_model, 1)
+        world = n_data * n_model
         if world > 1:
             return launch_ranks(argv, world)
 
@@ -283,14 +285,14 @@ def run_pipnet(argv=None) -> int:
                                   fast_gelu=args.fast_gelu == "y",
                                   use_pallas_head=args.use_pallas_head == "y",
                                   use_pallas_backbone=args.use_pallas_backbone == "y"),
-        train=dataclasses.replace(cfg.train, data_parallel=world,
-                                  model_parallel=args.model_parallel,
-                                  zero1=args.zero1 == "y"))
+        train=dataclasses.replace(cfg.train, data_parallel=world // n_model,
+                                  model_parallel=n_model, zero1=args.zero1 == "y"))
     mesh = None
     if world > 1:
         init_ranks(world, int(os.environ["RANK"]), dev,
                    init_method=os.environ.get(RENDEZVOUS_ENV, "env://"))
-        mesh = data_mesh(world, device=dev)
+        mesh = (dp_mp_mesh(world // n_model, n_model, device=dev) if n_model > 1
+                else data_mesh(world, device=dev))
     try:
         log = open_run_log(cfg.log_dir, 0 if mesh is None else mesh.rank)
         if not log.writes:

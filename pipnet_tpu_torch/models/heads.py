@@ -34,6 +34,14 @@ so K1's pf and pooled are what the plain path computes first, and a pruned
 model evaluated or served on the card runs the kernel.  In float32 the two
 agree to K1's bar; in bf16 ``keep`` is cast to the pooled dtype (0 or 1
 there), where the JAX head promotes pooled to float32.
+
+On the model axis of a mesh (``shard_columns``, ``runtime/mesh.py``) a head
+holds its rank's columns of the prototype-axis parameters and runs the
+composed operations on them, as the JAX package runs its XLA head there
+(it refuses its fused kernel on a model axis): the per-node softmax on the
+column range (``ops/segment.py::ProtoColumns``), the logits as the ranks'
+partial products summed, the add-on bias's unit norm over the whole of P.
+``gather_columns`` makes the head whole again, on K1 where it fuses.
 """
 
 from __future__ import annotations
@@ -47,7 +55,8 @@ from ..config import HeadConfig
 from ..losses.catalog import ALIGN_EPS
 from ..ops.fused_head import fused_head
 from ..ops.fused_head_nopf import fused_head_nopf
-from ..ops.segment import segment_softmax, spatial_softmax
+from ..ops.segment import ProtoColumns, segment_softmax, spatial_softmax
+from ..runtime.mesh import PROTO_AXIS_PARAMS, Mesh
 from ..tree.compile import TreeArrays
 
 
@@ -89,13 +98,47 @@ class PrototypeHead(nn.Module):
         self.multiplier = nn.Parameter(torch.full((1,), 2.0))
         if cfg.classifier_bias:
             self.cls_bias = nn.Parameter(torch.zeros(C))
-        mask = tree.class_mask if cfg.protopool else tree.child_block_mask
-        self.register_buffer("cls_mask", torch.as_tensor(mask), persistent=False)
+        self.register_buffer("cls_mask", self._whole_mask(), persistent=False)
+        # this model rank's columns of P (shard_columns), None when whole
+        self.columns: Optional[ProtoColumns] = None
+
+    def _whole_mask(self) -> torch.Tensor:
+        """The classifier's static (C, P) block mask."""
+        tree = self.tree
+        return torch.as_tensor(tree.class_mask if self.cfg.protopool else tree.child_block_mask)
+
+    def _proto_axis_params(self):
+        for name, dim in PROTO_AXIS_PARAMS.items():
+            p = getattr(self, name.split(".", 1)[1], None)
+            if p is not None:
+                yield p, dim
+
+    def shard_columns(self, mesh: Mesh) -> None:
+        """Keep this model rank's columns (``Mesh.proto_columns``) of the
+        prototype-axis parameters, in place (the same ``Parameter``
+        objects), and of the classifier's mask."""
+        lo, hi = mesh.proto_columns(self.tree.num_protos_padded)
+        for p, dim in self._proto_axis_params():
+            p.data = p.data.narrow(dim, lo, hi - lo).clone()
+        self.cls_mask = self.cls_mask[:, lo:hi].clone()
+        self.columns = ProtoColumns(mesh, self.tree, lo, hi)
+
+    def gather_columns(self) -> None:
+        """The whole head again from every model rank's columns, in place
+        (collective: every rank of the model axis calls it)."""
+        mesh = self.columns.mesh
+        for p, dim in self._proto_axis_params():
+            p.data = mesh.all_gather(p.data, dim=dim, axis="model")
+        self.cls_mask = self._whole_mask().to(self.cls_mask.device)
+        self.columns = None
 
     def _unit_bias(self, dtype: torch.dtype) -> torch.Tensor:
-        """The add-on bias scaled to unit norm, detached."""
-        b = self.add_on_bias.to(dtype)
-        return (b / (torch.linalg.vector_norm(b) + 1e-12)).detach()
+        """The add-on bias scaled to unit norm (over the whole of P, on a
+        model rank too), detached."""
+        b = self.add_on_bias.to(dtype).detach()
+        if self.columns is None:
+            return b / (torch.linalg.vector_norm(b) + 1e-12)
+        return b / (self.columns.mesh.model_all_reduce((b ** 2).sum()).sqrt() + 1e-12)
 
     def proto_maps(self, features: torch.Tensor) -> torch.Tensor:
         """The raw add-on response (B, H, W, P) before any softmax, in the
@@ -149,7 +192,10 @@ class PrototypeHead(nn.Module):
         materialised.  ``apply_overspecificity_mask`` needs ``keep`` (P,),
         the hard-Gumbel presence sample (``models/pipnet.py::presence_keep``).
         ``gumbel_noise`` (B, H, W, P), read only by the Gumbel-softmax head,
-        is the sample its softmax adds."""
+        is the sample its softmax adds.  On a model rank (``shard_columns``)
+        ``keep`` and ``gumbel_noise`` are whole and the rank reads its
+        columns; 'proto_features' and 'pooled' are its columns, 'logits'
+        the whole sum."""
         if apply_overspecificity_mask and keep is None:
             raise ValueError("apply_overspecificity_mask requires keep")
         if not apply_overspecificity_mask:
@@ -157,6 +203,14 @@ class PrototypeHead(nn.Module):
         cfg = self.cfg
         if cfg.sg_before_protos:
             features = features.detach()
+        if self.columns is not None:
+            if fuse_align_pf:
+                raise ValueError("fuse_align_pf runs K2 on the whole head; a model rank's "
+                                 "columns run the composed head")
+            lo, hi = self.columns.lo, self.columns.hi
+            return self._composed(self.columns.mesh.to_model(features), inference,
+                                  None if keep is None else keep[lo:hi],
+                                  None if gumbel_noise is None else gumbel_noise[..., lo:hi])
         if not self.fused:
             if fuse_align_pf:
                 raise ValueError("fuse_align_pf runs K2, which computes the conv add-on's "
@@ -178,17 +232,18 @@ class PrototypeHead(nn.Module):
     def _composed(self, features: torch.Tensor, inference: bool,
                   keep: Optional[torch.Tensor],
                   gumbel_noise: Optional[torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """A variant head, as the JAX head's XLA path computes it
-        (``models/heads.py:209-244``)."""
+        """A variant head, or a model rank's columns of any head, as the JAX
+        head's XLA path computes it (``models/heads.py:209-244``)."""
         cfg = self.cfg
         z = self.proto_maps(features)
         if cfg.add_on_type == "unit":
             z = z.abs()                                      # ref pipnet/pipnet.py:127-128
         if cfg.softmax_tau is not None:
             pf = (spatial_softmax(z) if cfg.softmax_over_channel
-                  else segment_softmax(z, self.tree, tau=cfg.softmax_tau))
+                  else segment_softmax(z, self.tree, tau=cfg.softmax_tau, columns=self.columns))
         elif cfg.gumbel_softmax:
-            pf = segment_softmax(z, self.tree, noise=gumbel_noise, gumbel_tau=cfg.gumbel_tau)
+            pf = segment_softmax(z, self.tree, noise=gumbel_noise, gumbel_tau=cfg.gumbel_tau,
+                                 columns=self.columns)
         else:
             pf = z
         if cfg.multiply_cs_softmax:
@@ -202,7 +257,9 @@ class PrototypeHead(nn.Module):
     def classify(self, pooled: torch.Tensor, *, inference: bool = False,
                  keep: Optional[torch.Tensor] = None):
         """pooled (B, P) in the compute dtype -> (pooled after the presence
-        mask ``keep`` (P,) and the inference threshold, logits (B, C))."""
+        mask ``keep`` (P,) and the inference threshold, logits (B, C)); on
+        a model rank pooled and ``keep`` are its columns and the logits the
+        ranks' partial products summed."""
         cfg = self.cfg
         if keep is not None:
             pooled = pooled * keep.to(pooled.dtype)[None, :]
@@ -210,6 +267,8 @@ class PrototypeHead(nn.Module):
             pooled = torch.where(pooled < cfg.inference_threshold,
                                  torch.zeros_like(pooled), pooled)
         logits = pooled @ self.effective_cls_weight().to(pooled.dtype).T
+        if self.columns is not None:
+            logits = self.columns.mesh.model_sum(logits)
         if cfg.classifier_bias:
             logits = logits + self.cls_bias.to(pooled.dtype)
         return pooled, logits

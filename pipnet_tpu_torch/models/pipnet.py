@@ -137,7 +137,12 @@ class PIPNet(nn.Module):
         Gumbel-softmax head's sample (``PrototypeHead``).  ``shard``: ``xs``
         is this rank's rows of a batch split over a mesh
         (``runtime/mesh.py``); stochastic depth and BatchNorm then act on
-        the whole batch."""
+        the whole batch.  A head split over the model axis
+        (``PrototypeHead.shard_columns``) returns its rank's columns of
+        'proto_features' and 'pooled', and the whole 'logits'; 'features'
+        (this rank's rows, whole) feed the head through
+        ``Mesh.to_model`` and every other reader directly, so their
+        gradient counts the head's columns once each and the rest once."""
         f = self.features(xs, train=train, generator=generator, shard=shard)
         out = self.head(f, inference=inference,
                         apply_overspecificity_mask=apply_overspecificity_mask,
@@ -169,16 +174,26 @@ class PIPNet(nn.Module):
 # the overspecificity mask
 # ----------------------------------------------------------------------------
 
-def presence_keep(presence: torch.Tensor, seed: int, num: Optional[int] = None) -> torch.Tensor:
+def presence_keep(presence: torch.Tensor, seed: int, num: Optional[int] = None,
+                  columns=None) -> torch.Tensor:
     """Hard-Gumbel presence samples of the overspecificity mask (the
     reference's ``F.gumbel_softmax(proto_presence, tau=0.5, hard=True)[:, 1]``,
     pipnet/pipnet.py:165): ``keep`` (P,), or with ``num`` (num, P) drawn in
     one go, on ``presence``'s device.  The Gumbel noise comes from a CPU
     ``torch.Generator`` seeded ``seed`` and the sample is computed bit for
     bit alike on every device (``ops/segment.py::segment_hard_gumbel``), so
-    a seed gives the same pruned model on the CPU and on the card."""
-    shape = tuple(presence.shape) if num is None else (num, *presence.shape)
+    a seed gives the same pruned model on the CPU and on the card.  With
+    ``columns`` (a model rank's ``ops/segment.py::ProtoColumns``)
+    ``presence`` is the rank's rows of the (P, 2) logits: the noise is
+    drawn for the whole of P, as on every rank, and the rank keeps its
+    columns of the sample."""
+    whole = tuple(presence.shape)
+    if columns is not None:
+        whole = (columns.tree.num_protos_padded, *whole[1:])
+    shape = whole if num is None else (num, *whole)
     noise = gumbel_noise(shape, torch.Generator().manual_seed(seed))
+    if columns is not None:
+        noise = noise[..., columns.lo:columns.hi, :]
     with torch.no_grad():
         return segment_hard_gumbel(presence.detach().float(), None, tau=0.5,
                                    noise=noise.to(presence.device))[..., 1]

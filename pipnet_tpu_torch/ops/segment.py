@@ -5,15 +5,24 @@ prototype bank (``pipnet/pipnet.py:124-148``).  Here all banks live on one
 stacked axis ``P`` (see ``tree/compile.py``) and nodes are grouped into
 *buckets* of equal padded width.  All functions take ``x[..., P]`` with the
 prototype axis minor-most.
+
+On the model axis of a mesh (``runtime/mesh.py``) a rank holds the columns
+[lo, hi) of P (``ProtoColumns``) and ``segment_softmax`` takes them: a node
+wholly inside the range needs no collective; a node that a boundary cuts
+takes its per-patch max and sum through an all-reduce over the model ranks
+of those nodes' statistics alone.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+from functools import cached_property
 from typing import Optional
 
 import numpy as np
 import torch
 
+from ..runtime.mesh import Mesh
 from ..tree.compile import TreeArrays
 
 
@@ -76,8 +85,8 @@ def segment_max_to_nodes(x: torch.Tensor, tree: TreeArrays,
 
 
 def segment_softmax(x: torch.Tensor, tree: TreeArrays, tau: float = 1.0,
-                    noise: Optional[torch.Tensor] = None, gumbel_tau: float = 1.0
-                    ) -> torch.Tensor:
+                    noise: Optional[torch.Tensor] = None, gumbel_tau: float = 1.0,
+                    columns: Optional["ProtoColumns"] = None) -> torch.Tensor:
     """Per-node softmax over the prototype axis, per patch, computed in f32
     and returned in ``x``'s dtype.
 
@@ -92,10 +101,15 @@ def segment_softmax(x: torch.Tensor, tree: TreeArrays, tau: float = 1.0,
     node, and ``tau`` is not read (ref pipnet/pipnet.py:43-51,150-152; the
     JAX package draws the sample from a key, the port takes it as a tensor,
     as ``soft_gumbel`` does).
+
+    With ``columns`` (a model rank's ``ProtoColumns``) ``x`` and ``noise``
+    hold only those columns of P, and so does the result.
     """
     if noise is not None:
         x = (x + noise) / gumbel_tau
         tau = 1.0
+    if columns is not None:
+        return columns.softmax(x, tau)
     onehot = tree_tensor(tree, "node_onehot", _node_onehot(tree), x.device,
                          torch.float32)
     valid = tree_tensor(tree, "proto_valid_f32",
@@ -111,6 +125,112 @@ def segment_softmax(x: torch.Tensor, tree: TreeArrays, tau: float = 1.0,
     denom = (e @ onehot) @ onehot.T
     p = e / torch.clamp(denom, min=1e-18)
     return p.to(x.dtype)
+
+
+@dataclass(frozen=True, eq=False)
+class ProtoColumns:
+    """A model rank's columns [lo, hi) of the stacked prototype axis of
+    ``tree`` (``Mesh.proto_columns``), with the tables of its per-node
+    reductions: the nodes with a prototype in the range (``nodes``, in
+    compiled order), and the nodes whose prototypes lie on more than one
+    rank (cut by a boundary), each owned by the rank of its first
+    prototype."""
+    mesh: Mesh
+    tree: TreeArrays
+    lo: int
+    hi: int
+
+    @cached_property
+    def _tables(self) -> dict:
+        width = self.hi - self.lo
+        pn = self.tree.proto_node
+        local = pn[self.lo:self.hi]
+        nodes = np.unique(local[local >= 0])
+        slot_node = np.where(local >= 0, np.searchsorted(nodes, local), len(nodes))
+        onehot = np.eye(len(nodes) + 1, len(nodes), dtype=np.float32)[slot_node]
+        # a node's local slots are consecutive: one (nodes, slots) table of
+        # local columns for each count of slots
+        start = np.searchsorted(slot_node, np.arange(len(nodes)))
+        count = np.bincount(slot_node, minlength=len(nodes) + 1)[:-1]
+        max_tables = [(np.flatnonzero(count == w), start[count == w, None] + np.arange(w))
+                      for w in np.unique(count)]
+        # the nodes whose prototypes lie on more than one rank, and the rank
+        # of each node's first prototype
+        rank_of = np.arange(len(pn)) // width
+        first_rank = {n: rank_of[np.argmax(pn == n)] for n in range(self.tree.num_nodes)}
+        cut = [n for n in range(self.tree.num_nodes) if (rank_of[pn == n] != first_rank[n]).any()]
+        here = [j for j, n in enumerate(cut) if n in nodes]
+        return dict(nodes=nodes, slot_node=slot_node, onehot=onehot,
+                    valid=(local >= 0).astype(np.float32), max_tables=max_tables,
+                    n_cut=len(cut), cut_idx=np.asarray(here, np.int64),
+                    cut_pos=np.searchsorted(nodes, [cut[j] for j in here]).astype(np.int64),
+                    owner=np.asarray([first_rank[n] == self.mesh.model_rank for n in nodes], bool))
+
+    def _t(self, name: str, device, dtype) -> torch.Tensor:
+        return tree_tensor(self.tree, f"columns{self.lo}:{self.hi}/{name}", self._tables[name],
+                           device, dtype)
+
+    @property
+    def nodes(self) -> np.ndarray:
+        return self._tables["nodes"]
+
+    def node_ids(self, device) -> torch.Tensor:
+        """(N_local,) the local nodes' indices in the tree."""
+        return self._t("nodes", device, torch.long)
+
+    def owner(self, device) -> torch.Tensor:
+        """(N_local,) bool: this rank owns the node."""
+        return self._t("owner", device, torch.bool)
+
+    def onehot(self, device) -> torch.Tensor:
+        """(hi - lo, N_local) f32 one-hot of each local slot's node."""
+        return self._t("onehot", device, torch.float32)
+
+    def _cut(self, v: torch.Tensor, op: str) -> torch.Tensor:
+        """``v`` (..., N_local) with the cut nodes' entries reduced over the
+        model ranks (every rank takes part, with its identity where it holds
+        none of a cut node)."""
+        t = self._tables
+        if t["n_cut"] == 0:
+            return v
+        pos = self._t("cut_pos", v.device, torch.long)
+        idx = self._t("cut_idx", v.device, torch.long)
+        fill = float("-inf") if op == "max" else 0.0
+        buf = v.new_full((*v.shape[:-1], t["n_cut"]), fill)
+        buf = buf.index_copy(-1, idx, v.index_select(-1, pos))
+        buf = self.mesh.model_all_reduce(buf, op)
+        return v.index_copy(-1, pos, buf.index_select(-1, idx))
+
+    def node_max(self, z: torch.Tensor) -> torch.Tensor:
+        """Max of each local node's slots of ``z`` (..., hi - lo) -> (...,
+        N_local), over the ranks for a cut node; no gradient."""
+        z = z.detach()
+        zp = torch.cat([z, z.new_full((*z.shape[:-1], 1), float("-inf"))], dim=-1)
+        m = z.new_empty((*z.shape[:-1], len(self.nodes)))
+        for j, (ids, cols) in enumerate(self._tables["max_tables"]):
+            key = f"columns{self.lo}:{self.hi}/max{j}"
+            cols = tree_tensor(self.tree, key + "cols", cols, z.device, torch.long)
+            m[..., tree_tensor(self.tree, key + "ids", ids, z.device, torch.long)] = \
+                zp[..., cols].amax(dim=-1)
+        return self._cut(m, "max")
+
+    def node_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum of each local node's slots of ``x`` (..., hi - lo) -> (...,
+        N_local) in f32, over the ranks for a cut node (differentiable)."""
+        return self._cut(x.to(torch.float32) @ self.onehot(x.device), "sum")
+
+    def softmax(self, x: torch.Tensor, tau: float) -> torch.Tensor:
+        """``segment_softmax`` of this rank's columns ``x``."""
+        dev = x.device
+        slot_node = self._t("slot_node", dev, torch.long)
+        valid = self._t("valid", dev, torch.float32)
+        z = x.to(torch.float32) / tau
+        m = self.node_max(z)
+        c = torch.cat([m, m.new_zeros((*m.shape[:-1], 1))], dim=-1)[..., slot_node]
+        e = torch.exp(torch.clamp(z - c, -80.0, 60.0)) * valid
+        s = self.node_sum(e)
+        denom = torch.cat([s, s.new_zeros((*s.shape[:-1], 1))], dim=-1)[..., slot_node]
+        return (e / torch.clamp(denom, min=1e-18)).to(x.dtype)
 
 
 def spatial_softmax(x: torch.Tensor) -> torch.Tensor:

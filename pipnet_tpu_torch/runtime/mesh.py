@@ -1,4 +1,4 @@
-"""Data parallelism, ZeRO-1 and the prototype-axis specs on
+"""Data parallelism, ZeRO-1 and prototype-axis model parallelism on
 ``torch.distributed``.
 
 Counterpart of the JAX package's ``runtime/mesh.py``.  There one jitted step
@@ -27,9 +27,19 @@ ZeRO-1 (``state_shardings(..., zero1=True)``) keeps on each rank only its
 slice of the Adam moments along the largest dim the data axis divides,
 updates that slice of the parameter and all-gathers the parameter.
 
-The prototype-axis specs (``PROTO_AXIS_PARAMS``, the 2-D mesh) are here for
-parity of ``state_shardings``; a train step on a model axis is not ported
-(the Trainer refuses ``model_parallel > 1``).
+The model axis of a (``data``, ``model``) mesh splits the head's stacked
+prototype axis P (``PROTO_AXIS_PARAMS``, their moments and the (B, H, W,
+P) maps): each model rank holds the columns ``Mesh.proto_columns`` gives
+it, and the model ranks of one data rank hold the same rows.  The head's
+input enters through ``Mesh.to_model`` (its gradient summed over the model
+ranks, each of which reads the features for its own columns); the logits
+are the ranks' partial products summed (``Mesh.model_sum``, whose backward
+is the identity: every rank computes the same loss from the sum); a node
+that a column boundary cuts takes its softmax statistics through
+``Mesh.model_all_reduce``; the losses read the head's outputs and
+parameters gathered whole (``Mesh.gather_columns``, whose backward keeps
+the rank's columns).  The backbone stays data-parallel: its gradients and
+every other whole leaf's are summed over the data ranks only.
 
 With one rank nothing starts a process group: ``data_mesh()`` in a process
 without one returns a mesh of one rank, and the step without a mesh runs.
@@ -111,20 +121,25 @@ class Mesh:
         return self.rank % self.n_model
 
     # -- collectives over the data axis --------------------------------------
-    def all_gather(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
-        """The data ranks' ``t`` concatenated along ``dim`` in rank order
-        (no gradient)."""
-        if self.data_group is None:
+    def all_gather(self, t: torch.Tensor, dim: int = 0, axis: str = "data") -> torch.Tensor:
+        """The ``axis`` ranks' ``t`` concatenated along ``dim`` in rank
+        order (no gradient)."""
+        group, n = ((self.data_group, self.n_data) if axis == "data"
+                    else (self.model_group, self.n_model))
+        if group is None:
             return t
         t = t.contiguous()
-        parts = [torch.empty_like(t) for _ in range(self.n_data)]
-        dist.all_gather(parts, t, group=self.data_group)
+        parts = [torch.empty_like(t) for _ in range(n)]
+        dist.all_gather(parts, t, group=group)
         return torch.cat(parts, dim=dim)
 
     def all_reduce_grads(self, params: Mapping[str, torch.nn.Parameter]) -> None:
         """Sum every ``.grad`` over the data ranks, in place, in one
         all-reduce of a flat buffer.  Every rank holds the same set of
-        gradients (the graphs are alike)."""
+        gradients (the graphs are alike).  On a 2-D mesh the sum runs over
+        the data ranks only: a head leaf's columns differ between the model
+        ranks, and every model rank computes the whole of its other leaves'
+        gradients."""
         grads = [p.grad for p in params.values() if p.grad is not None]
         if self.data_group is None or not grads:
             return
@@ -138,10 +153,63 @@ class Mesh:
     def once(self, t: torch.Tensor) -> torch.Tensor:
         """``t`` whose gradient counts on data rank 0 only: for a loss term
         every rank computes alike from parameters (not from its rows),
-        whose gradient the all-reduce would otherwise add once a rank."""
+        whose gradient the all-reduce would otherwise add once a rank.  On
+        a 2-D mesh ``t`` is a leaf gathered whole over the model ranks
+        (``gather_columns``), whose backward already keeps each model
+        rank's columns: the term then counts once across all the ranks."""
         if self.n_data == 1 or not t.requires_grad:
             return t
         return _Once.apply(t, self.data_rank == 0)
+
+    # -- collectives over the model axis -------------------------------------
+    def proto_columns(self, num_protos: int) -> Tuple[int, int]:
+        """This rank's columns [lo, hi) of the stacked prototype axis of
+        ``num_protos`` (padded) slots, an even split over the model ranks;
+        raises where the model axis does not divide it."""
+        if num_protos % self.n_model:
+            raise ValueError(f"the prototype axis of {num_protos} slots does not split "
+                             f"evenly over {self.n_model} model ranks")
+        k = num_protos // self.n_model
+        return self.model_rank * k, (self.model_rank + 1) * k
+
+    def to_model(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` as the input of this rank's columns: the identity, whose
+        gradient is summed over the model ranks (each rank's columns read
+        the whole of ``t``)."""
+        if self.model_group is None or not t.requires_grad:
+            return t
+        return _ToModel.apply(t, self)
+
+    def model_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum over the model ranks of each rank's partial ``t`` (the
+        logits' partial products); its gradient is the output's, as every
+        rank computes the same loss from the sum."""
+        if self.model_group is None:
+            return t
+        return _Total.apply(t, self.model_group)
+
+    def model_all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """``t`` reduced over the model ranks: ``"sum"`` differentiable, the
+        gradient of each rank's term the sum of the ranks' gradients (a
+        statistic every rank then uses for its own columns); ``"max"``
+        without a gradient."""
+        if self.model_group is None:
+            return t
+        if op == "max":
+            out = t.detach().clone()
+            dist.all_reduce(out, op=dist.ReduceOp.MAX, group=self.model_group)
+            return out
+        return _AllReduce.apply(t, self.model_group)
+
+    def gather_columns(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """The whole tensor of every model rank's columns ``t`` along
+        ``dim``; differentiable, its gradient this rank's columns of the
+        output's (every rank computes the same loss from it)."""
+        if self.model_group is None:
+            return t
+        if t.requires_grad:
+            return _GatherColumns.apply(t, self, dim)
+        return self.all_gather(t.detach(), dim=dim, axis="model")
 
 
 class _Once(torch.autograd.Function):
@@ -258,7 +326,7 @@ class BatchShard:
         only its own rows."""
         if self.mesh.data_group is None:
             return t
-        return _Total.apply(t, self.mesh)
+        return _Total.apply(t, self.mesh.data_group)
 
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         """The sum of ``t`` over the data ranks, differentiable (the
@@ -266,7 +334,7 @@ class BatchShard:
         a statistic of the global batch, such as BatchNorm's."""
         if self.mesh.data_group is None:
             return t
-        return _AllReduce.apply(t, self.mesh)
+        return _AllReduce.apply(t, self.mesh.data_group)
 
 
 class _GatherRows(torch.autograd.Function):
@@ -281,10 +349,13 @@ class _GatherRows(torch.autograd.Function):
 
 
 class _Total(torch.autograd.Function):
+    """The sum over ``group`` of each rank's part; the gradient is the
+    output's."""
+
     @staticmethod
-    def forward(ctx, t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    def forward(ctx, t: torch.Tensor, group) -> torch.Tensor:
         out = t.detach().clone()
-        dist.all_reduce(out, group=mesh.data_group)
+        dist.all_reduce(out, group=group)
         return out
 
     @staticmethod
@@ -293,18 +364,45 @@ class _Total(torch.autograd.Function):
 
 
 class _AllReduce(torch.autograd.Function):
+    """The sum over ``group``; the gradient of each rank's term is the sum
+    of the ranks' gradients."""
+
     @staticmethod
-    def forward(ctx, t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-        ctx.mesh = mesh
+    def forward(ctx, t: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
         out = t.detach().clone()
-        dist.all_reduce(out, group=mesh.data_group)
+        dist.all_reduce(out, group=group)
         return out
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
         out = g.contiguous().clone()
-        dist.all_reduce(out, group=ctx.mesh.data_group)
+        dist.all_reduce(out, group=ctx.group)
         return out, None
+
+
+class _ToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+        ctx.mesh = mesh
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        out = g.contiguous().clone()
+        dist.all_reduce(out, group=ctx.mesh.model_group)
+        return out, None
+
+
+class _GatherColumns(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t: torch.Tensor, mesh: Mesh, dim: int) -> torch.Tensor:
+        ctx.mesh, ctx.dim, ctx.k = mesh, dim, t.shape[dim]
+        return mesh.all_gather(t.detach(), dim=dim, axis="model")
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return g.narrow(ctx.dim, ctx.mesh.model_rank * ctx.k, ctx.k).contiguous(), None, None
 
 
 # -- state layouts ------------------------------------------------------------
@@ -362,6 +460,12 @@ def state_shardings(mesh: Mesh, state, zero1: bool = False) -> Dict[str, Dict[st
     return out
 
 
+def on_axis(specs: Mapping[str, Mapping[str, Spec]], axis: str) -> Dict[str, Dict[str, Spec]]:
+    """``specs`` (``state_shardings``) with only the splits over ``axis``."""
+    return {k: {n: s if s is not None and s[1] == axis else None for n, s in part.items()}
+            for k, part in specs.items()}
+
+
 def split_of(mesh: Mesh, t: torch.Tensor, spec: Spec) -> torch.Tensor:
     """This rank's part of a whole tensor ``t`` under ``spec`` (a view)."""
     if spec is None:
@@ -373,14 +477,12 @@ def split_of(mesh: Mesh, t: torch.Tensor, spec: Spec) -> torch.Tensor:
 
 
 def whole_of(mesh: Mesh, t: torch.Tensor, spec: Spec) -> torch.Tensor:
-    """The whole tensor of every rank's part ``t`` under a "data" ``spec``
-    (an all-gather along its dim)."""
+    """The whole tensor of every rank's part ``t`` under ``spec`` (an
+    all-gather along its dim over its axis; no gradient)."""
     if spec is None:
         return t
     dim, axis = spec
-    if axis != "data":
-        raise NotImplementedError("gathering a model-axis split is not ported")
-    return mesh.all_gather(t, dim=dim)
+    return mesh.all_gather(t, dim=dim, axis=axis)
 
 
 def split_moments(mesh: Mesh, opt, specs: Mapping[str, Mapping[str, Spec]]):

@@ -100,17 +100,23 @@ def cosine_warm_restarts(base_lr: float, eta_min: float, epoch_frac: float,
 # ---------------------------------------------------------------------------
 
 def clip_gradients(grads: Mapping[str, Optional[torch.Tensor]], labels: Mapping[str, str],
-                   clip: float, *, per_group: bool = False
+                   clip: float, *, per_group: bool = False, split=(), mesh=None
                    ) -> Tuple[Dict[str, Optional[torch.Tensor]], torch.Tensor]:
     """Gradient-norm clipping; returns (clipped gradients, the pre-clip
     global norm as a device scalar).  A missing gradient (None) counts as
     zeros and stays None.  ``per_group`` scales each parameter group by its
     own norm (see ``OptimConfig.clip_grad_per_group``); the returned norm is
-    the global one either way."""
+    the global one either way.  ``split``: the names whose gradients are a
+    model rank's columns of ``mesh`` (``runtime/mesh.py``): their sums of
+    squares are summed over the model ranks, in one all-reduce."""
     present = {n: g for n, g in grads.items() if g is not None}
     sq = {n: g.float().square().sum() for n, g in present.items()}
     if not sq:
         raise ValueError("no gradients to clip")
+    parts = [n for n in sq if n in split]
+    if parts:
+        total = mesh.model_all_reduce(torch.stack([sq[n] for n in parts]))
+        sq.update(zip(parts, total.unbind()))
     global_norm = torch.stack(list(sq.values())).sum().sqrt()
     if per_group:
         group_sq: Dict[str, torch.Tensor] = {}

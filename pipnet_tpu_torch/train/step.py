@@ -37,6 +37,17 @@ BatchNorm normalises with the whole batch's statistics, and one
 all-reduce sums the gradients before clipping and AdamW.  With ZeRO-1
 each rank updates its part of the parameters from its part of the Adam
 moments and the parts are all-gathered.
+
+On a model axis (``--model_parallel``) the head holds its rank's columns
+of P (``PrototypeHead.shard_columns``) and runs the composed operations on
+them (K1, K1b and K2 do not run: the JAX package refuses its fused head
+there); the model ranks of a data rank take the same rows.  The losses
+read pooled, the effective classifier, the add-on kernel and the presence
+logits gathered whole over the model ranks (each rank's gradient its own
+columns), align_pf the ranks' per-node log sums; the gradient norm sums
+the split leaves' squares over the model ranks; ZeRO-1 splits the other
+leaves' moments over the data ranks, a head leaf's moments keep its
+model split.
 """
 
 from __future__ import annotations
@@ -54,7 +65,8 @@ from ..models.byol import byol_tau_schedule, ema_update, init_byol_state
 from ..models.pipnet import PIPNet, joint_leaf_log_distribution, masked_decode_degenerates
 from ..ops.device_augment import ViewDraws, op_counts, sample_view, two_view_transform2
 from ..ops.device_geometric import GeometricDraws, sample_transform1, transform1_batch
-from ..runtime.mesh import BatchShard, Mesh, split_of, state_shardings, whole_of
+from ..runtime.mesh import (PROTO_AXIS_PARAMS, BatchShard, Mesh, on_axis, split_of,
+                            state_shardings, whole_of)
 from ..tree.compile import TreeArrays
 from .optimizer import (AdamState, Phase, adam_init, adam_update, clip_gradients,
                         cosine_annealing, cosine_warm_restarts, group_trainable,
@@ -220,13 +232,15 @@ def make_train_step(model: PIPNet, tree: TreeArrays, cfg: RunConfig,
     the same sample); ``augment_draws``, likewise, replaces the draws of
     the device augmentation.
 
-    ``mesh`` (``runtime/mesh.py``, a data axis only): ``xs1``, ``xs2``
-    and ``ys`` are this rank's rows of the global batch
-    (``shard_batch``), every rank's the same count; ``augment_draws`` are
-    the whole batch's.  The state, the metrics and the updated parameters
-    are the one-process step's on every rank.  ``zero1`` (with more than
-    one data rank): ``state.opt`` holds this rank's parts of the moments
-    (``split_moments``)."""
+    ``mesh`` (``runtime/mesh.py``): ``xs1``, ``xs2`` and ``ys`` are this
+    rank's rows of the global batch (``shard_batch``, over the data axis),
+    every rank's the same count; ``augment_draws`` are the whole batch's.
+    With a model axis the head holds this rank's columns
+    (``PrototypeHead.shard_columns``, before ``init_train_state``).  The
+    metrics and the updated parameters (a head leaf's columns on a model
+    rank) are the one-process step's on every rank.  ``zero1`` (with more
+    than one data rank): ``state.opt`` holds this rank's parts of the
+    moments (``split_moments``)."""
     lcfg, ocfg, ph = cfg.train.loss, cfg.train.optim, statics.phase
     if fuse_align_pf:
         why = [reason for reason, bad in (
@@ -235,14 +249,16 @@ def make_train_step(model: PIPNet, tree: TreeArrays, cfg: RunConfig,
              lcfg.align_eps is not None),
             (f"phase {ph.name!r} computes no align_pf", ph.finetune),
             ("the head is a variant that K2 does not compute",
-             not model.head.fused)) if bad]
+             not model.head.fused),
+            ("a model rank's head runs the composed operations",
+             model.head.columns is not None)) if bad]
         if why:
             raise ValueError(f"fuse_align_pf=True cannot apply: {'; '.join(why)}")
 
-    if mesh is not None and mesh.n_model > 1:
-        raise NotImplementedError(
-            "a train step on a model axis (model_parallel > 1) is not ported: "
-            "ROADMAP item 10b")
+    columns = model.head.columns
+    if (mesh is not None and mesh.n_model > 1) != (columns is not None):
+        raise ValueError("a train step on a model axis takes the head split over it "
+                         "(model.head.shard_columns(mesh)), and a split head that mesh")
     rows = views1 = None
     if mesh is not None:
         rows, views1 = BatchShard(mesh, views=2), BatchShard(mesh, views=1)
@@ -254,6 +270,8 @@ def make_train_step(model: PIPNet, tree: TreeArrays, cfg: RunConfig,
     tc = make_tree_consts(tree, device)
     names = [n for n, _ in model.named_parameters()]
     labels = label_params(names, cfg.model.backbone)
+    # the leaves whose gradients are a model rank's columns
+    split = {n for n in names if n in PROTO_AXIS_PARAMS} if columns is not None else set()
     trainable = {n: group_trainable(labels[n], ph) for n in names}
     eff_lcfg = dataclasses.replace(lcfg, mask_prune_overspecific=statics.mask_prune_active,
                                    mask_prune_start_epoch=0)
@@ -294,6 +312,9 @@ def make_train_step(model: PIPNet, tree: TreeArrays, cfg: RunConfig,
             ys2 = rows.gather(ys2)
             if byol_target is not None:
                 byol_target = rows.gather(byol_target)
+            if columns is not None:
+                w_eff, kernel = mesh.gather_columns(w_eff, 1), mesh.gather_columns(kernel, 1)
+                presence = mesh.gather_columns(presence, 0)
             w_eff, kernel, presence = mesh.once(w_eff), mesh.once(kernel), mesh.once(presence)
         loss, aux = compute_total_loss(
             tc, out, ys2, w_eff, add_on_kernel=kernel, proto_presence=presence,
@@ -310,7 +331,8 @@ def make_train_step(model: PIPNet, tree: TreeArrays, cfg: RunConfig,
         grad_norm = None
         if ocfg.clip_grad > 0.0:
             grads, grad_norm = clip_gradients(grads, labels, ocfg.clip_grad,
-                                              per_group=ocfg.clip_grad_per_group)
+                                              per_group=ocfg.clip_grad_per_group,
+                                              split=split, mesh=mesh)
 
         def net_lr(base):
             return cosine_annealing(base, statics.eta_min_net, scalars.net_t, scalars.net_T)
@@ -352,21 +374,26 @@ def make_train_step(model: PIPNet, tree: TreeArrays, cfg: RunConfig,
 
     def global_outputs(out: Metrics) -> Metrics:
         """The whole batch's outputs that the losses read, gathered from
-        every rank's rows: align_pf as each row's log sums (the maps stay
-        on their rank); the features stay the rank's own rows (the feature
-        losses add the ranks' sums, ``compute_total_loss``'s ``shard``)."""
+        every rank's rows (and pooled from every model rank's columns):
+        align_pf as each row's log sums (the maps stay on their rank); the
+        features stay the rank's own rows (the feature losses add the
+        ranks' sums, ``compute_total_loss``'s ``shard``)."""
+        if columns is not None:
+            out = dict(out, pooled=mesh.gather_columns(out["pooled"], 1))
         g = {k: rows.gather(out[k]) for k in ("pooled", "logits", "byol_online") if k in out}
         g["features"] = out["features"]
         if apf_active:
             logsum = (out["align_pf_logsum"] if "align_pf_logsum" in out
-                      else align_pf_row_logsum(tc, out["proto_features"], apf_eps))
+                      else align_pf_row_logsum(tc, out["proto_features"], apf_eps, columns))
             g["align_pf_logsum"] = views1.gather(logsum)
         return g
 
     def zero1_update(state: TrainState, grads, lrs, masks) -> None:
         """AdamW on this rank's parts of the parameters (views) from its
-        parts of the moments, then each updated parameter all-gathered."""
-        specs = state_shardings(mesh, state, zero1=True)["mu"]
+        parts of the moments, then each updated parameter all-gathered over
+        the data ranks (a head leaf on a model axis is already the rank's
+        columns, its moments too: it updates whole)."""
+        specs = on_axis(state_shardings(mesh, state, zero1=True), "data")["mu"]
         parts = {n: split_of(mesh, p.detach(), specs[n]) for n, p in state.params.items()}
         gparts = {n: None if g is None else split_of(mesh, g, specs[n]) for n, g in grads.items()}
         adam_update(parts, gparts, state.opt, lrs, masks, weight_decay=ocfg.weight_decay)

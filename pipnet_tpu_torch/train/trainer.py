@@ -14,7 +14,12 @@ batch, trimmed as the JAX Trainer trims them (a ragged final batch cut to a
 multiple of the data axis, the OOD chunk shortened so the combined batch
 divides it); the device cache and the evaluation passes are whole on every
 rank; only rank 0 writes logs and checkpoints, and a checkpoint holds the
-whole parameters and moments whatever the mesh.
+whole parameters and moments whatever the mesh.  With ``--model_parallel
+M`` the mesh is (N, M): the model ranks of a data rank take the same rows,
+and from its first epoch to the end of ``fit`` the head holds each rank's
+columns of P (``PrototypeHead.shard_columns``), their moments too.  The
+evaluation passes and the saves gather it whole first (``whole_model``):
+evaluation runs the whole head, on K1 where it fuses.
 
 The host never waits for the card inside an epoch: the batch indices and
 labels go to the card from pinned memory without waiting
@@ -45,8 +50,8 @@ from ..losses import make_tree_consts
 from ..losses.catalog import label_rows
 from ..models.pipnet import PIPNet, presence_keep
 from ..runtime.log import RunLog, open_run_log
-from ..runtime.mesh import (Mesh, data_mesh, replicate, shard_batch, split_moments,
-                            state_shardings, whole_moments)
+from ..runtime.mesh import (Mesh, data_mesh, dp_mp_mesh, on_axis, replicate, shard_batch,
+                            split_moments, state_shardings, whole_moments)
 from ..runtime.profiling import trace
 from ..tree.compile import TreeArrays
 from .optimizer import cosine_annealing, cosine_warm_restarts, phase_for_epoch
@@ -114,24 +119,31 @@ class Trainer:
     def __init__(self, model: PIPNet, tree: TreeArrays, cfg: RunConfig,
                  loaders: Loaders, log: Optional[RunLog] = None,
                  ood_loaders: Optional[Loaders] = None, mesh: Optional[Mesh] = None):
-        """``mesh``: the data mesh this process is a rank of; by default
-        ``cfg.train.data_parallel`` ranks (0: every rank of the process
-        group), which needs a process group of that many ranks
+        """``mesh``: the mesh this process is a rank of; by default
+        ``cfg.train.data_parallel`` data ranks (0: every rank of the process
+        group, over ``model_parallel``) by ``cfg.train.model_parallel``
+        model ranks, which needs a process group of that many ranks
         (``runtime/mesh.py::init_ranks``; the CLI starts them).  One rank
         trains without a mesh."""
         t = cfg.train
-        if t.model_parallel > 1:
-            if cfg.model.use_pallas_head:
-                raise ValueError(PALLAS_HEAD_REFUSAL)
-            raise NotImplementedError(
-                f"model_parallel={t.model_parallel}: prototype-axis model parallelism is "
-                "not ported: ROADMAP item 10b")
+        if t.model_parallel > 1 and cfg.model.use_pallas_head:
+            raise ValueError(PALLAS_HEAD_REFUSAL)
         self.device = model.head.add_on_kernel.device
-        if mesh is None and t.data_parallel != 1:
+        if mesh is None and t.model_parallel > 1:
+            world = (torch.distributed.get_world_size()
+                     if torch.distributed.is_initialized() else 1)
+            mesh = dp_mp_mesh(t.data_parallel or max(world // t.model_parallel, 1),
+                              t.model_parallel, device=self.device)
+        elif mesh is None and t.data_parallel != 1:
             mesh = data_mesh(t.data_parallel or None, device=self.device)
         # one rank: no mesh, the one-device step as it is
         self.mesh = mesh if mesh is not None and mesh.world > 1 else None
+        if self.mesh is not None:
+            self.mesh.proto_columns(tree.num_protos_padded)   # raises where M does not divide P
         self.zero1 = t.zero1 and self.mesh is not None
+        # the head and its moments hold this rank's columns (a model axis,
+        # while fit runs)
+        self._model_split = False
         self.model = model
         self.tree = tree
         self.cfg = cfg
@@ -183,28 +195,72 @@ class Trainer:
 
     def _place(self, state: TrainState) -> TrainState:
         """On a mesh: rank 0's weights, BatchNorm statistics and BYOL target
-        on every rank, and under ZeRO-1 each whole moment cut to this rank's
-        part (the layout the step expects)."""
+        on every rank (a whole state: the head is split when an epoch
+        begins), and under ZeRO-1 each whole moment cut to this rank's part
+        over the data ranks (the layout the step expects)."""
         if self.mesh is None:
             return state
         replicate(self.mesh, [*state.params.values(), *state.buffers.values(),
                               *state.byol.values()])
+        return self._split_data_moments(state)
+
+    def _split_data_moments(self, state: TrainState) -> TrainState:
         if self.zero1:
             whole = all(state.opt.mu[n].shape == p.shape for n, p in state.params.items())
             if whole:
-                state.opt = split_moments(self.mesh, state.opt, self._specs(state))
+                state.opt = split_moments(self.mesh, state.opt,
+                                          on_axis(self._specs(state), "data"))
         return state
 
     def _specs(self, state: TrainState):
-        return state_shardings(self.mesh, state, zero1=self.zero1)
+        """The state's layout as it stands: a head leaf's moments split over
+        the model ranks only between ``_shard_model`` and
+        ``_gather_model``."""
+        specs = state_shardings(self.mesh, state, zero1=self.zero1)
+        return specs if self._model_split else on_axis(specs, "data")
+
+    def _shard_model(self) -> None:
+        """On a model axis: the head and its moments cut to this rank's
+        columns (a no-op where they are)."""
+        if self.mesh is None or self.mesh.n_model == 1 or self._model_split:
+            return
+        self.model.head.shard_columns(self.mesh)
+        self._model_split = True
+        self.state.opt = split_moments(self.mesh, self.state.opt,
+                                       on_axis(self._specs(self.state), "model"))
+
+    def _gather_model(self) -> None:
+        """The head and its moments whole again (collective)."""
+        if not self._model_split:
+            return
+        self.state.opt = whole_moments(self.mesh, self.state.opt,
+                                       on_axis(self._specs(self.state), "model"))
+        self.model.head.gather_columns()
+        self._model_split = False
+
+    @contextlib.contextmanager
+    def whole_model(self):
+        """The model with its whole head while the block runs (gathered
+        from the model ranks and cut again after: collective, every rank
+        enters it); the model as it is where the head is whole."""
+        columns = self.model.head.columns
+        if columns is None:
+            yield self.model
+            return
+        self.model.head.gather_columns()
+        try:
+            yield self.model
+        finally:
+            self.model.head.shard_columns(columns.mesh)
 
     def whole_state(self) -> TrainState:
-        """The train state with whole Adam moments (under ZeRO-1 a
-        collective: every rank calls it)."""
-        if not self.zero1:
+        """The train state with whole Adam moments (under ZeRO-1 or on a
+        model axis a collective: every rank calls it)."""
+        specs = self._specs(self.state) if self.mesh is not None else None
+        if specs is None or not any(s for s in specs["mu"].values()):
             return self.state
         return dataclasses.replace(self.state, opt=whole_moments(
-            self.mesh, self.state.opt, self._specs(self.state)))
+            self.mesh, self.state.opt, specs))
 
     # -- device-resident data ------------------------------------------------
     def device_cache_for(self, loader: Loader):
@@ -270,6 +326,7 @@ class Trainer:
         if cfg.optim.unfreeze_warmup_epochs > 0 and not pretrain:
             warm_t0 = float(cfg.freeze_epochs * len(loader))
             warm_steps = float(cfg.optim.unfreeze_warmup_epochs * len(loader))
+        self._shard_model()
         statics = StepStatics(
             phase=phase,
             mask_prune_active=mask_prune_active,
@@ -427,8 +484,10 @@ class Trainer:
         (the counts are exact there), concatenated on the device."""
         head = self.model.head
         alive = (torch.relu(head.cls_weight) * head.cls_mask) > 1e-3
-        parts = dict(acc, nonzero_protos=alive.any(dim=0).sum(),
-                     nonzero_connections=alive.sum())
+        sparsity = torch.stack([alive.any(dim=0).sum(), alive.sum()]).double()
+        if head.columns is not None:          # each model rank's columns
+            sparsity = head.columns.mesh.model_all_reduce(sparsity)
+        parts = dict(acc, nonzero_protos=sparsity[0], nonzero_connections=sparsity[1])
         flat = torch.cat([v.detach().reshape(-1).double() for v in parts.values()]).cpu()
         out, at = {}, 0
         for k, v in parts.items():
@@ -480,7 +539,7 @@ class Trainer:
 
         # phase 2: fresh optimizer + schedulers (main.py:501-507)
         if start_epoch == 0:
-            self.state = self._place(reinit_optimizer(self.state))
+            self.state = self._split_data_moments(reinit_optimizer(self.state))
         net_t = start_epoch * len(self.loaders.train)
         net_T = len(self.loaders.train) * n_epochs
         ood_loader = self.ood_loaders.train if self.ood_loaders else None
@@ -507,11 +566,13 @@ class Trainer:
                 self._save(f"net_trained_{epoch}", epoch=epoch, phase="train")
         self._save("net_trained_last", epoch=n_epochs, phase="train")
         self._save_lr_curves(n_epochs)
+        self._gather_model()
         return {"train": info, "eval": last_eval}
 
     def _save(self, name: str, **meta) -> None:
         t0 = time.perf_counter()
-        self.log.save_checkpoint(name, self.model, self.whole_state(), **meta)
+        with self.whole_model():
+            self.log.save_checkpoint(name, self.model, self.whole_state(), **meta)
         self.save_seconds.append((name, time.perf_counter() - t0))
 
     def _save_lr_curves(self, n_epochs: int) -> None:
@@ -582,7 +643,15 @@ class Trainer:
         above when its log probability is larger, or equal at a lower
         index: the order of ``jax.lax.top_k``, so that ties (leaves whose
         paths decode alike) count as in the JAX package whatever order a
-        top-k kernel returns them in."""
+        top-k kernel returns them in.  On a model axis the pass runs the
+        whole head (``whole_model``), as the JAX package evaluates a model
+        trained with ``--model_parallel`` at ``model_parallel=1``."""
+        with self.whole_model():
+            return self._evaluate(loader, leave_out_classes, apply_overspecificity_mask,
+                                  path_prob_softmax_tau, fixed_mask_seed)
+
+    def _evaluate(self, loader, leave_out_classes, apply_overspecificity_mask,
+                  path_prob_softmax_tau, fixed_mask_seed) -> Dict[str, float]:
         dev = self.device
         leave_out_idx = rows_of = None
         if leave_out_classes:

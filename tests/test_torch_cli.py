@@ -189,8 +189,6 @@ def test_short_run_serves_the_trainers_logits_and_resumes(tmp_path, port_small_b
 
 REFUSED = [
     (["--minmaximize", "y"], NotImplementedError, "dead stub"),
-    (["--model_parallel", "2", "--use_pallas_head", "n"], NotImplementedError,
-     "ROADMAP item 10b"),
     # the flagship's flags ask for the fused head: the JAX package's refusal
     (["--model_parallel", "2"], ValueError, "Pallas head"),
     (["--state_dict_dir_net", "x"], ValueError, "state_dict_dir_backbone"),

@@ -94,15 +94,6 @@ def test_rows_of_a_rank():
         shard_batch(mesh, np.arange(10))
 
 
-def test_model_axis_step_is_refused(state):
-    from pipnet_tpu_torch.train import StepStatics, make_train_step, phase_for_epoch
-    run = U.make_run("refused", backbone=("convnext", 0.0))
-    model, tree = U.build(run)
-    statics = StepStatics(phase=phase_for_epoch(20, run["cfg"].train, pretrain=False))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10b"):
-        make_train_step(model, tree, run["cfg"], statics, mesh=U.fake_mesh(2, 2))
-
-
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     runs = [make() for make in U.SCENARIOS.values()] + [U.backbone64_run()]

@@ -19,13 +19,14 @@ EPOCH, SCALARS = 20, dict(net_t=3.0, net_T=100.0, epoch_frac=0.5, align_pf_weigh
                           tanh_weight=2.0)
 
 
-def _jax_step(jcfg, mj, tj, params, xs1, xs2, ys):
-    """The JAX package's step on a data mesh of two host devices; returns
-    the presence sample it drew, its parameters, Adam state and metrics."""
-    from pipnet_tpu.runtime.mesh import data_mesh, state_shardings
+def _jax_step(jcfg, mj, tj, params, xs1, xs2, ys, n_model=1):
+    """The JAX package's step on a data mesh of two host devices (by
+    ``n_model`` model devices: ``dp_mp_mesh(2, n_model)``); returns the
+    presence sample it drew, its parameters, Adam state and metrics."""
+    from pipnet_tpu.runtime.mesh import data_mesh, dp_mp_mesh, state_shardings
     from pipnet_tpu.train.optimizer import adam_init, phase_for_epoch
     from pipnet_tpu.train.step import Scalars, StepStatics, TrainState, make_train_step
-    mesh = data_mesh(2)
+    mesh = data_mesh(2) if n_model == 1 else dp_mp_mesh(2, n_model)
     state = TrainState(params=to_jax(params), batch_stats={}, opt=adam_init(to_jax(params)),
                        rng=jax.random.PRNGKey(0))
     _, _, loss_rng, _ = jax.random.split(state.rng, 4)
@@ -44,6 +45,16 @@ def _jax_step(jcfg, mj, tj, params, xs1, xs2, ys):
 
 
 def test_two_rank_step_matches_the_jax_mesh_step(tmp_path):
+    check_against_jax(tmp_path, world=2, n_model=1)
+
+
+def check_against_jax(tmp_path, world, n_model, doubled=()):
+    """One port step on ``world`` gloo ranks (``n_model`` of them a model
+    axis) against the JAX step on ``dp_mp_mesh(2, n_model)``.  ``doubled``:
+    the leaves whose gradient the JAX step doubles (a fault of its 2-D
+    mesh, ``test_torch_mesh_model_jax.py``): there the JAX first moment is
+    held to twice the port's, and the JAX gradient norm to the port's with
+    those gradients doubled."""
     from pipnet_tpu.models import build_pipnet as jax_build
     from pipnet_tpu_torch.models import opt_state_from_jax, params_from_jax, random_jax_params
     jcfg, tcfg = flagship_configs(image_size=S, batch_size=B, align_eps=0.01)
@@ -57,23 +68,28 @@ def test_two_rank_step_matches_the_jax_mesh_step(tmp_path):
     r = np.random.default_rng(12)
     xs = r.standard_normal((2, B, S, S, 3)).astype(np.float32)
     ys = r.integers(0, tj.num_classes, B)
-    noise, jparams, jopt, jmetrics = _jax_step(jcfg, mj, tj, params, xs[0], xs[1], ys)
+    noise, jparams, jopt, jmetrics = _jax_step(jcfg, mj, tj, params, xs[0], xs[1], ys, n_model)
 
     run.update(state_dict=params_from_jax(params),
                steps=[dict(phase=(EPOCH, False, True), scalars=SCALARS, xs1=xs[0],
                            xs2=xs[1], ys=ys, noise=noise)])
-    got = U.run_ranks([run], 2, tmp_path)[0]["jax"]
+    got = U.run_ranks([run], world, tmp_path, n_model=n_model)[0]["jax"]
 
     # loss, every loss/* and per-node term, accuracy counts, the gradient norm
-    U.check_metrics(got["metrics"][0], jmetrics)
+    metrics = dict(got["metrics"][0])
+    if doubled:
+        sq = sum(float(((got["mu"][n] / 0.1).astype(np.float64) ** 2).sum()) for n in doubled)
+        metrics["grad_norm"] = np.float32(np.sqrt(metrics["grad_norm"] ** 2 + 3.0 * sq))
+    U.check_metrics(metrics, jmetrics)
     # gradients as Adam's first moment (mu = 0.1 g after one step), and the
     # updated parameters: within 1e-6 where g is not ~0, else 2 lr
     want_p, want_opt = params_from_jax(jparams), opt_state_from_jax(jopt)
     assert got["count"] == want_opt.count
     for name, want in want_p.items():
         g = want_opt.mu[name].numpy() / 0.1
-        np.testing.assert_allclose(got["mu"][name], want_opt.mu[name].numpy(), atol=1e-5,
-                                   rtol=0, err_msg=f"mu {name}")
+        scale = 2.0 if name in doubled else 1.0
+        np.testing.assert_allclose(scale * got["mu"][name], want_opt.mu[name].numpy(),
+                                   atol=1e-5, rtol=0, err_msg=f"mu {name}")
         diff = np.abs(got["weights"][name] - want.numpy())
         big = np.abs(g) > 1e-6
         assert (diff[big] <= 1e-6).all(), (name, diff[big].max())

@@ -3,9 +3,8 @@
 cli``) against ``--data_parallel 1`` (CSV rows, JSONL rows, final weights;
 the run directory written once), ZeRO-1 checkpoints (whole moments; a
 resume in one process and a resume on the mesh, bit for bit), the ranks
-``launch_ranks`` starts, the batch trimming against the JAX Trainer's
-batch counts on meshes of the host devices, and the refusals of the
-model axis.
+``launch_ranks`` starts, and the batch trimming against the JAX Trainer's
+batch counts on meshes of the host devices.
 """
 
 import csv
@@ -149,21 +148,6 @@ def test_launch_ranks_starts_and_stops_the_ranks(tmp_path):
             "--log_dir", str(tmp_path / "run")])
         with pytest.raises(RuntimeError, match=r"rank \d of 2 exited"):
             failing.result(timeout=U.RANK_TIMEOUT)
-
-
-def test_model_axis_is_refused(tmp_path):
-    """--model_parallel above 1 raises in the Trainer (with the fused head
-    the JAX package's own refusal)."""
-    from pipnet_tpu_torch.train.trainer import Trainer
-    run = U.make_run("refused", backbone=("convnext", 0.0))
-    model, tree = U.build(run)
-    cfg = dataclasses.replace(run["cfg"], log_dir=str(tmp_path / "run"),
-                              train=dataclasses.replace(run["cfg"].train, model_parallel=2))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10b"):
-        Trainer(model, tree, cfg, loaders=None)
-    fused = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, use_pallas_head=True))
-    with pytest.raises(ValueError, match="Pallas"):
-        Trainer(model, tree, fused, loaders=None)
 
 
 # -- trimming against the JAX Trainer ----------------------------------------

@@ -117,12 +117,13 @@ def _start_ranks(job, world, timeout, mode=()):
     return logs
 
 
-def run_ranks(runs, world, tmp_path, timeout=RANK_TIMEOUT):
-    """Every run on ``world`` gloo ranks (one process each); returns each
+def run_ranks(runs, world, tmp_path, timeout=RANK_TIMEOUT, n_model=1):
+    """Every run on ``world`` gloo ranks (one process each), a mesh of
+    ``world / n_model`` data by ``n_model`` model ranks; returns each
     rank's results.  A rank that fails fails the test with its output."""
-    job = str(tmp_path / f"mesh_job_{world}")
+    job = str(tmp_path / f"mesh_job_{world}_{n_model}")
     with open(job, "wb") as f:
-        pickle.dump({"runs": runs, "timeout": timeout}, f)
+        pickle.dump({"runs": runs, "timeout": timeout, "n_model": n_model}, f)
     _start_ranks(job, world, timeout)
     out = []
     for r in range(world):
@@ -203,6 +204,44 @@ SCENARIOS = {
     "path_b": lambda: make_run("path_b", loss=dict(align_eps=None), fuse_align_pf=True),
     # BYOL: the projector's and predictor's BatchNorm over the whole batch
     "byol": lambda: make_run("byol", cfg=byol_config()),
+}
+
+
+def model_config(per_child=None, loss=None, **head):
+    """``port_config`` with the head's ``head`` fields and ``per_child``
+    prototypes a child (the tiny tree at the flagship's 10 lays 140 slots in
+    P = 256, so the model boundary at 128 cuts its last node; at 4 it lays
+    56, and no boundary of two model ranks cuts a node)."""
+    cfg = port_config(**(loss or {}))
+    model = dataclasses.replace(cfg.model, head=dataclasses.replace(cfg.model.head, **head))
+    if per_child is not None:
+        model = dataclasses.replace(model, num_protos_per_child=per_child)
+    return dataclasses.replace(cfg, model=model)
+
+
+# the runs of the model-axis tests (tests/test_torch_mesh_model*.py), two
+# steps each on the narrow ConvNeXt with stochastic depth 0.3 unless the
+# run takes another backbone
+MODEL_SCENARIOS = {
+    # the flagship's loss set; a boundary cuts the tree's last node
+    "cut": lambda: make_run("cut"),
+    # no boundary cuts a node
+    "no_cut": lambda: make_run("no_cut", cfg=model_config(per_child=4)),
+    # the feature losses and BYOL read the features on every model rank
+    "align_uniform_byol": lambda: make_run("align_uniform_byol", cfg=dataclasses.replace(
+        byol_config(), train=dataclasses.replace(byol_config().train, loss=dataclasses.replace(
+            byol_config().train.loss, align=True, uni=True)))),
+    # the head moments split on "model", the others' on "data"
+    "zero1": lambda: make_run("zero1", zero1=True),
+    # BatchNorm over the data ranks
+    "resnet18": lambda: make_run("resnet18", backbone=None, cfg=resnet18_config()),
+    # one run a family of head variants
+    "unit_bias": lambda: make_run("unit_bias", cfg=model_config(add_on_type="unit",
+                                                                add_on_bias=True)),
+    "gumbel": lambda: make_run("gumbel", cfg=model_config(softmax_tau=None,
+                                                          gumbel_softmax=True)),
+    "spatial": lambda: make_run("spatial", cfg=model_config(softmax_over_channel=True)),
+    "l2": lambda: make_run("l2", cfg=model_config(add_on_type="l2")),
 }
 
 

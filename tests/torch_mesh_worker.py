@@ -5,7 +5,8 @@ CLI as one rank (``run_cli``).  ``python tests/torch_mesh_worker.py JOB
 RANK WORLD`` joins a gloo process
 group of WORLD ranks on the CPU (a ``FileStore`` beside JOB, with the job's
 timeout), runs every train-step run of JOB (a pickle the test wrote) on
-``data_mesh(WORLD)`` with this rank's rows of each global batch, and writes
+``dp_mp_mesh(WORLD / M, M)`` (M the job's ``n_model``, 1 by default) with
+this rank's rows of each global batch, and writes
 ``JOB.rank<RANK>`` (a pickle) with each run's metrics, gradients, weights,
 whole Adam moments and generator state (or, for a ``backbone64`` run,
 ResNet-18's features and gradients in float64).  The same functions with
@@ -69,20 +70,29 @@ def build(run):
 
 def run_steps(run, mesh):
     """The run's steps from a fresh train state (seed 0), on ``mesh`` (this
-    rank's rows) or in one process (``mesh`` None).  Returns the metrics
-    and the (all-reduced, unclipped) gradients of each step, then the
-    weights, the whole moments and counts, and the generator state."""
-    from pipnet_tpu_torch.runtime.mesh import (shard_batch, split_moments, state_shardings,
-                                               whole_moments)
+    rank's rows; on a model axis the head's columns of this rank) or in one
+    process (``mesh`` None).  Returns the metrics and the (all-reduced,
+    unclipped, whole) gradients of each step, then the whole weights, the
+    whole moments and counts, and the generator state."""
+    from pipnet_tpu_torch.runtime.mesh import (PROTO_AXIS_PARAMS, on_axis, shard_batch,
+                                               split_moments, state_shardings, whole_moments)
     from pipnet_tpu_torch.train import (Scalars, StepStatics, init_train_state,
                                         make_train_step, phase_for_epoch)
     model, tree = build(run)
     cfg = run["cfg"]
+    columns = mesh is not None and mesh.n_model > 1
+    if columns:
+        model.head.shard_columns(mesh)
     state = init_train_state(model, seed=0)
     zero1 = run.get("zero1", False) and mesh is not None
-    specs = state_shardings(mesh, state, zero1=True) if zero1 else None
+    specs = state_shardings(mesh, state, zero1=zero1) if mesh is not None else None
     if zero1:
-        state.opt = split_moments(mesh, state.opt, specs)
+        state.opt = split_moments(mesh, state.opt, on_axis(specs, "data"))
+
+    def whole_grad(n, g):
+        if columns and n in PROTO_AXIS_PARAMS:
+            return mesh.all_gather(g, dim=PROTO_AXIS_PARAMS[n], axis="model")
+        return g
     out = {"metrics": [], "grads": []}
     for st in run["steps"]:
         epoch, pretrain, mask_prune = st["phase"]
@@ -101,14 +111,16 @@ def run_steps(run, mesh):
                               torch.from_numpy(ys), Scalars(**st["scalars"]),
                               presence_noise=None if noise is None else torch.from_numpy(noise))
         out["metrics"].append({k: v.detach().numpy().copy() for k, v in metrics.items()})
-        out["grads"].append({n: p.grad.detach().numpy().copy()
+        out["grads"].append({n: whole_grad(n, p.grad.detach()).numpy().copy()
                              for n, p in state.params.items() if p.grad is not None})
-    opt = whole_moments(mesh, state.opt, specs) if zero1 else state.opt
+    opt = whole_moments(mesh, state.opt, specs) if zero1 or columns else state.opt
+    out["local_mu"] = {n: tuple(t.shape) for n, t in state.opt.mu.items()}
+    if columns:
+        model.head.gather_columns()
     out["weights"] = {k: v.detach().numpy().copy() for k, v in model.state_dict().items()}
     out["mu"] = {n: t.numpy().copy() for n, t in opt.mu.items()}
     out["nu"] = {n: t.numpy().copy() for n, t in opt.nu.items()}
     out["count"] = dict(opt.count)
-    out["local_mu"] = {n: tuple(t.shape) for n, t in state.opt.mu.items()}
     out["generator"] = state.generator.get_state().numpy().copy()
     return out
 
@@ -175,14 +187,15 @@ def main(argv) -> int:
         return run_cli(argv[1], int(argv[2]), int(argv[3]))
     job_path, rank, world = argv[0], int(argv[1]), int(argv[2])
     torch.set_num_threads(1)
-    from pipnet_tpu_torch.runtime.mesh import close_ranks, data_mesh, init_ranks
+    from pipnet_tpu_torch.runtime.mesh import close_ranks, dp_mp_mesh, init_ranks
     with open(job_path, "rb") as f:
         job = pickle.load(f)
     timeout = datetime.timedelta(seconds=job["timeout"])
     store = torch.distributed.FileStore(job_path + ".store", world)
     init_ranks(world, rank, "cpu", store=store, timeout=timeout)
     try:
-        mesh = data_mesh(world, device="cpu")
+        n_model = job.get("n_model", 1)
+        mesh = dp_mp_mesh(world // n_model, n_model, device="cpu")
         results = {run["name"]: RUNNERS[run.get("kind", "steps")](run, mesh)
                    for run in job["runs"]}
     finally:
