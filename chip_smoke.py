@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port (``pipnet_tpu_torch``) on one CUDA card.
 
     python3 chip_smoke.py [--baseline CHECKOUT]
-                          [--only blocks|data|trainer|eval|interp|backbones|options|mesh|model]
+                          [--only blocks|data|trainer|eval|interp|backbones|options|mesh|model|f32]
 
 Phases, each of which fails the run loudly:
 
@@ -15,21 +15,23 @@ Phases, each of which fails the run loudly:
    adjoint K1b at 128, the no-pf head K2 at 64 view pairs; in f32 with TF32
    off and in bf16) and on a small tree with several bucket widths and a
    padded tail; the depthwise conv K3 and the fused block K4 at the four
-   ConvNeXt-tiny-26 stage maps at B=128 (and K4 at the serving B=8), in f32
-   and bf16, on small ragged shapes, and K3's gradient against cuDNN's (in
-   bf16 K4's three launches also one by one against their plain pieces,
-   each timed beside its bound); with the kernel's time, its plain
+   ConvNeXt-tiny-26 stage maps at B=128 and at the serving B=8, in f32
+   and bf16, on small ragged shapes, and K3's gradient against cuDNN's (K4's
+   three launches also one by one against their plain pieces, each timed
+   beside its bound, and K4 f32 beside the eager branch with TF32 off);
+   with the kernel's time, its plain
    version's, one PyTorch library call's where one computes the same
    function, and the card's bound; K1 and K2 also at
    the edges of their bf16 tiling (99 rows, D = 72, bucket widths that do
    not divide the tile, one image, tau = 0.5); K1, K1b and K2 on flat
-   PIP-Net's node of 768 prototypes (K1 at B=8 in both dtypes and at 128 in
-   bf16, K1b at 128, K2 at 64 pairs) and on nodes of 300 and 2000 and a tree
+   PIP-Net's node of 768 prototypes (K1 at B=8 and 128 in both dtypes, K1b
+   at 128, K2 at 64 pairs) and on nodes of 300 and 2000 and a tree
    mixing a narrow bucket with a node of 300 off an 8-column boundary, all
    wider than a column tile and run as parts; with ``--baseline CHECKOUT``
-   an older checkout's K1, K2, K1b and K3 are built and their bf16 launches
+   an older checkout's K1, K2, K1b, K3 and K4 are built and their launches
    at the main-path shapes timed in turns with these (baseline, this, this,
-   baseline);
+   baseline): K1 on the flagship in both dtypes, K2, K1b and K3 in bf16, K4
+   in f32 at the four stage maps at both batches;
 4. K3's own path: ``dwconv7x7`` forward and backward at the four stage
    maps (no model of either package runs K3), with its exact launches;
 5. serving: a run directory holding the flagship configuration and tree
@@ -180,7 +182,18 @@ Phases, each of which fails the run loudly:
    steps timed on each rank, with its peak memory, beside the one-process
    composed step's and path A's; one step in the fused-backbone
    configuration (K4 54 a step a rank) against the one-process step.  A
-   rank that fails fails the phase.
+   rank that fails fails the phase;
+18. the f32 kernel configuration: the flagship run config with
+   ``compute_dtype`` float32 (the port's default) and TF32 off, at full
+   width and depth on seeded weights: served at B = 8 through ``Predictor``
+   with the head kernel (K1 1 a forward), then also with the fused backbone
+   (K4 54 a forward: three launches a block), each forward's answers
+   against the plain composition (K1's and K4's plain versions) on the same
+   images; paths A (K1 1, K1b 1 a step) and C (K4 54 with them) at 64
+   images in two views at epoch 20: their first-step losses from the same
+   parameters and batch within 1e-4 relative, then 3 warm-up and 5 timed
+   steps with exact launches, step time, peak memory, busy share and the
+   largest kernels.
 
 The last two lines of standard output are the ``{"kernels": [...]}``
 record and ``{"ok": true, "device": {...}}``.  ``--only blocks`` runs
@@ -190,7 +203,8 @@ phases 1, 2 and the K3 and K4 checks of phase 3, ``--only data`` phases
 phases 1, 2, the kernel checks at the other backbones' shapes and 14,
 ``--only options`` phases 1, 2, the kernel checks at the reducer's width
 and 15, ``--only mesh`` phases 1, 2 and 16, ``--only model`` phases 1, 2
-and 17, then each stops without either line: neither can pass for a full run.  Without a CUDA card, or without the rest of the repository
+and 17, ``--only f32`` phases 1, 2, the f32 K1 and K4 checks of phase 3
+and 18, then each stops without either line: neither can pass for a full run.  Without a CUDA card, or without the rest of the repository
 beside it, it exits non-zero before printing either.
 """
 
@@ -535,20 +549,23 @@ def check_nopf(tree, pairs, H, W, D, dtype, seed, timed=False, tau=1.0, baseline
     return rec
 
 
-BASELINE_SOURCES = ("fused_head", "fused_head_nopf", "head_backward", "dwconv")
+BASELINE_SOURCES = ("fused_head", "fused_head_nopf", "head_backward", "dwconv", "cnblock")
 
 
 @dataclasses.dataclass
 class Baseline:
     """An older checkout's kernel libraries; whether its K1b takes a
     plan of groups of ``sv`` 16-byte vectors (``backward_plan``) or is the
-    earlier kernel, which ran on the f32 SIMT column plan; and whether its
+    earlier kernel, which ran on the f32 SIMT column plan; whether its
     K1, K2 and K1b take split plans (``split_plan``: whole-node groups and
     parts of wide nodes, GF ints a group) or one plan of (col_start, ncols,
-    width) triples of whole nodes."""
+    width) triples of whole nodes; and whether its f32 K4 is the earlier
+    single fused launch (``pipnet_cnblock_f32``, timed through
+    ``_fused_f32_block``; its bf16 K4 is then not timed in turns)."""
     libs: dict
     k1b_takes_sv: bool
     takes_split_plan: bool
+    fused_f32_block: bool
 
 
 def baseline_kernels(checkout: str) -> Baseline:
@@ -582,8 +599,10 @@ def baseline_kernels(checkout: str) -> Baseline:
         libs[name].pipnet_cuda_error_string.restype = ctypes.c_char_p
     with open(os.path.join(src, "head_backward.cu")) as f:
         k1b_src = f.read()
+    with open(os.path.join(src, "cnblock.cu")) as f:
+        fused_f32 = "int pipnet_cnblock_f32(" in f.read()
     takes_split = "const void* whole, int Gw" in k1b_src
-    return Baseline(libs, takes_split or "int G, int sv," in k1b_src, takes_split)
+    return Baseline(libs, takes_split or "int G, int sv," in k1b_src, takes_split, fused_f32)
 
 
 def _triples(tree, dtype, device, hw=None):
@@ -691,20 +710,55 @@ def _simt_plan_backward(lib):
     return launch
 
 
+def _fused_f32_block(lib, forward):
+    """A launcher of the earlier f32 K4 (one fused launch: ``pipnet_cnblock_f32``
+    with its ten inputs as one array of pointers, W1 and W2 in nn.Linear's
+    layout) in the place of ``cnblock._forward``; other inputs take
+    ``forward``."""
+    from pipnet_tpu_torch.ops import cnblock as cb
+    from pipnet_tpu_torch.ops.build import check_cuda
+    fn = lib.pipnet_cnblock_f32
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def launch(x, dw_kernel, dw_bias, ln_scale, ln_bias, w1, b1, w2, b2, layer_scale, *,
+               fast_gelu):
+        args = (x, dw_kernel, dw_bias, ln_scale, ln_bias, w1, b1, w2, b2, layer_scale)
+        if x.dtype != torch.float32 or x.device.type != "cuda":
+            return forward(*args, fast_gelu=fast_gelu)
+        cb.check_cnblock_inputs(*args)
+        B, H, W, C = x.shape
+        keep = [x, *[t.contiguous() for t in args[1:5]], w1.t().contiguous(), b1.contiguous(),
+                w2.t().contiguous(), b2.contiguous(), layer_scale.contiguous()]
+        params = (ctypes.c_void_p * 10)(*[t.data_ptr() for t in keep])
+        out = torch.empty_like(x)
+        code = fn(ctypes.cast(params, ctypes.c_void_p), out.data_ptr(), B, H, W, C,
+                  int(fast_gelu), torch.cuda.current_stream().cuda_stream)
+        check_cuda(lib, code, "baseline fused block launch")
+        cb.cnblock_branch.launches += 1
+        return out
+    return launch
+
+
 @contextlib.contextmanager
 def baseline_launches(baseline: Baseline):
     """The wrappers launch the baseline libraries."""
+    import pipnet_tpu_torch.ops.cnblock as cb
     import pipnet_tpu_torch.ops.dwconv as dw
     import pipnet_tpu_torch.ops.fused_head as fh
     import pipnet_tpu_torch.ops.fused_head_nopf as fn
-    saved = (fh.kernel_entry, fn.kernel_entry, dw.kernel_entry, fh._launch_backward,
-             fh._launch, fn._launch)
+    saved = (fh.kernel_entry, fn.kernel_entry, dw.kernel_entry, cb.kernel_entry,
+             fh._launch_backward, fh._launch, fn._launch, cb._forward)
 
     def entry(name, symbol, argtypes):
         fn_ = getattr(baseline.libs[name], symbol)
         fn_.argtypes, fn_.restype = list(argtypes), ctypes.c_int
         return baseline.libs[name], fn_
     fh.kernel_entry = fn.kernel_entry = dw.kernel_entry = entry
+    if baseline.fused_f32_block:
+        cb._forward = _fused_f32_block(baseline.libs["cnblock"], cb._forward)
+    else:
+        cb.kernel_entry = entry
     if not baseline.takes_split_plan:
         fh._launch, fn._launch, fh._launch_backward = _triple_plan_launchers(baseline.libs)
     if not baseline.k1b_takes_sv:
@@ -712,8 +766,8 @@ def baseline_launches(baseline: Baseline):
     try:
         yield
     finally:
-        (fh.kernel_entry, fn.kernel_entry, dw.kernel_entry, fh._launch_backward,
-         fh._launch, fn._launch) = saved
+        (fh.kernel_entry, fn.kernel_entry, dw.kernel_entry, cb.kernel_entry,
+         fh._launch_backward, fh._launch, fn._launch, cb._forward) = saved
 
 
 def in_turns(call, baseline: Baseline) -> dict:
@@ -755,19 +809,17 @@ def kernel_phase(card: str, baseline=None):
     ragged = [(f"multi_bucket_b1_tau05_{_dtype_name(dt)}", multi, (1, 9, 11, 72), dt, 0.5)
               for dt in (f32, bf16)] + [("flagship_b1_tau05_bf16", flag, (1, 26, 26, 768),
                                          bf16, 0.5)]
-    records = {}
+    records = f32_head_checks(baseline)
     for name, tree, shape, dtype, timed in (
-            ("flagship_f32", flag, (8, 26, 26, 768), f32, True),
             ("flagship_bf16", flag, (8, 26, 26, 768), bf16, True),
             ("flagship_train_bf16", flag, (128, 26, 26, 768), bf16, True),
             ("multi_bucket_f32", multi, (3, 9, 11, 72), f32, False),
             ("multi_bucket_bf16", multi, (3, 9, 11, 72), bf16, False)):
         records[name] = check_fused_head(tree, *shape, dtype, seed=len(records), timed=timed,
-                                         baseline=baseline if dtype == bf16 else None)
+                                         baseline=baseline)
     for name, tree, shape, dtype, timed in (
             ("flat_bf16", flat, (8, 26, 26, 768), bf16, True),
-            ("flat_train_bf16", flat, (128, 26, 26, 768), bf16, True),
-            ("flat_f32", flat, (8, 26, 26, 768), f32, True)):
+            ("flat_train_bf16", flat, (128, 26, 26, 768), bf16, True)):
         records[name] = check_fused_head(tree, *shape, dtype, seed=len(records), timed=timed)
     for name, tree, dtype in wide:
         records[f"{name}_{_dtype_name(dtype)}"] = check_fused_head(
@@ -820,6 +872,24 @@ def kernel_phase(card: str, baseline=None):
     for name, rec in nopf.items():
         say(f"kernel fused_head_nopf {name}: {json.dumps(rec)} [{card}]")
     return records, backward, nopf
+
+
+def f32_head_checks(baseline=None) -> dict:
+    """K1 in f32 (TF32 off) at the main path's shapes, timed: the flagship
+    tree and flat PIP-Net's node of 768 at the serving batch and at the
+    training batch, the flagship's in turns with an older checkout's K1
+    with ``baseline``."""
+    from torch_port_util import flat_tree_port
+    flag, _ = flagship_tree()
+    flat = flat_tree_port(FLAT_CLASSES, FLAT_FEATURES)
+    records = {}
+    for name, tree, B in (("flagship_f32", flag, SERVE_IMAGES),
+                          ("flagship_train_f32", flag, STEP_IMAGES),
+                          ("flat_f32", flat, SERVE_IMAGES), ("flat_train_f32", flat, STEP_IMAGES)):
+        records[name] = check_fused_head(tree, B, 26, 26, 768, torch.float32,
+                                         seed=60 + len(records), timed=True,
+                                         baseline=baseline if tree is flag else None)
+    return records
 
 
 def _dw_inputs(shape, dtype, seed):
@@ -908,13 +978,14 @@ def _block_inputs(shape, dtype, seed):
     return ts
 
 
-def check_cnblock(shape, dtype, fast_gelu, seed, timed=False):
+def check_cnblock(shape, dtype, fast_gelu, seed, timed=False, baseline=None):
     """K4 against its plain version (the Pallas kernel's rounding order) on
-    the card; in bf16 also each of its three launches (``cnblock_dwln``,
+    the card, and each of its three launches (``cnblock_dwln``,
     ``cnblock_up``, ``cnblock_down``) against its plain piece on the same
     inputs, at the same bar.  No PyTorch call computes the branch
     (``library_ms`` None); ``unfused_ms`` is the eager composition K4
-    replaces; ``parts_ms`` and ``parts_bound_ms`` time each launch alone."""
+    replaces; ``parts_ms`` and ``parts_bound_ms`` time each launch alone
+    (with ``baseline``, as ``check_fused_head``)."""
     from pipnet_tpu_torch.ops import cnblock as cb
     args = _block_inputs(shape, dtype, seed)
     x, dwk, dwb, lns, lnb, w1, b1, w2, b2, ls = args
@@ -925,18 +996,17 @@ def check_cnblock(shape, dtype, fast_gelu, seed, timed=False):
         torch.cuda.synchronize()
         _rel_check("fused block (K4)", out,
                    cb.cnblock_branch_reference(*args, fast_gelu=fast_gelu), BLOCK_REL[dtype], rec)
-        if dtype == torch.bfloat16:
-            z = cb.cnblock_dwln_reference(x, dwk, dwb, lns, lnb)
-            h1 = cb.cnblock_up_reference(z, w1, b1, fast_gelu=fast_gelu)
-            parts = {"dwln": (lambda: cb.cnblock_dwln(x, dwk, dwb, lns, lnb), z),
-                     "up": (lambda: cb.cnblock_up(z, w1, b1, fast_gelu=fast_gelu), h1),
-                     "down": (lambda: cb.cnblock_down(h1, w2, b2, ls),
-                              cb.cnblock_down_reference(h1, w2, b2, ls))}
-            rec["parts"] = {}
-            for name, (launch, want) in parts.items():
-                rec["parts"][name] = {}
-                _rel_check(f"K4's {name} launch", launch(), want, BLOCK_REL[dtype],
-                           rec["parts"][name])
+        z = cb.cnblock_dwln_reference(x, dwk, dwb, lns, lnb)
+        h1 = cb.cnblock_up_reference(z, w1, b1, fast_gelu=fast_gelu)
+        parts = {"dwln": (lambda: cb.cnblock_dwln(x, dwk, dwb, lns, lnb), z),
+                 "up": (lambda: cb.cnblock_up(z, w1, b1, fast_gelu=fast_gelu), h1),
+                 "down": (lambda: cb.cnblock_down(h1, w2, b2, ls),
+                          cb.cnblock_down_reference(h1, w2, b2, ls))}
+        rec["parts"] = {}
+        for name, (launch, want) in parts.items():
+            rec["parts"][name] = {}
+            _rel_check(f"K4's {name} launch", launch(), want, BLOCK_REL[dtype],
+                       rec["parts"][name])
         if timed:
             rec["ms"] = time_ms(lambda: cb.cnblock_branch(*args, fast_gelu=fast_gelu))
             rec["plain_ms"] = time_ms(lambda: cb.cnblock_branch_reference(
@@ -944,22 +1014,24 @@ def check_cnblock(shape, dtype, fast_gelu, seed, timed=False):
             rec["unfused_ms"] = time_ms(lambda: cb.cnblock_branch_unfused(
                 *args, fast_gelu=fast_gelu))
             rec["library_ms"] = None       # no single PyTorch call computes the branch
+            if baseline is not None:
+                rec.update(in_turns(lambda: cb.cnblock_branch(*args, fast_gelu=fast_gelu),
+                                    baseline))
             npix, C = x.numel() // shape[-1], shape[-1]
             es = x.element_size()
             nbytes = (2 * x.numel() + sum(a.numel() for a in args[1:])) * es
             # the two products on the tensor cores (bf16) or SIMT units (f32),
             # the 49 depthwise taps in f32
             rec.update(bound(nbytes, 16.0 * npix * C * C, dtype, f32_ops=2.0 * 49 * npix * C))
-            if dtype == torch.bfloat16:
-                rec["parts_ms"] = {name: time_ms(launch) for name, (launch, _) in parts.items()}
-                product = 8.0 * npix * C * C
-                rec["parts_bound_ms"] = {
-                    "dwln": bound((2 * x.numel() + 52 * C) * es, 0.0, dtype,
-                                  f32_ops=2.0 * 49 * npix * C)["bound_ms"],
-                    "up": bound((5 * npix * C + 4 * C * C + 4 * C) * es, product,
-                                dtype)["bound_ms"],
-                    "down": bound((5 * npix * C + 4 * C * C + 2 * C) * es, product,
-                                  dtype)["bound_ms"]}
+            rec["parts_ms"] = {name: time_ms(launch) for name, (launch, _) in parts.items()}
+            product = 8.0 * npix * C * C
+            rec["parts_bound_ms"] = {
+                "dwln": bound((2 * x.numel() + 52 * C) * es, 0.0, dtype,
+                              f32_ops=2.0 * 49 * npix * C)["bound_ms"],
+                "up": bound((5 * npix * C + 4 * C * C + 4 * C) * es, product,
+                            dtype)["bound_ms"],
+                "down": bound((5 * npix * C + 4 * C * C + 2 * C) * es, product,
+                              dtype)["bound_ms"]}
     return rec
 
 
@@ -995,16 +1067,36 @@ def block_kernel_phase(card: str, baseline=None):
     for i, hwc in enumerate(STAGES):
         blocks[f"stage{i}_b8_bf16"] = check_cnblock((SERVE_IMAGES, *hwc), torch.bfloat16, True,
                                                     (47, 48, 49, 44)[i], timed=True)
+    blocks.update(f32_block_checks(baseline))
     for fast_gelu in (True, False):
         g = "tanh" if fast_gelu else "erf"
-        blocks[f"stage3_b8_f32_{g}"] = check_cnblock((SERVE_IMAGES, *last), torch.float32,
-                                                     fast_gelu, 45, timed=True)
         for dtype in (torch.float32, torch.bfloat16):
             blocks[f"ragged_{_dtype_name(dtype)}_{g}"] = check_cnblock(
                 (2, 9, 11, 40), dtype, fast_gelu, 46)
     for name, rec in blocks.items():
         say(f"kernel cnblock {name}: {json.dumps(rec)} [{card}]")
     return dw, blocks
+
+
+def f32_block_checks(baseline=None) -> dict:
+    """K4 in f32 (TF32 off) at the four stage maps at the training batch and
+    at the serving batch (the flagship's tanh GELU; stage 3 at B=8 also
+    with erf), and at the ragged shapes of ``tests/test_torch_cuda.py``
+    (odd maps, C = 40, one partial tile of the widest stage), each launch
+    against its plain piece; the stage maps timed, in turns with an older
+    checkout's K4 with ``baseline``."""
+    f32, blocks = torch.float32, {}
+    for i, hwc in enumerate(STAGES):
+        for B, tag in ((STEP_IMAGES, ""), (SERVE_IMAGES, "_b8")):
+            blocks[f"stage{i}{tag}_f32"] = check_cnblock((B, *hwc), f32, True, 50 + i,
+                                                        timed=True, baseline=baseline)
+    blocks["stage3_b8_f32_erf"] = check_cnblock((SERVE_IMAGES, *STAGES[-1]), f32, False, 45,
+                                                timed=True)
+    for shape in ((1, 7, 5, 768), (2, 27, 27, 96), (1, 3, 5, 16)):
+        for fast_gelu in (True, False):
+            blocks[f"ragged_{'x'.join(map(str, shape))}_f32_{'tanh' if fast_gelu else 'erf'}"] = \
+                check_cnblock(shape, f32, fast_gelu, 47)
+    return blocks
 
 
 def dwconv_op_path(card: str):
@@ -4177,6 +4269,210 @@ def model_phase(card: str) -> dict:
     return {"model axis, two ranks": ranks_launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the f32 kernel configuration end to end
+# ---------------------------------------------------------------------------
+
+# the flagship run config in f32, the port's default compute_dtype (and the
+# CLI's): with the head kernel on (the config's use_pallas_head) K1 and K1b
+# run in f32, with the fused backbone K4 too
+F32_MODEL = {"compute_dtype": "float32"}
+F32_TIMED_STEPS = 5
+# served f32 answers against the plain composition on the same images.
+# Unfused backbone, the same features: K1's pooled within its kernel bar
+# (1e-5), and each logit, a sum of pooled values times the class's
+# weights, within 1e-5 times the sum of its weights' magnitudes.  Fused
+# backbone: the features come from K4 and from K4's plain version, each of
+# the 18 blocks within BLOCK_REL[float32] (2e-5 of its output's scale) of
+# the other, so they drift apart by up to ~18 x 2e-5 = 3.6e-4 relative;
+# pooled softmax values (at most 1) within 2^-10 and logits within 2^-10 of
+# the largest (the bf16 bars, 2^-6 and 2^-4, scaled by f32's finer rounding
+# would be far tighter: this bar is set by the summation order, not rounding)
+F32_SERVED_TOL = {"pooled": 1e-5, "logits_w": 1e-5}
+F32_FUSED_SERVED_TOL = {"pooled": 2.0 ** -10, "logits_rel": 2.0 ** -10}
+# path A's and path C's first-step losses from the same parameters and
+# batch: both f32 with TF32 off, the backbones differ only by summation
+# order (the fused one's depthwise taps, LayerNorm and products in K4), so
+# the loss, a mean over 128 images, within 1e-4 relative
+F32_PATH_LOSS_REL = 1e-4
+
+
+def f32_serving(card: str, setup: Setup, fused: bool) -> dict:
+    """Serve ``setup`` (the flagship config in f32) at B = 8 through
+    ``Predictor`` from a run directory, with the head kernel and, with
+    ``fused``, the fused backbone: one forward's launches (K1 1; K4 3 a
+    block), ``predict`` (the public entry), the answers against the plain
+    composition (K1's and, with ``fused``, K4's plain versions) on the same
+    images, and ``bench()``."""
+    from pipnet_tpu_torch.models.pipnet import joint_leaf_log_distribution
+    from pipnet_tpu_torch.ops.fused_head import fused_head, fused_head_reference
+    from pipnet_tpu_torch.serve import Predictor
+    label = "f32 serving" + ", fused backbone" * fused
+    run_dir = os.path.join(REPO, "build", "smoke_run_f32" + "_fused" * fused)
+    write_run_dir(run_dir, setup, fused)
+    pred = Predictor(run_dir, batch_size=SERVE_IMAGES, device="cuda")
+    mcfg = pred.bundle.cfg.model
+    if (mcfg.compute_dtype, mcfg.use_pallas_head, mcfg.use_pallas_backbone) != \
+            ("float32", True, fused):
+        fail(f"{label}: the run directory's config is {mcfg}")
+    images = synthetic_images(SERVE_IMAGES, 256, seed=2)
+    xs = torch.from_numpy(pred._prep(images)).cuda()
+    zero_counts()
+    logits_s, _, _ = pred.forward(xs)
+    torch.cuda.synchronize()
+    launches = counts()
+    blocks = sum(pred.model.backbone.depths) if fused else 0
+    check_launches(label, launches, {**NO_LAUNCHES, "fused_head": 1, "cnblock": 3 * blocks})
+    answers = pred.predict(images)
+    head, tree = pred.model.head, pred.tree
+    with torch.inference_mode():
+        feats = pred.model.features(xs)
+        if fused:
+            with plain_blocks():
+                feats_p = pred.model.features(xs)
+        else:
+            feats_p = feats
+        k, tau = head.add_on_kernel, head.cfg.softmax_tau
+        _, pooled_k = fused_head(feats, k, tree, tau=tau)
+        _, pooled_p = fused_head_reference(feats_p, k, tree, tau=tau)
+        same_as_served = bool(torch.equal(logits_s, head.classify(pooled_k, inference=True)[1]))
+        tol = F32_FUSED_SERVED_TOL if fused else F32_SERVED_TOL
+        pooled_err = (pooled_k - pooled_p).abs().max().item()
+        # a pooled value within the bar of the inference cut may land on
+        # either side of it: take the plain side there, so the logits
+        # compare the kernels' values, not the cut
+        near = (pooled_p - head.cfg.inference_threshold).abs() < tol["pooled"]
+        pooled_k = torch.where(near, pooled_p, pooled_k)
+        _, logits_k = head.classify(pooled_k, inference=True)
+        _, logits_p = head.classify(pooled_p, inference=True)
+        logp_p = joint_leaf_log_distribution(logits_p, tree,
+                                             softmax_tau=pred.path_prob_softmax_tau)
+        w = head.effective_cls_weight().abs().sum(-1)
+    if fused:
+        logit_bar = tol["logits_rel"] * logits_p.abs().max()
+    else:
+        logit_bar = tol["logits_w"] * w + 1e-6
+    logit_gap = (logits_k - logits_p).abs()
+    top2 = torch.topk(logp_p, 2, dim=-1).values
+    confident = (top2[:, 0] - top2[:, 1]) > 0.1
+    plain_top1 = logp_p.argmax(-1)
+    served_top1 = torch.tensor([pred.classes.index(a["class"]) for a in answers]).cuda()
+    rec = {"images": len(answers), "pooled_max_abs_err": pooled_err,
+           "logits_max_abs_err": logit_gap.max().item(),
+           "logits_max_err_over_bar": (logit_gap / logit_bar).max().item(),
+           "near_threshold": int(near.sum().item()),
+           "confident_images": int(confident.sum().item()),
+           "top1_agree_served_vs_plain": int((served_top1 == plain_top1)[confident].sum().item()),
+           "served_logits_equal_kernel_path": same_as_served,
+           "launches_per_forward": launches}
+    if fused:
+        rec["features_rel_l2"] = ((feats - feats_p).norm() / feats_p.norm()).item()
+        rec["features_max_abs_err"] = (feats - feats_p).abs().max().item()
+    if pooled_err > tol["pooled"] or rec["logits_max_err_over_bar"] > 1:
+        fail(f"{label}: served head disagrees with the plain composition: {rec}, bars {tol}")
+    if rec["confident_images"] == 0 or \
+            rec["top1_agree_served_vs_plain"] != rec["confident_images"]:
+        fail(f"{label}: served top-1 disagrees with the plain composition: {rec}")
+    rec["bench"] = pred.bench(iters=10)
+    say(f"{label}: {json.dumps(rec)} [{card}]")
+    del pred
+    torch.cuda.empty_cache()
+    return launches
+
+
+def f32_training(card: str, setup: Setup) -> dict:
+    """Paths A (K1, K1b) and C (A with the fused backbone: K4, K1, K1b) of
+    ``setup`` (the flagship config in f32) at full width, 64 images in two
+    views at epoch 20, from the same seeded parameters and batch: each
+    path's first-step loss (A and C within F32_PATH_LOSS_REL), then 3
+    warm-up and F32_TIMED_STEPS timed steps (CUDA events) with their exact
+    launches, the peak memory, and two profiled steps (busy share, the
+    largest kernels, the hand-written kernels' time a step)."""
+    from pipnet_tpu_torch.models.convnext import CONVNEXT_TINY_DEPTHS
+    from pipnet_tpu_torch.train import init_train_state
+    batch, recs, paths = None, {}, {}
+    n = F32_TIMED_STEPS
+    for fused in (False, True):
+        name = "C" if fused else "A"
+        cfg = run_config(setup, fused_backbone=fused)
+        model, tree, _ = build_model(setup, cfg)
+        if batch is None:
+            batch = train_batch(cfg, tree)
+        step, scalars = train_step(cfg, model, tree, fuse=False)
+        state = init_train_state(model, seed=0)
+        state, m = step(state, *batch, scalars)
+        first = float(m["loss"])
+        for _ in range(WARMUP_STEPS - 1):
+            state, _ = step(state, *batch, scalars)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        acc = None
+        zero_counts()
+        start.record()
+        for _ in range(n):
+            state, acc = step(state, *batch, scalars, acc=acc)
+        end.record()
+        torch.cuda.synchronize()
+        launches = counts()
+        paths[f"f32 training {name}"] = launches
+        blocks = 3 * sum(CONVNEXT_TINY_DEPTHS) if fused else 0
+        check_launches(f"f32 training path {name}", launches, {
+            **NO_LAUNCHES, "fused_head": n, "head_backward": n, "cnblock": blocks * n})
+        step_ms = start.elapsed_time(end) / n
+        rec = {"path": name, "batch": TRAIN_BATCH, "views": 2, "timed_steps": n,
+               "step_ms": step_ms, "images_per_s": TRAIN_BATCH * 1e3 / step_ms,
+               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "first_step_loss": first, "mean_loss": float(acc["loss"]) / n,
+               "launches_per_step": {k: v / n for k, v in launches.items()}}
+        if not all(np.isfinite([first, rec["mean_loss"]])):
+            fail(f"f32 training path {name}: non-finite loss: {rec}")
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(2):
+                state, _ = step(state, *batch, scalars)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        if kernels:
+            busy = sum(e.self_device_time_total for e in kernels) / 1e3 / 2
+            rec.update({"kernel_ms_per_step": busy, "busy_share": busy / step_ms,
+                        "kernels_per_step": sum(e.count for e in kernels) / 2})
+            top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+            rec["top_kernels_ms"] = {e.key[:60]: e.self_device_time_total / 1e3 / 2 for e in top}
+            rec["hand_written_ms"] = {
+                k: sum(e.self_device_time_total for e in kernels if k in e.key) / 1e3 / 2
+                for k in ("fused_head_f32", "head_backward", "cnblock")}
+        else:
+            rec["kernel_ms_per_step"] = "not measured"
+        recs[name] = rec
+        say(f"f32 training path {name}: {json.dumps(rec)} [{card}]")
+        del model, state, step, acc
+        torch.cuda.empty_cache()
+    rel = abs(recs["A"]["first_step_loss"] - recs["C"]["first_step_loss"]) / \
+        abs(recs["A"]["first_step_loss"])
+    say(f"f32 paths A and C, first-step loss: {json.dumps({'rel_diff': rel})} [{card}]")
+    if not rel <= F32_PATH_LOSS_REL:
+        fail(f"f32 paths A and C disagree on the first step's loss: {rel} relative "
+             f"(bar {F32_PATH_LOSS_REL})")
+    return paths
+
+
+def f32_phase(card: str) -> dict:
+    """Phase 18: the flagship config in f32 (TF32 off) served with the head
+    kernel, then also with the fused backbone, and trained on paths A and
+    C; returns each path's launches."""
+    base = flagship_setup()
+    setup = Setup("f32", dict(F32_MODEL), base.tree_json, base.classes)
+    with tf32_off():
+        say(f"f32 phase: tf32 matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
+            f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+        paths = {f"f32 serving{', fused backbone' * fused}": f32_serving(card, setup, fused)
+                 for fused in (False, True)}
+        paths.update(f32_training(card, setup))
+    return paths
+
+
 NO_LAUNCHES = {"fused_head": 0, "head_backward": 0, "fused_head_nopf": 0, "dwconv": 0,
                "cnblock": 0}
 
@@ -4205,7 +4501,7 @@ def main(argv=None) -> int:
                     help="an older checkout of this repository whose K1 and K2 are timed "
                          "in turns with this one's in the kernel phase")
     ap.add_argument("--only", choices=["blocks", "data", "trainer", "eval", "interp",
-                                       "backbones", "options", "mesh", "model"],
+                                       "backbones", "options", "mesh", "model", "f32"],
                     help="blocks: build, check and time K3 and K4 only; data: build, then "
                          "run the training-from-data phase only; trainer: build, then run "
                          "the training-through-the-CLI phase only; eval: build, then "
@@ -4216,8 +4512,9 @@ def main(argv=None) -> int:
                          "options: build, check and time K1, K1b and K2 at the reducer's "
                          "width, then run phase 15; mesh: build, then run phase 16 (the "
                          "train step on a data mesh); model: build, then run phase 17 (the "
-                         "train step on a model axis); each stops without the kernels "
-                         "record or the ok line")
+                         "train step on a model axis); f32: build, check and time K1 and K4 "
+                         "in f32, then run phase 18 (the f32 kernel configuration); each "
+                         "stops without the kernels record or the ok line")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4290,6 +4587,15 @@ def main(argv=None) -> int:
         model_phase(card)
         say(f"--only model: done in {time.perf_counter() - t_start:.1f} s; no full run")
         return 0
+    if args.only == "f32":
+        with tf32_off():
+            for name, rec in f32_head_checks(baseline).items():
+                say(f"kernel fused_head {name}: {json.dumps(rec)} [{card}]")
+            for name, rec in f32_block_checks(baseline).items():
+                say(f"kernel cnblock {name}: {json.dumps(rec)} [{card}]")
+        f32_phase(card)
+        say(f"--only f32: done in {time.perf_counter() - t_start:.1f} s; no full run")
+        return 0
     laps = Laps(t_start)
     records, backward, nopf = kernel_phase(card, baseline)
     for checks in (backbone_kernel_checks, option_kernel_checks):
@@ -4349,6 +4655,8 @@ def main(argv=None) -> int:
     laps.lap("mesh")
     paths.update(model_phase(card))
     laps.lap("model")
+    paths.update(f32_phase(card))
+    laps.lap("f32")
     paths.update({"training A": train_a["launches"], "training B": train_b["launches"],
                   "training C": train_c["launches"], "training from data": train_data["launches"],
                   "training through the CLI": train_cli, "evaluation": evaluation,

@@ -8,14 +8,16 @@ Replaces ``pipnet_tpu/ops/pallas_convnext.py::_cnblock_kernel`` (behind
 depthwise stage is K3's device code (``csrc/dwconv_tile.cuh``).
 
 What bounds K4 on an H100: the two products, 16 * pixels * C^2 operations
-(817 GFLOP at B=128 and stage 3, 0.83 ms at the 989 TFLOP/s bf16 peak),
-above its input and output bytes (266 MB, 79 us).  In bf16 it is three
-launches, each with a plain version here: ``cnblock_dwln`` (depthwise +
-LayerNorm, z to device memory), ``cnblock_up`` (h1 = GELU(z W1 + b1)) and
-``cnblock_down`` ((h1 W2 + b2) * layer_scale), the last two one TMA +
-``wgmma`` product kernel with a fused epilogue whose tiling is
-``gemm_plan``; h1 makes one round trip through device memory.  In f32 it is
-one launch that keeps z and h1 in shared memory.  See the source.
+(817 GFLOP at B=128 and stage 3, 0.83 ms at the 989 TFLOP/s bf16 peak;
+12.2 ms at the 67 TFLOP/s f32 SIMT rate), above its input and output bytes
+(266 MB in bf16, 79 us).  In both dtypes it is three launches, each with a
+plain version here: ``cnblock_dwln`` (depthwise + LayerNorm, z to device
+memory), ``cnblock_up`` (h1 = GELU(z W1 + b1)) and ``cnblock_down`` ((h1
+W2 + b2) * layer_scale), the last two one product kernel with a fused
+epilogue: in bf16 TMA + ``wgmma`` tiled by ``gemm_plan``, in f32 a
+register-tiled SIMT product (``csrc/simt_tile.cuh``, shared with K1's f32
+kernel) tiled by ``gemm_plan_f32``; h1 makes one round trip through device
+memory.  See the source.
 
 Three functions of the same inputs, in the JAX package's layout (x
 (B, H, W, C), dw_kernel (7, 7, C), w1 (C, 4C), w2 (4C, C), vectors):
@@ -31,7 +33,7 @@ Three functions of the same inputs, in the JAX package's layout (x
   ``cnblock_down_reference``;
 * ``cnblock_branch``: the wrapper.  CUDA tensors go through K4 (or raise),
   CPU tensors through ``cnblock_branch_reference``; ``cnblock_branch.
-  launches`` counts kernel launches (3 a call in bf16, 1 in f32).  With
+  launches`` counts kernel launches (3 a call in either dtype).  With
   autograd recording and an input that needs a gradient it goes through
   ``FusedCNBlock``, which saves only its inputs and recomputes the unfused
   composition in its backward.
@@ -120,14 +122,24 @@ class GemmPlan(NamedTuple):
 
 
 GEMM_ROWS, GEMM_DEPTH = 128, 64     # BM and BK of csrc/head_tile.cuh::hopper
+# the f32 product's tile (csrc/simt_tile.cuh: BM, BN, BK)
+F32_GEMM_ROWS, F32_GEMM_COLS, F32_GEMM_DEPTH = 128, 128, 32
 
 
 def gemm_plan(M: int, N: int, K: int) -> GemmPlan:
-    """The plan of an (M, K) x (K, N) product: 256-column tiles where they
-    divide N (a 64 x 256 f32 accumulator is 128 registers a thread), else
-    128 (N = 96 and 192 leave part of one tile empty)."""
+    """The bf16 plan of an (M, K) x (K, N) product: 256-column tiles where
+    they divide N (a 64 x 256 f32 accumulator is 128 registers a thread),
+    else 128 (N = 96 and 192 leave part of one tile empty)."""
     bn = 256 if N % 256 == 0 else 128
     return GemmPlan(bn, -(-M // GEMM_ROWS), -(-N // bn), -(-K // GEMM_DEPTH))
+
+
+def gemm_plan_f32(M: int, N: int, K: int) -> GemmPlan:
+    """The f32 plan of an (M, K) x (K, N) product: 128 x 128 output tiles
+    (8 x 8 outputs for each of 256 threads), column tiles the fastest grid
+    index, 32-deep ring stages (cp.async fills zeros past every edge)."""
+    return GemmPlan(F32_GEMM_COLS, -(-M // F32_GEMM_ROWS), -(-N // F32_GEMM_COLS),
+                    -(-K // F32_GEMM_DEPTH))
 
 
 def check_cnblock_inputs(x, dw_kernel, dw_bias, ln_scale, ln_bias, w1, b1, w2, b2,
@@ -163,46 +175,32 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _check_bf16_part(what: str, first: torch.Tensor, *rest: torch.Tensor) -> None:
-    """Raise unless every tensor is bfloat16 on ``first``'s CUDA device and
-    ``first`` is contiguous and 16-byte aligned (TMA reads it)."""
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check_part(what: str, first: torch.Tensor, *rest: torch.Tensor) -> None:
+    """Raise unless every tensor has ``first``'s dtype (float32 or bfloat16)
+    and CUDA device, and ``first`` is contiguous and 16-byte aligned (TMA
+    or cp.async reads it)."""
     if first.device.type != "cuda":
         raise ValueError(f"{what} launches on cuda, not {first.device}")
+    if first.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{what} takes float32 or bfloat16, got {first.dtype}")
     for t in (first, *rest):
         if t.device != first.device:
             raise ValueError(f"{what}: inputs on {first.device} and {t.device}")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{what} takes bfloat16 (f32 runs the fused launch), got {t.dtype}")
+        if t.dtype != first.dtype:
+            raise TypeError(f"{what}: one dtype throughout, got {first.dtype} and {t.dtype}")
     if not first.is_contiguous() or first.data_ptr() % 16:
         raise ValueError(f"{what} needs a contiguous, 16-byte aligned input")
 
 
-def _launch_f32(x, dw_kernel, dw_bias, ln_scale, ln_bias, w1, b1, w2, b2, layer_scale,
-                fast_gelu: bool) -> torch.Tensor:
-    B, H, W, C = x.shape
-    # the kernel reads W1 and W2 transposed, as nn.Linear keeps them: for a
-    # w1 that is a Linear weight's .t() view, .t().contiguous() copies nothing
-    keep = [x, dw_kernel.contiguous(), dw_bias.contiguous(), ln_scale.contiguous(),
-            ln_bias.contiguous(), w1.t().contiguous(), b1.contiguous(), w2.t().contiguous(),
-            b2.contiguous(), layer_scale.contiguous()]
-    params = (ctypes.c_void_p * 10)(*[t.data_ptr() for t in keep])
-    out = torch.empty_like(x)
-    lib, fn = kernel_entry("cnblock", "pipnet_cnblock_f32",
-                           [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-    with torch.cuda.device(x.device):
-        code = fn(ctypes.cast(params, ctypes.c_void_p), out.data_ptr(), B, H, W, C,
-                  int(fast_gelu), _stream(x.device))
-    check_cuda(lib, code, "fused block launch")
-    cnblock_branch.launches += 1
-    return out
-
-
 def cnblock_dwln(x, dw_kernel, dw_bias, ln_scale, ln_bias) -> torch.Tensor:
-    """K4's first launch in bf16: z (B, H, W, C) = LayerNorm(depthwise(x) +
-    dw_bias) * ln_scale + ln_bias; CPU tensors take its plain version."""
+    """K4's first launch: z (B, H, W, C) = LayerNorm(depthwise(x) + dw_bias)
+    * ln_scale + ln_bias in x's dtype; CPU tensors take its plain version."""
     if x.device.type == "cpu":
         return cnblock_dwln_reference(x, dw_kernel, dw_bias, ln_scale, ln_bias)
-    _check_bf16_part("the depthwise + LayerNorm launch", x, dw_kernel, dw_bias, ln_scale, ln_bias)
+    _check_part("the depthwise + LayerNorm launch", x, dw_kernel, dw_bias, ln_scale, ln_bias)
     B, H, W, C = x.shape
     if C % 8 or not 0 < C <= MAX_CHANNELS or tuple(dw_kernel.shape) != (7, 7, C):
         raise ValueError(f"the depthwise + LayerNorm launch takes C a multiple of 8 up to "
@@ -211,10 +209,10 @@ def cnblock_dwln(x, dw_kernel, dw_bias, ln_scale, ln_bias) -> torch.Tensor:
     keep = [t.contiguous() for t in (dw_kernel, dw_bias, ln_scale, ln_bias)]
     z = torch.empty_like(x)
     lib, fn = kernel_entry("cnblock", "pipnet_cnblock_dwln",
-                           [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                           [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     with torch.cuda.device(x.device):
         code = fn(x.data_ptr(), *[t.data_ptr() for t in keep], z.data_ptr(), B, H, W, C,
-                  _stream(x.device))
+                  _DTYPE_CODES[x.dtype], _stream(x.device))
     check_cuda(lib, code, "depthwise + LayerNorm launch")
     cnblock_branch.launches += 1
     return z
@@ -226,9 +224,9 @@ _GELU_BIAS, _BIAS_SCALE = 0, 1      # the epilogues of csrc/cnblock.cu::cnblock_
 def _gemm(a, w, bias, scale: Optional[torch.Tensor], epilogue: int,
           fast_gelu: bool) -> torch.Tensor:
     """One product launch: epilogue(a (..., K) @ w (K, N)), w in the JAX
-    layout (the kernel reads w^T, nn.Linear's layout, K-major)."""
+    layout (the kernels read w^T, nn.Linear's layout, K-major)."""
     what = "the block's product launch"
-    _check_bf16_part(what, a, w, bias, *([] if scale is None else [scale]))
+    _check_part(what, a, w, bias, *([] if scale is None else [scale]))
     K, N = w.shape
     wt = w.t().contiguous()          # a Linear weight's .t() view: no copy
     if a.shape[-1] != K or K % 8 or N % 8 or wt.data_ptr() % 16 or tuple(bias.shape) != (N,) \
@@ -236,24 +234,30 @@ def _gemm(a, w, bias, scale: Optional[torch.Tensor], epilogue: int,
         raise ValueError(f"{what}: a {tuple(a.shape)}, w {tuple(w.shape)}, bias "
                          f"{tuple(bias.shape)}: K and N multiples of 8, a 16-byte aligned w")
     rows = a.numel() // K
-    plan = gemm_plan(rows, N, K)
     keep = [bias.contiguous(), (bias if scale is None else scale).contiguous()]
     if any(t.data_ptr() % 4 for t in keep):
         raise ValueError(f"{what}: bias and scale are read as pairs, 4-byte aligned")
     out = torch.empty((*a.shape[:-1], N), dtype=a.dtype, device=a.device)
-    lib, fn = kernel_entry("cnblock", "pipnet_cnblock_gemm",
-                           [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+    ptrs = (a.data_ptr(), wt.data_ptr(), keep[0].data_ptr(), keep[1].data_ptr(), out.data_ptr())
+    if a.dtype == torch.float32:
+        plan = gemm_plan_f32(rows, N, K)
+        lib, fn = kernel_entry("cnblock", "pipnet_cnblock_gemm_f32",
+                               [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        args = (*ptrs, rows, N, K, plan.grid_m, plan.grid_n, epilogue, int(fast_gelu))
+    else:
+        plan = gemm_plan(rows, N, K)
+        lib, fn = kernel_entry("cnblock", "pipnet_cnblock_gemm",
+                               [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+        args = (*ptrs, rows, N, K, *plan, epilogue, int(fast_gelu))
     with torch.cuda.device(a.device):
-        code = fn(a.data_ptr(), wt.data_ptr(), keep[0].data_ptr(), keep[1].data_ptr(),
-                  out.data_ptr(), rows, N, K, *plan, epilogue, int(fast_gelu),
-                  _stream(a.device))
+        code = fn(*args, _stream(a.device))
     check_cuda(lib, code, "block product launch")
     cnblock_branch.launches += 1
     return out
 
 
 def cnblock_up(z, w1, b1, *, fast_gelu: bool) -> torch.Tensor:
-    """K4's second launch in bf16: h1 = GELU(z w1 + b1), (..., 4C); CPU
+    """K4's second launch: h1 = GELU(z w1 + b1), (..., 4C) in z's dtype; CPU
     tensors take its plain version."""
     if z.device.type == "cpu":
         return cnblock_up_reference(z, w1, b1, fast_gelu=fast_gelu)
@@ -261,8 +265,8 @@ def cnblock_up(z, w1, b1, *, fast_gelu: bool) -> torch.Tensor:
 
 
 def cnblock_down(h1, w2, b2, layer_scale) -> torch.Tensor:
-    """K4's third launch in bf16: (h1 w2 + b2) * layer_scale, (..., C); CPU
-    tensors take its plain version."""
+    """K4's third launch: (h1 w2 + b2) * layer_scale, (..., C) in h1's dtype;
+    CPU tensors take its plain version."""
     if h1.device.type == "cpu":
         return cnblock_down_reference(h1, w2, b2, layer_scale)
     return _gemm(h1, w2, b2, layer_scale, _BIAS_SCALE, False)
@@ -276,8 +280,6 @@ def _forward(x, dw_kernel, dw_bias, ln_scale, ln_bias, w1, b1, w2, b2, layer_sca
     if x.device.type != "cuda":
         raise ValueError(f"the fused block runs on cuda or cpu, not {x.device}")
     check_cnblock_inputs(*args)
-    if x.dtype == torch.float32:
-        return _launch_f32(*args, fast_gelu)
     z = cnblock_dwln(x, dw_kernel, dw_bias, ln_scale, ln_bias)
     h1 = cnblock_up(z, w1, b1, fast_gelu=fast_gelu)
     return cnblock_down(h1, w2, b2, layer_scale)

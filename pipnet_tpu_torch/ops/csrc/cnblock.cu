@@ -16,44 +16,50 @@
 // What bounds it (B=128, stage 3: 26 x 26 x 768, bf16): the two products,
 // 16 * 86528 * 768^2 = 817 GFLOP, 0.83 ms at the 989 TFLOP/s bf16 peak, plus
 // the f32 depthwise taps (6.5 GFLOP, 0.10 ms at 67 TFLOP/s); input and output
-// are 266 MB, 79 us at 3.35 TB/s: operations bound it.
+// are 266 MB, 79 us at 3.35 TB/s: operations bound it.  In f32 the products
+// run on the SIMT FMA units at 67 TFLOP/s (TF32 would miss the 1e-5 bar):
+// 12.2 ms at B=128, 0.77 ms at B=8, stage 3.
 //
-// bf16: three launches.  The products need large tiles to run at the
-// tensor cores' rate, and a tile that keeps h1 on chip between them cannot
+// Three launches in both dtypes.  The products need large tiles to run near
+// the card's rate, and a tile that keeps h1 on chip between them cannot
 // hold a 64-row accumulator over all 768 output columns (384 registers a
-// thread), so h1 makes one round trip through device memory (at stage 3
-// 1.06 GB written and read, 0.32 ms at 3.35 TB/s):
-//   1. cnblock_dwln: the depthwise taps and the LayerNorm of up to 32
+// thread), so h1 makes one round trip through device memory (stage 3, bf16:
+// 1.06 GB written and read at B=128, 0.32 ms at 3.35 TB/s; f32: 2.13 GB,
+// 0.63 ms at B=128 and 0.04 ms at B=8, against products of 12.2 / 0.77 ms
+// at the bound):
+//   1. cnblock_dwln<T>: the depthwise taps and the LayerNorm of up to 32
 //      neighbouring pixels of one image row a block (a thread takes a
 //      channel and a strip of 8 pixels, loading each row of their 7 x 14
 //      window once: dwconv_tile.cuh's taps; one warp a pixel for the
-//      LayerNorm), z (B*H*W, C) written to device memory;
-//   2. cnblock_gemm<GELU_BIAS>: h1 = GELU(z W1 + b1), (B*H*W, 4C);
-//   3. cnblock_gemm<BIAS_SCALE>: out = (h1 W2 + b2) * layer_scale.
-// cnblock_gemm is one output tile of 128 rows x BN columns (BN 256 where it
-// divides N, else 128) a block: one producer thread keeps a ring of
-// hopper::STAGES stages full by TMA (128-byte swizzle; the A tile from the
-// row-major activations, the B tile from the weight's nn.Linear layout,
-// which is K-major, so neither is copied), two consumer warpgroups of 64
-// rows run wgmma m64nBNk16 into f32 registers, and the epilogue adds the
-// bias and applies GELU or the layer scale on those registers, casts once
-// and stores pairs of columns, masked by row and column.  Column tiles are
-// the fastest grid index, so neighbouring blocks share their A rows in L2;
-// the weights (at most 4.7 MB) stay in the 50 MB L2.  TMA fills zeros past
-// every edge of a tensor: a depth that is not a multiple of 64 (C = 96), a
-// ragged last row tile, a column tile past N.
+//      LayerNorm), z (B*H*W, C) written to device memory in T;
+//   2. the product with epilogue GELU_BIAS: h1 = GELU(z W1 + b1), (B*H*W, 4C);
+//   3. the product with epilogue BIAS_SCALE: out = (h1 W2 + b2) * layer_scale.
+// The weights are read K-major from nn.Linear's layout (w1t (4C, C), w2t
+// (C, 4C)), so neither is copied; column tiles are the fastest grid index,
+// so neighbouring blocks share their A rows in L2, and every block reads its
+// weight slab once for 128 rows (the weights, at most 9.4 MB in f32, stay in
+// the 50 MB L2).
 //
-// f32 keeps the earlier design's one fused launch (cnblock_f32): a block
-// owns M = 32 pixels of the flattened B*H*W axis (tiles may cross image
-// rows and images), takes their depthwise taps pixel by pixel
-// (dwconv_tile.cuh's at_pixel) and the same LayerNorm into shared memory,
-// then the hidden dimension in chunks of NH = 16 columns whose W1^T rows and
-// W2^T columns are staged by cp.async, ping-ponging between the two SIMT FMA
-// products (TF32 would miss 1e-5); neither z nor h1 reaches device memory.
-// Every block re-reads all of W1 and W2 from L2, which bounds it well above
-// the card's bound.
+// bf16 products: cnblock_gemm, one output tile of 128 rows x BN columns (BN
+// 256 where it divides N, else 128) a block: one producer thread keeps a
+// ring of hopper::STAGES stages full by TMA (128-byte swizzle), two
+// consumer warpgroups of 64 rows run wgmma m64nBNk16 into f32 registers, and
+// the epilogue adds the bias and applies GELU or the layer scale on those
+// registers, casts once and stores pairs of columns, masked by row and
+// column.  TMA fills zeros past every edge of a tensor: a depth that is not
+// a multiple of 64 (C = 96), a ragged last row tile, a column tile past N.
+//
+// f32 products: cnblock_gemm_f32, one 128 x 128 output tile a block on
+// simt_tile.cuh's register-tiled SIMT product (8 x 8 outputs a thread, a
+// 3-stage cp.async ring of 32-deep slices, two blocks an SM), the same
+// epilogues on the accumulators, f32 stores of 16 neighbouring columns a
+// half warp.  The design it replaces fused the whole branch into one launch
+// of 32 pixels a block, so every block re-read all of W1 and W2 (18.9 MB at
+// C = 768) through a 16-column hidden chunk with four barriers each, and
+// ran at 8.6% of the bound.
 
 #include "dwconv_tile.cuh"
+#include "simt_tile.cuh"
 
 namespace {
 
@@ -61,13 +67,8 @@ using namespace dwconv_tile;
 
 constexpr int M = 32;          // pixels per tile of the depthwise + LayerNorm stage
 constexpr int THREADS = 256;   // 8 warps
-constexpr int SW = 8;          // pixels per strip of the bf16 depthwise stage
-constexpr int PG = 4;          // pixel groups of the f32 depthwise stage
+constexpr int SW = 8;          // pixels per strip of the depthwise stage
 constexpr int MAX_C = 768;
-constexpr int NH = 16;         // hidden chunk of the f32 products
-constexpr int PAD = 4;         // row padding of its shared-memory tiles
-
-__host__ __device__ constexpr int round_up(int a, int b) { return (a + b - 1) / b * b; }
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -80,21 +81,7 @@ __device__ __forceinline__ float gelu(float v, int fast) {
   return 0.5f * v * (1.f + erff(v * 0.7071067811865476f));
 }
 
-// Raise KERNEL's dynamic shared-memory limit to `bytes`, on the first launch
-// that needs more than the device's last raise only (the flags are the
-// template's own, one set per kernel).
-template <auto KERNEL>
-cudaError_t raise_smem(int bytes) {
-  static int raised[64] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev >= 64) return cudaErrorInvalidDevice;
-  if (bytes <= raised[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess) raised[dev] = bytes;
-  return err;
-}
+using simt::raise_smem;
 
 // The LayerNorm over the channels of each of the first npix pixels of the
 // f32 tile S (M x C, shared memory), one warp a pixel: store(m, c, z)
@@ -122,7 +109,7 @@ __device__ __forceinline__ void layer_norm(const float* S, int npix, int C,
   }
 }
 
-// A tile of the bf16 depthwise + LayerNorm launch is M neighbouring pixels
+// A tile of the depthwise + LayerNorm launch is M neighbouring pixels
 // of one image row: tile t covers row t / chunks of the B*H rows, columns x0 =
 // (t % chunks) * M on, chunks = ceil(W / M); the first npix of its M pixels
 // exist, and they are consecutive in the flattened B*H*W axis from p0.
@@ -170,22 +157,34 @@ __device__ __forceinline__ void dw_rows(const T* __restrict__ x, const T* __rest
   }
 }
 
-// ---- bf16 launch 1: depthwise + LayerNorm, z to device memory -------------
+// ---- launch 1: depthwise + LayerNorm, z to device memory -----------------
 
+template <typename T>
 __global__ void __launch_bounds__(THREADS, 2)
-cnblock_dwln(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ dwk,
-             const __nv_bfloat16* __restrict__ dwb, const __nv_bfloat16* __restrict__ lns,
-             const __nv_bfloat16* __restrict__ lnb, __nv_bfloat16* __restrict__ z, int H, int W,
-             int C) {
+cnblock_dwln(const T* __restrict__ x, const T* __restrict__ dwk, const T* __restrict__ dwb,
+             const T* __restrict__ lns, const T* __restrict__ lnb, T* __restrict__ z, int H,
+             int W, int C) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* S = reinterpret_cast<float*>(smem);
   const Tile tl = tile_of(blockIdx.x, H, W);
-  __nv_bfloat16* zt = z + tl.p0 * C;
+  T* zt = z + tl.p0 * C;
   dw_rows(x, dwk, dwb, S, tl, H, W, C);
   __syncthreads();
   layer_norm(S, tl.npix, C, lns, lnb, [&](int m, int c, float v) {
-    if (m < tl.npix) zt[(size_t)m * C + c] = __float2bfloat16(v);
+    if (m < tl.npix) zt[(size_t)m * C + c] = from_f32<T>(v);
   });
+}
+
+template <typename T>
+cudaError_t launch_dwln(const void* x, const void* dwk, const void* dwb, const void* lns,
+                        const void* lnb, void* z, int B, int H, int W, int C, cudaStream_t s) {
+  const int tiles = B * H * ((W + M - 1) / M), bytes = M * C * 4;
+  const cudaError_t err = raise_smem<cnblock_dwln<T>>(bytes);
+  if (err != cudaSuccess) return err;
+  cnblock_dwln<T><<<tiles, THREADS, bytes, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dwk), static_cast<const T*>(dwb),
+      static_cast<const T*>(lns), static_cast<const T*>(lnb), static_cast<T*>(z), H, W, C);
+  return cudaGetLastError();
 }
 
 // ---- bf16 launches 2 and 3: TMA + wgmma product, fused epilogue -----------
@@ -312,223 +311,100 @@ cudaError_t launch_gemm(const void* a, const void* b, const void* bias, const vo
   return cudaGetLastError();
 }
 
-// ---- f32: one fused launch --------------------------------------------------
+// ---- f32 launches 2 and 3: SIMT product, fused epilogue --------------------
 
-// Shared-memory plan for C channels: S (f32, M x C) is dead once z is
-// formed, so the weight staging (Bs1: W1^T chunk, NH x b1ld; Bs2: W2^T
-// chunk, C x b2ld) reuses it; Z (M x zld) and H1 (M x hld) follow.
-struct Layout {
-  int Cp, zld, b1ld, b2ld, hld;     // depth rounded up to 16; row strides in elements
-  int bs2_off, z_off, h_off, total;  // byte offsets and size
-};
-
-__host__ __device__ Layout layout(int C) {
-  Layout L;
-  L.Cp = round_up(C, 16);
-  L.zld = L.b1ld = L.Cp + PAD;
-  L.b2ld = L.hld = NH + PAD;
-  L.bs2_off = NH * L.b1ld * 4;
-  const int stage = L.bs2_off + C * L.b2ld * 4, s_bytes = M * C * 4;
-  L.z_off = round_up(stage > s_bytes ? stage : s_bytes, 16);
-  L.h_off = L.z_off + round_up(M * L.zld * 4, 16);
-  L.total = L.h_off + round_up(M * L.hld * 4, 16);
-  return L;
-}
-
-// rows x cols of f32 from src (row stride src_ld) into dst (row stride
-// dst_ld), 16 bytes a thread with cp.async, as one commit group; columns
-// cols..cols_padded-1 become zeros (a source size of 0 fills zeros).  The
-// data is there after cp_async_wait and a barrier.
-__device__ __forceinline__ void stage_async(float* dst, int dst_ld, const float* __restrict__ src,
-                                            size_t src_ld, int rows, int cols,
-                                            int cols_padded) {
-  const int per_row = cols_padded / 4;
-  for (int idx = threadIdx.x; idx < rows * per_row; idx += THREADS) {
-    const int r = idx / per_row, k = (idx % per_row) * 4;
-    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst + r * dst_ld + k));
-    const int bytes = k < cols ? 16 : 0;
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-                 "l"(src + r * src_ld + (k < cols ? k : 0)), "r"(bytes));
+// out (Mrows, N) = epilogue(A (Mrows, K) B^T), B (N, K), all row-major f32;
+// block b computes the tile (b / grid_n, b % grid_n) of simt::BM x simt::BN.
+// bias (N); scale (N), read by BIAS_SCALE only.
+template <int EPI>
+__global__ void __launch_bounds__(simt::THREADS, simt::MIN_BLOCKS)
+cnblock_gemm_f32(const float* __restrict__ a, const float* __restrict__ b,
+                 const float* __restrict__ bias, const float* __restrict__ scale,
+                 float* __restrict__ out, int Mrows, int N, int K, int grid_n, int fast_gelu) {
+  using namespace simt;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int m0 = (blockIdx.x / grid_n) * BM, n0 = (blockIdx.x % grid_n) * BN;
+  float acc[TR][TC];
+  product<B_KMAJOR>(reinterpret_cast<float*>(smem_raw), a + (size_t)m0 * K, K, Mrows - m0,
+                    b + (size_t)n0 * K, K, N - n0, K, acc);
+  // a half warp stores 16 neighbouring columns of a row: two whole sectors
+  float bj[TC], sj[TC];
+#pragma unroll
+  for (int j = 0; j < TC; ++j) {
+    const int col = n0 + frag_col<B_KMAJOR>(j);
+    bj[j] = col < N ? bias[col] : 0.f;
+    sj[j] = EPI == BIAS_SCALE && col < N ? scale[col] : 1.f;
   }
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// wait until at most N of this thread's commit groups are still in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// The hidden dimension in chunks of NH: gemm1(j0) reads the chunk's W1^T
-// rows (Bs1) and writes h1; gemm2(j0) reads h1 and the chunk's W2^T columns
-// (Bs2).  The next chunk's Bs1 loads during gemm2, its Bs2 during the next
-// gemm1; an empty group keeps the count of groups in flight the same at the
-// last chunk.  Called after a barrier that ends every read of the S tile.
-template <typename Gemm1, typename Gemm2>
-__device__ __forceinline__ void hidden_chunks(const Layout& L, float* Bs1, float* Bs2,
-                                              const float* __restrict__ w1t,
-                                              const float* __restrict__ w2t, int C,
-                                              Gemm1&& gemm1, Gemm2&& gemm2) {
-  const int hidden = 4 * C;
-  auto load_w1 = [&](int j0) {
-    stage_async(Bs1, L.b1ld, w1t + (size_t)j0 * C, C, NH, C, L.Cp);
-  };
-  auto load_w2 = [&](int j0) { stage_async(Bs2, L.b2ld, w2t + j0, hidden, C, NH, NH); };
-  load_w1(0);
-  load_w2(0);
-  for (int j0 = 0; j0 < hidden; j0 += NH) {
-    const bool more = j0 + NH < hidden;
-    cp_async_wait<1>();            // this chunk's W1^T rows are in
-    __syncthreads();
-    gemm1(j0);
-    __syncthreads();               // h1 is complete and Bs1 free
-    if (more) load_w1(j0 + NH);
-    else asm volatile("cp.async.commit_group;\n" ::);
-    cp_async_wait<1>();            // this chunk's W2^T columns are in
-    __syncthreads();
-    gemm2(j0);
-    __syncthreads();               // Bs2 and h1 free
-    if (more) load_w2(j0 + NH);
-  }
-  cp_async_wait<0>();
-}
-
-// NT: the output's 8-column tiles per thread group, ceil(C / 64) rounded up
-// to an instantiated count
-template <int NT>
-__global__ void __launch_bounds__(THREADS, NT <= 3 ? 2 : 1)
-cnblock_f32(const float* __restrict__ x, const float* __restrict__ dwk,
-            const float* __restrict__ dwb, const float* __restrict__ lns,
-            const float* __restrict__ lnb, const float* __restrict__ w1t,
-            const float* __restrict__ b1, const float* __restrict__ w2t,
-            const float* __restrict__ b2, const float* __restrict__ ls, float* __restrict__ out,
-            int npix_total, int H, int W, int C, int fast_gelu) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int pix_img[M], pix_y[M], pix_x[M];
-  const Layout L = layout(C);
-  float* S = reinterpret_cast<float*>(smem);
-  float* Bs1 = reinterpret_cast<float*>(smem);
-  float* Bs2 = reinterpret_cast<float*>(smem + L.bs2_off);
-  float* Z = reinterpret_cast<float*>(smem + L.z_off);
-  float* H1 = reinterpret_cast<float*>(smem + L.h_off);
-
-  const int tid = threadIdx.x;
-  const int p0 = blockIdx.x * M, npix = min(M, npix_total - p0), HW = H * W;
-  if (tid < M) {
-    const int p = min(p0 + tid, npix_total - 1), r = p % HW;
-    pix_img[tid] = p / HW;
-    pix_y[tid] = r / W;
-    pix_x[tid] = r % W;
-  }
-  __syncthreads();
-
-  // 1. depthwise 7x7 + bias in f32 into S; each item's pixels unrolled so
-  // their loads overlap
-  for (int item = tid; item < C * PG; item += THREADS) {
-    const int c = item % C;
-    float wr[TAPS];
-    load_weights(dwk, C, c, false, wr);
-    const float bias = to_f32(dwb[c]);
-#pragma unroll 4
-    for (int i = 0; i < M / PG; ++i) {
-      const int m = item / C + i * PG;
-      S[m * C + c] = m < npix ? at_pixel(x + (size_t)pix_img[m] * HW * C, H, W, C, pix_y[m],
-                                         pix_x[m], c, wr) + bias
-                              : 0.f;
+#pragma unroll
+  for (int i = 0; i < TR; ++i) {
+    const int r = m0 + frag_row(i);
+    if (r >= Mrows) continue;
+    float* o = out + (size_t)r * N;
+#pragma unroll
+    for (int j = 0; j < TC; ++j) {
+      const int col = n0 + frag_col<B_KMAJOR>(j);
+      if (col >= N) continue;
+      const float v = acc[i][j] + bj[j];
+      o[col] = EPI == GELU_BIAS ? gelu(v, fast_gelu) : v * sj[j];
     }
   }
-  __syncthreads();
-
-  // 2. LayerNorm, z into shared memory
-  layer_norm(S, npix, C, lns, lnb, [&](int m, int c, float v) { Z[m * L.zld + c] = v; });
-  __syncthreads();   // S is dead from here: the weight staging overwrites it
-
-  // 3. the two products, hidden dimension in chunks of NH
-  constexpr int NJ = 8 * NT;              // output columns cl + 8 j of row `row`
-  const int row = tid / 8, cl = tid % 8;
-  float acc[NJ];
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) acc[j] = 0.f;
-
-  // h1 chunk (M x NH = 32 x 16): row tid / 8, columns 2 cl and 2 cl + 1
-  auto gemm1 = [&](int j0) {
-    float h0 = 0.f, h1 = 0.f;
-    const float* z = Z + row * L.zld;
-    const float* w0 = Bs1 + (2 * cl) * L.b1ld;
-    for (int k = 0; k < C; ++k) {
-      h0 = fmaf(z[k], w0[k], h0);
-      h1 = fmaf(z[k], w0[L.b1ld + k], h1);
-    }
-    H1[row * L.hld + 2 * cl] = gelu(h0 + b1[j0 + 2 * cl], fast_gelu);
-    H1[row * L.hld + 2 * cl + 1] = gelu(h1 + b1[j0 + 2 * cl + 1], fast_gelu);
-  };
-  auto gemm2 = [&](int) {
-#pragma unroll
-    for (int k = 0; k < NH; ++k) {
-      const float a = H1[row * L.hld + k];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int c = cl + 8 * j;
-        if (c < C) acc[j] = fmaf(a, Bs2[c * L.b2ld + k], acc[j]);
-      }
-    }
-  };
-  hidden_chunks(L, Bs1, Bs2, w1t, w2t, C, gemm1, gemm2);
-
-  if (row < npix)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int c = cl + 8 * j;
-      if (c < C) out[(size_t)(p0 + row) * C + c] = (acc[j] + b2[c]) * ls[c];
-    }
 }
 
-template <int NT>
-int launch_f32(const float* const* p, float* out, int npix, int H, int W, int C, int fast_gelu,
-               cudaStream_t s) {
-  const int bytes = layout(C).total;
-  const cudaError_t err = raise_smem<cnblock_f32<NT>>(bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cnblock_f32<NT><<<(npix + M - 1) / M, THREADS, bytes, s>>>(
-      p[0], p[1], p[2], p[3], p[4], p[5], p[6], p[7], p[8], p[9], out, npix, H, W, C, fast_gelu);
-  return static_cast<int>(cudaGetLastError());
+template <int EPI>
+cudaError_t launch_gemm_f32(const void* a, const void* b, const void* bias, const void* scale,
+                            void* out, int Mrows, int N, int K, int grid_m, int grid_n,
+                            int fast_gelu, cudaStream_t s) {
+  constexpr int BYTES = simt::Ring<simt::B_KMAJOR>::BYTES;
+  const cudaError_t err = raise_smem<cnblock_gemm_f32<EPI>>(BYTES);
+  if (err != cudaSuccess) return err;
+  cnblock_gemm_f32<EPI><<<grid_m * grid_n, simt::THREADS, BYTES, s>>>(
+      static_cast<const float*>(a), static_cast<const float*>(b),
+      static_cast<const float*>(bias), static_cast<const float*>(scale),
+      static_cast<float*>(out), Mrows, N, K, grid_n, fast_gelu);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// f32, one launch.  params: 10 contiguous float32 device pointers: x (B, H,
-// W, C), dw_kernel (7, 7, C), dw_bias, ln_scale, ln_bias (C), w1t (4C, C),
-// b1 (4C), w2t (C, 4C), b2, layer_scale (C).  C a positive multiple of 8,
-// at most 768.  Launches on `stream`; returns the CUDA error code so a
-// refused launch is reported to the caller.
-int pipnet_cnblock_f32(const void* const* params, void* out, int B, int H, int W, int C,
-                       int fast_gelu, void* stream) {
-  if (C <= 0 || C % 8 != 0 || C > MAX_C) return static_cast<int>(cudaErrorInvalidValue);
+// launch 1: z (B*H*W, C) from x (B, H, W, C), dw_kernel (7, 7, C) and the
+// vectors dw_bias, ln_scale, ln_bias (C); all contiguous, dtype 0 = float32,
+// 1 = bfloat16.  C a positive multiple of 8, at most 768.  Launches on
+// `stream`; returns the CUDA error code so a refused launch is reported to
+// the caller.
+int pipnet_cnblock_dwln(const void* x, const void* dwk, const void* dwb, const void* lns,
+                        const void* lnb, void* z, int B, int H, int W, int C, int dtype,
+                        void* stream) {
+  if (C <= 0 || C % 8 != 0 || C > MAX_C || (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* const* p = reinterpret_cast<const float* const*>(params);
-  float* o = static_cast<float*>(out);
-  const int npix = B * H * W, need = (C + 63) / 64;
-  if (need <= 2) return launch_f32<2>(p, o, npix, H, W, C, fast_gelu, s);
-  if (need <= 3) return launch_f32<3>(p, o, npix, H, W, C, fast_gelu, s);
-  if (need <= 6) return launch_f32<6>(p, o, npix, H, W, C, fast_gelu, s);
-  return launch_f32<12>(p, o, npix, H, W, C, fast_gelu, s);
+  return static_cast<int>(dtype == 0
+                              ? launch_dwln<float>(x, dwk, dwb, lns, lnb, z, B, H, W, C, s)
+                              : launch_dwln<__nv_bfloat16>(x, dwk, dwb, lns, lnb, z, B, H, W,
+                                                           C, s));
 }
 
-// bf16 launch 1: z (B*H*W, C) from x (B, H, W, C), dw_kernel (7, 7, C) and
-// the vectors dw_bias, ln_scale, ln_bias (C); all contiguous bfloat16.
-int pipnet_cnblock_dwln(const void* x, const void* dwk, const void* dwb, const void* lns,
-                        const void* lnb, void* z, int B, int H, int W, int C, void* stream) {
-  if (C <= 0 || C % 8 != 0 || C > MAX_C) return static_cast<int>(cudaErrorInvalidValue);
-  using T = __nv_bfloat16;
-  const int tiles = B * H * ((W + M - 1) / M), bytes = M * C * 4;
-  const cudaError_t err = raise_smem<cnblock_dwln>(bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cnblock_dwln<<<tiles, THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dwk), static_cast<const T*>(dwb),
-      static_cast<const T*>(lns), static_cast<const T*>(lnb), static_cast<T*>(z), H, W, C);
-  return static_cast<int>(cudaGetLastError());
+// f32 launches 2 and 3: out (Mrows, N) = epilogue(a (Mrows, K) b^T) with b
+// (N, K), bias (N) and, for epilogue 1, scale (N), epilogues as below.  All
+// contiguous float32, a and b 16-byte aligned, K and N multiples of 4
+// (16-byte cp.async rows).  The plan (ops/cnblock.py::gemm_plan_f32):
+// grid_m x grid_n tiles of 128 x 128 covering the output.
+int pipnet_cnblock_gemm_f32(const void* a, const void* b, const void* bias, const void* scale,
+                            void* out, int Mrows, int N, int K, int grid_m, int grid_n,
+                            int epilogue, int fast_gelu, void* stream) {
+  if (Mrows <= 0 || N <= 0 || K <= 0 || N % 4 != 0 || K % 4 != 0 ||
+      (long long)grid_m * simt::BM < Mrows || (long long)grid_n * simt::BN < N ||
+      (long long)grid_m * grid_n > 0x7FFFFFFF ||
+      (epilogue != GELU_BIAS && epilogue != BIAS_SCALE))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      epilogue == GELU_BIAS
+          ? launch_gemm_f32<GELU_BIAS>(a, b, bias, scale, out, Mrows, N, K, grid_m, grid_n,
+                                       fast_gelu, s)
+          : launch_gemm_f32<BIAS_SCALE>(a, b, bias, scale, out, Mrows, N, K, grid_m, grid_n,
+                                        fast_gelu, s));
 }
 
 // bf16 launches 2 and 3: out (Mrows, N) = epilogue(a (Mrows, K) b^T) with b

@@ -41,82 +41,122 @@
 // every 32-deep step waited on, one block per (120 columns, image) and a
 // serial shared-memory softmax ran 27x this bound.
 //
-// f32 keeps the SIMT tile (head_tile namespace): one block per (column group
-// <= 128 columns, image), FMA products (TF32 would miss 1e-5), the softmax in
-// shared memory.
+// f32 design (simt_tile.cuh, shared with K4's f32 products).  The product
+// runs on the SIMT FMA units (TF32 would miss 1e-5): at the flagship serving
+// shape (B=8) 31.4 GFLOP, 0.47 ms at 67 TFLOP/s; operations bound it.  One
+// block per (column group <= 128 columns, row tile of 128 of the B * HW patch
+// rows), column groups the fastest grid index (the blocks of one row tile
+// share its F rows in L2; K, 11.8 MB at the flagship, stays in L2), so a
+// batch of 8 and flat PIP-Net's one wide node still fill the 132 SMs, and a
+// tile may hold the last rows of one image and the first of the next (at
+// B=8, 43 row tiles where tiles of one image would take 48).  Each block runs
+// the register-tiled product (8 x 8 outputs a thread, a 3-stage cp.async
+// ring of 32-deep slices of F rows and K columns, K read along its columns
+// from a 16-byte aligned start c0 & ~3: the f32 plan's groups fit 128
+// columns from there), writes z / tau into a shared-memory tile over the
+// ring, takes the per-node softmax there (head_tile's softmax_rows), stores
+// pf, and meets the other row tiles' column max in pooled by an atomicMax
+// on the float's bits, one for each image its rows hold (pf >= 0; pooled is
+// zeroed before the launches, and the max does not depend on the order).
+// Two blocks an SM, so one block's softmax overlaps the other's product.
+// What bounds it now: the tile's 55-60% of the f32 rate and, at B=8, 1376
+// blocks in 5.2 waves of 264 (PERF.md).  The design it replaces ran one
+// block per (column group, image) over all 676 rows, with synchronous
+// staging and a 4 x 8 micro-tile, at 5-31% of its bound.
 //
 // Nodes wider than the tile (flat PIP-Net's 768 prototypes) come as parts
 // (head_tile.cuh): a STATS launch over the parts writes each row's (max, sum)
-// per part, then a FINAL launch recomputes the product and writes the
-// node-wide softmax, its column max and pf; groups of whole nodes take the
-// WHOLE launch (the design above).  The product of the parts is computed twice
-// (at the flat shape, B=128, 2 x 102 GFLOP); a design that keeps a row's
-// node in registers cannot hold 768 f32 accumulators a row.
+// per part, then a FINAL launch writes the node-wide softmax, its column max
+// and pf; groups of whole nodes take the WHOLE launch (the designs above).
+// In bf16 FINAL recomputes the product of the parts (at the flat shape,
+// B=128, 2 x 102 GFLOP): a design that keeps a row's node in registers
+// cannot hold 768 f32 accumulators a row.  In f32 STATS stores z itself in
+// pf (f32 too), and FINAL reads it back instead of recomputing the product:
+// one 8.3 MB pass at B=8 in place of a second 6.4 GFLOP product.
 
 #include "head_tile.cuh"
+#include "simt_tile.cuh"
 
 namespace {
 
 // K1's wgmma width: two column groups of up to 128 columns side by side
 using K1Plan = hopper::Plan<2 * hopper::HALF, 1>;
 
-// groups: G records of GF ints (head_tile.cuh); width 0 marks the padded
-// tail.  STATS and FINAL run over parts of wide nodes, with their (max, sum)
-// a row and part in stats (B * HW, G).
+// groups: G records of GF ints (head_tile.cuh), each fitting simt::BN
+// columns from c0 & ~3; width 0 marks the padded tail.  Block (g, rt): group
+// g, rows [rt * BM, (rt + 1) * BM) of the B * HW patch rows.  STATS and
+// FINAL run over parts of wide nodes, with their (max, sum) a row and part
+// in stats (B * HW, G); STATS stores z in pf, FINAL reads it there.  pooled
+// must be zero before the first launch.
 template <int MODE>
-__global__ void __launch_bounds__(head_tile::THREADS)
+__global__ void __launch_bounds__(simt::THREADS, simt::MIN_BLOCKS)
 fused_head_f32(const float* __restrict__ F, const float* __restrict__ K,
                const uint8_t* __restrict__ valid, const int* __restrict__ groups,
                float2* __restrict__ stats, float* __restrict__ pf, float* __restrict__ pooled,
-               int HW, int D, int P, int G, float tau) {
+               int rows_total, int HW, int D, int P, int G, float tau) {
   using namespace head_tile;
-  // the z tile aliases the product's staging tiles: they are dead by then
-  __shared__ __align__(16) unsigned char smem[STAGE_BYTES > Z_BYTES ? STAGE_BYTES : Z_BYTES];
+  static_assert(THREADS == simt::THREADS && TN == simt::BN &&
+                    simt::BM * ZLD * 4 <= simt::Ring<simt::B_NMAJOR>::BYTES,
+                "the z tile lies over the ring");
+  // the z tile (BM x ZLD) lies over the product's ring: dead by then
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ uint8_t valid_s[TN];
-  float* Z = reinterpret_cast<float*>(smem);
+  float* Z = reinterpret_cast<float*>(smem_raw);
 
-  const int tid = threadIdx.x, g = blockIdx.x;
+  const int tid = threadIdx.x, g = blockIdx.x, r0 = blockIdx.y * simt::BM;
   const int* rec = groups + GF * g;
   const int c0 = rec[0], ncols = rec[1];
   const int width = MODE == WHOLE ? rec[2] : rec[2] ? ncols : 0;   // a part: one segment
-  const int b = blockIdx.y;
-  float* pfb = pf + (size_t)b * HW * P;
+  const int rows = min(simt::BM, rows_total - r0);
+  float* pfb = pf + (size_t)r0 * P + c0;   // the block's first pf value
 
-  if (width == 0) {   // padded tail beyond the last bucket
+  if (width == 0) {   // padded tail beyond the last bucket (pooled is already 0)
     if (MODE == STATS) return;
-    for (int idx = tid; idx < HW * ncols; idx += THREADS)
-      pfb[(size_t)(idx / ncols) * P + c0 + idx % ncols] = 0.f;
-    if (tid < ncols) pooled[(size_t)b * P + c0 + tid] = 0.f;
+    for (int idx = tid; idx < rows * ncols; idx += THREADS)
+      pfb[(size_t)(idx / ncols) * P + idx % ncols] = 0.f;
     return;
   }
 
   if (tid < TN) valid_s[tid] = tid < ncols ? valid[c0 + tid] : 0;
-  const int nodes = ncols / width;
-  const float* Fb = F + (size_t)b * HW * D;
-  float colmax = 0.f;   // pf >= 0, and every column sees at least one row
-
-  for (int r0 = 0; r0 < HW; r0 += TM) {
-    const int rows = min(TM, HW - r0);
-    z_tile(Fb, K, r0, HW, D, P, c0, ncols, tau, smem, Z);
-    __syncthreads();
-
-    if (MODE == WHOLE)
-      softmax_rows(Z, valid_s, rows, nodes, width);
-    else
-      wide_rows<MODE>(Z, valid_s, rows, ncols, stats + ((size_t)b * HW + r0) * G, G, g,
-                      g - rec[4], rec[5]);
-    __syncthreads();
-    if (MODE == STATS) continue;   // the next tile's staging overwrites Z after this barrier
-
-    for (int idx = tid; idx < rows * ncols; idx += THREADS) {
-      const int r = idx / ncols, c = idx % ncols;
-      pfb[(size_t)(r0 + r) * P + c0 + c] = Z[r * ZLD + c];
-    }
-    if (tid < ncols)
-      for (int r = 0; r < rows; ++r) colmax = fmaxf(colmax, Z[r * ZLD + tid]);
-    __syncthreads();   // Z is overwritten by the next tile's staging
+  const int shift = c0 & 3;   // the group's first column in the tile
+  float* Zg = Z + shift;
+  if (MODE == FINAL) {        // z, as STATS stored it
+    for (int idx = tid; idx < rows * ncols; idx += THREADS)
+      Zg[(idx / ncols) * ZLD + idx % ncols] = pfb[(size_t)(idx / ncols) * P + idx % ncols];
+  } else {
+    float acc[simt::TR][simt::TC];
+    simt::product<simt::B_NMAJOR>(reinterpret_cast<float*>(smem_raw),
+                                  F + (size_t)r0 * D, D, rows, K + (c0 - shift), P,
+                                  P - (c0 - shift), D, acc);
+#pragma unroll
+    for (int i = 0; i < simt::TR; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float* a = acc[i] + 4 * h;
+        float* z = Z + simt::frag_row(i) * ZLD + simt::frag_col<simt::B_NMAJOR>(4 * h);
+        *reinterpret_cast<float4*>(z) = make_float4(a[0] / tau, a[1] / tau, a[2] / tau,
+                                                    a[3] / tau);
+      }
   }
-  if (MODE != STATS && tid < ncols) pooled[(size_t)b * P + c0 + tid] = colmax;
+  __syncthreads();
+
+  if (MODE == WHOLE)
+    softmax_rows(Zg, valid_s, rows, ncols / width, width);
+  else
+    wide_rows<MODE>(Zg, valid_s, rows, ncols, stats + (size_t)r0 * G, G, g,
+                    g - rec[4], rec[5]);
+  __syncthreads();
+
+  // STATS: z for the FINAL launch; otherwise pf and the column max
+  for (int idx = tid; idx < rows * ncols; idx += THREADS)
+    pfb[(size_t)(idx / ncols) * P + idx % ncols] = Zg[(idx / ncols) * ZLD + idx % ncols];
+  if (MODE != STATS && tid < ncols)
+    for (int r = 0; r < rows;) {   // the tile's rows of each image
+      const int img = (r0 + r) / HW, end = min(rows, (img + 1) * HW - r0);
+      float m = 0.f;
+      for (; r < end; ++r) m = fmaxf(m, Zg[r * ZLD + tid]);
+      atomicMax(reinterpret_cast<int*>(pooled) + (size_t)img * P + c0 + tid, __float_as_int(m));
+    }
 }
 
 // groups: G records of GF ints (head_tile.cuh), each inside a 128-column
@@ -263,10 +303,14 @@ template <int MODE>
 cudaError_t launch_f32(const void* features, const void* kernel, const void* valid,
                        const int* groups, int G, float2* stats, void* pf, void* pooled, int B,
                        int HW, int D, int P, float tau, cudaStream_t s) {
-  fused_head_f32<MODE><<<dim3(G, B), head_tile::THREADS, 0, s>>>(
+  constexpr int BYTES = simt::Ring<simt::B_NMAJOR>::BYTES;
+  const cudaError_t err = simt::raise_smem<fused_head_f32<MODE>>(BYTES);
+  if (err != cudaSuccess) return err;
+  const int rows = B * HW;
+  fused_head_f32<MODE><<<dim3(G, (rows + simt::BM - 1) / simt::BM), simt::THREADS, BYTES, s>>>(
       static_cast<const float*>(features), static_cast<const float*>(kernel),
       static_cast<const uint8_t*>(valid), groups, stats, static_cast<float*>(pf),
-      static_cast<float*>(pooled), HW, D, P, G, tau);
+      static_cast<float*>(pooled), rows, HW, D, P, G, tau);
   return cudaGetLastError();
 }
 
@@ -293,7 +337,8 @@ extern "C" {
 // parts of wide nodes, maybe the tail) are plans of GF ints a group
 // (ops/fused_head.py::split_plan); either may be empty.  stats: (B * HW,
 // Gp) float2 scratch for the parts' row statistics.  dtype: 0 = float32
-// (groups of <= 128 columns), 1 = bfloat16 (groups of <= 16 nodes, each
+// (groups fitting 128 columns from c0 & ~3; D and P multiples of 4, 16-byte
+// aligned features and kernel, for cp.async), 1 = bfloat16 (groups of <= 16 nodes, each
 // inside a 128-column tile that starts on a multiple of 8 columns; D and P
 // multiples of 8, 16-byte aligned features and kernel, for TMA).  Launches
 // on `stream` (STATS, FINAL over the parts, then WHOLE); returns the CUDA
@@ -308,7 +353,13 @@ int pipnet_fused_head_forward(const void* features, const void* kernel, const vo
   float2* st = static_cast<float2*>(stats);
   cudaError_t err = cudaSuccess;
   if (dtype == 0) {
-    if (Gp) err = launch_f32<STATS>(features, kernel, valid, gp, Gp, st, pf, pooled, B, HW, D, P, tau, s);
+    // the row tiles meet in pooled by atomicMax over zeros
+    if (D % 4 || P % 4 || reinterpret_cast<uintptr_t>(features) % 16 ||
+        reinterpret_cast<uintptr_t>(kernel) % 16 || HW <= 0 ||
+        (long long)B * HW > 65535LL * simt::BM)
+      return static_cast<int>(cudaErrorInvalidValue);
+    err = cudaMemsetAsync(pooled, 0, (size_t)B * P * sizeof(float), s);
+    if (Gp && err == cudaSuccess) err = launch_f32<STATS>(features, kernel, valid, gp, Gp, st, pf, pooled, B, HW, D, P, tau, s);
     if (Gp && err == cudaSuccess)
       err = launch_f32<FINAL>(features, kernel, valid, gp, Gp, st, pf, pooled, B, HW, D, P, tau, s);
     if (Gw && err == cudaSuccess)

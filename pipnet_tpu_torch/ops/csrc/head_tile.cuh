@@ -11,8 +11,10 @@
 // 1. head_tile: the f32 SIMT tile.  One block owns one column group (whole
 //    nodes of one bucket, <= TN columns) of one image and loops over the
 //    rows in tiles of TM; the product is SIMT FMA (TF32 would miss the f32
-//    tolerance of 1e-5) and the softmax runs in shared memory.  The f32
-//    instantiations of K1 and K2 use it.
+//    tolerance of 1e-5) and the softmax runs in shared memory.  K2's f32
+//    instantiation runs all of it; K1's f32 kernel runs its product on
+//    simt_tile.cuh's tile and takes the softmax steps from here
+//    (softmax_rows, wide_rows, on a z tile of TN columns and ZLD a row).
 //
 // 2. hopper: the bf16 core for Hopper (sm_90a).  At the flagship shapes the
 //    bf16 head is bound by its product (K1 at B=128: 502 GFLOP, 0.51 ms at

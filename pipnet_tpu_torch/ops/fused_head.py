@@ -18,12 +18,17 @@ persistent block per SM, TMA tile loads into a ring of shared-memory stages,
 ``wgmma`` products of 128 rows by two 128-column groups, and the per-node
 softmax, column max and pf stores on the accumulator registers; the
 epilogue, which does not overlap the product, is what holds it above its
-bound (``PERF.md``).  f32 keeps a SIMT tile (TF32 would miss 1e-5).  Each
-kernel plans its own column groups (``column_groups``, ``head_plan``):
-whole nodes of one bucket, so a node's softmax never crosses groups, and
-the max-pool needs no global atomics.  One launch covers every bucket of
-the tree.  K1b is bound by bytes (it reads pf and g_pf and writes dz): it
-plans its own groups (``backward_plan``: whole nodes in a window of 16-byte
+bound (``PERF.md``).  In f32 the product runs on the SIMT FMA units (TF32
+would miss 1e-5; 31.4 GFLOP at serving, 0.47 ms at 67 TFLOP/s): one block
+per (column group, row tile of ``F32_ROW_TILE`` of the B * H * W patch
+rows) runs the register-tiled, ``cp.async``-pipelined product it shares
+with K4 (``csrc/simt_tile.cuh``), the per-node softmax on a shared-memory z
+tile, and meets the other row tiles' column max by an ``atomicMax`` on
+pooled, one for each image the tile's rows hold.  Each kernel plans its
+own column groups (``column_groups``, ``head_plan``): whole nodes of one
+bucket, so a node's softmax never crosses groups.  One launch covers every
+bucket of the tree.  K1b is bound by bytes (it reads pf and g_pf and
+writes dz): it plans its own groups (``backward_plan``: whole nodes in a window of 16-byte
 vectors, ending on 32-byte sectors where they can), keeps a block's pf slice
 in shared memory so pf is read once, and moves g_pf and dz as 16-byte
 vectors; see its source.
@@ -60,13 +65,17 @@ from ..tree.compile import TreeArrays
 from .build import check_cuda, kernel_entry
 from .segment import _node_onehot, segment_softmax, segment_sum_to_nodes, tree_tensor
 
-# column plans: the f32 SIMT tile of K1 and K2 (TN in head_tile.cuh),
-# and the bf16 kernels' tile of one column group (HALF in head_tile.cuh; K1
-# runs two groups side by side in one wgmma of 256 columns, K2 one group
-# per view), which TMA starts on a multiple of 8 columns (16 bytes); a bf16
-# group holds at most MAX_GROUP_NODES nodes (NMAX, the size of the kernels'
-# per-node tables)
+# column plans: the f32 tile of K1 and K2 (TN in head_tile.cuh, BN in
+# simt_tile.cuh), which K1 loads from a multiple of 4 columns (16-byte
+# cp.async), and the bf16 kernels' tile of one column group (HALF in
+# head_tile.cuh; K1 runs two groups side by side in one wgmma of 256
+# columns, K2 one group per view), which TMA starts on a multiple of 8
+# columns (16 bytes); a bf16 group holds at most MAX_GROUP_NODES nodes
+# (NMAX, the size of the kernels' per-node tables).  K1's f32 kernel takes
+# row tiles of F32_ROW_TILE of the B * H * W patch rows (BM in simt_tile.cuh).
 SIMT_TILE_COLS = 128
+SIMT_ALIGN_COLS = 4
+F32_ROW_TILE = 128
 BF16_TILE_COLS = 128
 MAX_GROUP_NODES = 16
 TMA_ALIGN_COLS = 8
@@ -209,10 +218,11 @@ def plan_launches(whole: Optional[torch.Tensor], wide: Optional[torch.Tensor],
 
 def _head_tile(dtype: torch.dtype) -> Tuple[int, Optional[int], int]:
     """(tile_cols, max_nodes, align) of the head kernels' column plan in
-    ``dtype``: the SIMT tile for f32; for bf16 the 128-column tile, at most
-    MAX_GROUP_NODES nodes a group, tiles on 8-column boundaries."""
+    ``dtype``: the SIMT tile for f32, tiles on 4-column boundaries; for bf16
+    the 128-column tile, at most MAX_GROUP_NODES nodes a group, tiles on
+    8-column boundaries."""
     if dtype == torch.float32:
-        return SIMT_TILE_COLS, None, 1
+        return SIMT_TILE_COLS, None, SIMT_ALIGN_COLS
     return BF16_TILE_COLS, MAX_GROUP_NODES, TMA_ALIGN_COLS
 
 
@@ -238,7 +248,7 @@ def fused_head_reference(features: torch.Tensor, kernel: torch.Tensor,
 
 
 def check_head_inputs(features: torch.Tensor, kernel: torch.Tensor, tree: TreeArrays,
-                      what: str = "fused head") -> None:
+                      what: str = "fused head", aligned_f32: bool = False) -> None:
     """Raise unless features (B, H, W, D) and kernel (D, P) are what the head
     kernels take: P the tree's padded width, one device, float32 or
     bfloat16 in both, contiguous."""
@@ -256,12 +266,14 @@ def check_head_inputs(features: torch.Tensor, kernel: torch.Tensor, tree: TreeAr
                         f"{kernel.dtype}")
     if not (features.is_contiguous() and kernel.is_contiguous()):
         raise ValueError(f"{what} needs contiguous features and kernel")
-    if features.dtype == torch.bfloat16 and features.device.type == "cuda":
-        # the bf16 kernels read both by TMA: row strides and base addresses
-        # must be multiples of 16 bytes
-        if D % 8 or P % 8 or features.data_ptr() % 16 or kernel.data_ptr() % 16:
-            raise ValueError(f"{what} on the card needs D and P multiples of 8 and "
-                             f"16-byte aligned bf16 features and kernel, got D={D}, P={P}")
+    if features.device.type == "cuda" and (features.dtype == torch.bfloat16 or aligned_f32):
+        # the bf16 kernels read both by TMA, K1's f32 kernel by 16-byte
+        # cp.async: row strides and base addresses must be multiples of 16 bytes
+        vec = 16 // features.element_size()
+        if D % vec or P % vec or features.data_ptr() % 16 or kernel.data_ptr() % 16:
+            raise ValueError(f"{what} on the card needs D and P multiples of {vec} and "
+                             f"16-byte aligned {features.dtype} features and kernel, got "
+                             f"D={D}, P={P}")
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -274,7 +286,7 @@ def _rows(t: Optional[torch.Tensor]) -> int:
 
 def _launch(features: torch.Tensor, kernel: torch.Tensor, tree: TreeArrays,
             tau: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    check_head_inputs(features, kernel, tree)
+    check_head_inputs(features, kernel, tree, aligned_f32=True)
     B, H, W, D = features.shape
     P = tree.num_protos_padded
     dev = features.device

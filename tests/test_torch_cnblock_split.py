@@ -49,18 +49,21 @@ def test_pieces_compose_to_the_plain_branch_bit_for_bit(dtype, fast_gelu):
 @pytest.mark.parametrize("fast_gelu", [True, False])
 def test_cpu_parts_are_their_plain_pieces_and_launch_nothing(fast_gelu):
     """On CPU tensors each launch's wrapper is its plain piece, and the
-    branch is their composition; no kernel launch is counted."""
+    branch is their composition, in bf16 and in f32 (both dtypes run the
+    three launches on the card); no kernel launch is counted."""
     from pipnet_tpu_torch.ops import cnblock as cb
-    args = [torch.from_numpy(a).bfloat16() for a in _inputs(1, 6, 7, 16, seed=12)]
-    x, dwk, dwb, lns, lnb, w1, b1, w2, b2, ls = args
-    before = cb.cnblock_branch.launches
-    z = cb.cnblock_dwln(x, dwk, dwb, lns, lnb)
-    h1 = cb.cnblock_up(z, w1, b1, fast_gelu=fast_gelu)
-    out = cb.cnblock_down(h1, w2, b2, ls)
-    assert torch.equal(z, cb.cnblock_dwln_reference(x, dwk, dwb, lns, lnb))
-    assert torch.equal(h1, cb.cnblock_up_reference(z, w1, b1, fast_gelu=fast_gelu))
-    assert torch.equal(out, cb.cnblock_branch(*args, fast_gelu=fast_gelu))
-    assert cb.cnblock_branch.launches == before
+    for dtype in (torch.bfloat16, torch.float32):
+        args = [torch.from_numpy(a).to(dtype) for a in _inputs(1, 6, 7, 16, seed=12)]
+        x, dwk, dwb, lns, lnb, w1, b1, w2, b2, ls = args
+        before = cb.cnblock_branch.launches
+        z = cb.cnblock_dwln(x, dwk, dwb, lns, lnb)
+        h1 = cb.cnblock_up(z, w1, b1, fast_gelu=fast_gelu)
+        out = cb.cnblock_down(h1, w2, b2, ls)
+        assert z.dtype == h1.dtype == out.dtype == dtype
+        assert torch.equal(z, cb.cnblock_dwln_reference(x, dwk, dwb, lns, lnb))
+        assert torch.equal(h1, cb.cnblock_up_reference(z, w1, b1, fast_gelu=fast_gelu))
+        assert torch.equal(out, cb.cnblock_branch(*args, fast_gelu=fast_gelu))
+        assert cb.cnblock_branch.launches == before
 
 
 @pytest.mark.parametrize("fast_gelu", [True, False])
@@ -108,3 +111,58 @@ def test_gemm_plan_at_the_stage_shapes():
     assert tuple(gemm_plan(128 * 26 * 26, 3072, 768)) == (256, 676, 12, 12)
     assert tuple(gemm_plan(128 * 26 * 26, 768, 3072)) == (256, 676, 3, 48)
     assert tuple(gemm_plan(8 * 26 * 26, 768, 3072)) == (256, 43, 3, 48)
+
+
+# the stage maps of ConvNeXt-tiny-26 at 224^2: (H, W, C)
+STAGE_MAPS = [(56, 56, 96), (28, 28, 192), (27, 27, 384), (26, 26, 768)]
+
+
+def _covered_once(starts, tile, extent):
+    """Every index of [0, extent) lies in exactly one [s, s + tile) of
+    ``starts``, and no tile lies wholly outside."""
+    count = np.zeros(extent, np.int32)
+    for s in starts:
+        assert 0 <= s < extent
+        count[s:s + tile] += 1
+    return bool((count == 1).all())
+
+
+@pytest.mark.parametrize("product", ["up", "down"])
+@pytest.mark.parametrize("batch", [8, 128])
+@pytest.mark.parametrize("stage", range(4))
+def test_gemm_plan_f32_covers_every_output_once(stage, batch, product):
+    """The f32 product's plan at every stage map at the serving and the
+    training batch: block b computes the 128 x 128 tile (b // grid_n, b %
+    grid_n) (``csrc/cnblock.cu::cnblock_gemm_f32``), so column tiles are
+    the fastest grid index; the tiles cover every output element exactly
+    once, the 32-deep stages cover the depth, and the grid fits a launch."""
+    from pipnet_tpu_torch.ops.cnblock import (F32_GEMM_COLS, F32_GEMM_DEPTH, F32_GEMM_ROWS,
+                                              gemm_plan_f32)
+    H, W, C = STAGE_MAPS[stage]
+    M = batch * H * W
+    N, K = (4 * C, C) if product == "up" else (C, 4 * C)
+    plan = gemm_plan_f32(M, N, K)
+    assert plan.bn == F32_GEMM_COLS == 128 and F32_GEMM_ROWS == 128
+    blocks = np.arange(plan.grid_m * plan.grid_n)
+    rows, cols = blocks // plan.grid_n * F32_GEMM_ROWS, blocks % plan.grid_n * plan.bn
+    assert (cols[:plan.grid_n] == np.arange(plan.grid_n) * plan.bn).all()
+    assert (rows[:plan.grid_n] == 0).all()
+    # the tiles are the grid's product: rows and columns each covered once
+    assert _covered_once(rows[::plan.grid_n], F32_GEMM_ROWS, M)
+    assert _covered_once(cols[:plan.grid_n], plan.bn, N)
+    assert len(set(zip(rows.tolist(), cols.tolist()))) == len(blocks)
+    assert (plan.k_steps - 1) * F32_GEMM_DEPTH < K <= plan.k_steps * F32_GEMM_DEPTH
+    assert len(blocks) < 2 ** 31 and K % 4 == 0 and N % 4 == 0
+
+
+@pytest.mark.parametrize("M,N,K", [(198, 160, 40), (198, 40, 160), (35, 3072, 768),
+                                   (1, 96, 384), (129, 128, 32)])
+def test_gemm_plan_f32_at_ragged_shapes(M, N, K):
+    """The ragged shapes of the card tests (C = 40 over 2 x 9 x 11 pixels,
+    one partial tile of the widest stage, a single row, one row past a
+    tile): the plan still covers the output once with no empty tile."""
+    from pipnet_tpu_torch.ops.cnblock import gemm_plan_f32
+    plan = gemm_plan_f32(M, N, K)
+    assert (plan.grid_m - 1) * 128 < M <= plan.grid_m * 128
+    assert (plan.grid_n - 1) * 128 < N <= plan.grid_n * 128
+    assert (plan.k_steps - 1) * 32 < K <= plan.k_steps * 32

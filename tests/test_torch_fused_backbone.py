@@ -36,10 +36,11 @@ def _fused(cfg):
                                                               use_pallas_backbone=True))
 
 
-def _models(image_size=48, batch_size=4):
+def _models(image_size=48, batch_size=4, **model):
     from pipnet_tpu.models import build_pipnet as jax_build
     from pipnet_tpu_torch.models import build_pipnet, params_from_jax, random_jax_params
-    jcfg, tcfg = map(_fused, flagship_configs(image_size=image_size, batch_size=batch_size))
+    jcfg, tcfg = [dataclasses.replace(c, model=dataclasses.replace(c.model, **model)) for c in
+                  map(_fused, flagship_configs(image_size=image_size, batch_size=batch_size))]
     rj, rt = roots_from_newick(MULTI_NEWICK)
     with small_backbones():
         mj, tj = jax_build(rj, jcfg.model, weighted=True)
@@ -66,6 +67,28 @@ def test_fused_pipnet_forward_matches_jax(interpret_blocks, key):
     with torch.no_grad():
         got = mt(torch.from_numpy(xs), inference=True)[key]
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("fast_gelu", [True, False])
+def test_f32_kernel_configuration_forward_matches_jax(interpret_blocks, fast_gelu):
+    """The f32 kernel configuration (``compute_dtype`` float32 with
+    ``use_pallas_head`` and ``use_pallas_backbone`` on, the configuration
+    phase 18 of ``chip_smoke.py`` serves and trains on the card) of the
+    small model, inference forward: the JAX package's head runs its Pallas
+    kernel and every block its Pallas block kernel in interpret mode, the
+    port K1's and K4's plain versions on the CPU.  features, pf, pooled and
+    logits to 1e-5, with the flagship's tanh GELU and with erf."""
+    _, _, mj, _, mt, _, params = _models(image_size=64, use_pallas_head=True,
+                                         fast_gelu=fast_gelu)
+    xs = np.random.default_rng(9).standard_normal((2, 64, 64, 3)).astype(np.float32)
+    with small_backbones():
+        want = mj.apply({"params": to_jax(params)}, jnp.asarray(xs), inference=True)
+    with torch.no_grad():
+        got = mt(torch.from_numpy(xs), inference=True)
+    for key in ("features", "proto_features", "pooled", "logits"):
+        assert got[key].dtype == torch.float32
+        np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]), atol=1e-5, rtol=0,
+                                   err_msg=key)
 
 
 def test_fused_train_step_matches_jax(interpret_blocks):
