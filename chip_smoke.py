@@ -30,8 +30,9 @@ Phases, each of which fails the run loudly:
    wider than a column tile and run as parts; with ``--baseline CHECKOUT``
    an older checkout's K1, K2, K1b, K3 and K4 are built and their launches
    at the main-path shapes timed in turns with these (baseline, this, this,
-   baseline): K1 on the flagship in both dtypes, K2, K1b and K3 in bf16, K4
-   in f32 at the four stage maps at both batches;
+   baseline): K1 on the flagship in both dtypes, K2 in bf16 and in f32
+   (flagship and flat at 64 pairs, ResNet-50's shape at 4), K1b and K3 in
+   bf16, K4 in f32 at the four stage maps at both batches;
 4. K3's own path: ``dwconv7x7`` forward and backward at the four stage
    maps (no model of either package runs K3), with its exact launches;
 5. serving: a run directory holding the flagship configuration and tree
@@ -189,11 +190,12 @@ Phases, each of which fails the run loudly:
    with the head kernel (K1 1 a forward), then also with the fused backbone
    (K4 54 a forward: three launches a block), each forward's answers
    against the plain composition (K1's and K4's plain versions) on the same
-   images; paths A (K1 1, K1b 1 a step) and C (K4 54 with them) at 64
-   images in two views at epoch 20: their first-step losses from the same
-   parameters and batch within 1e-4 relative, then 3 warm-up and 5 timed
-   steps with exact launches, step time, peak memory, busy share and the
-   largest kernels.
+   images; paths A (K1 1, K1b 1 a step), C (K4 54 with them) and B (K2
+   1, then K1 1 and K1b 1 in its backward; align_eps unset) at 64 images
+   in two views at epoch 20: C's first-step loss within 1e-4 relative of
+   A's from the same parameters and batch, B's of a path-A step with
+   align_eps unset, then 3 warm-up and 5 timed steps with exact launches,
+   step time, peak memory, busy share and the largest kernels.
 
 The last two lines of standard output are the ``{"kernels": [...]}``
 record and ``{"ok": true, "device": {...}}``.  ``--only blocks`` runs
@@ -203,8 +205,8 @@ phases 1, 2 and the K3 and K4 checks of phase 3, ``--only data`` phases
 phases 1, 2, the kernel checks at the other backbones' shapes and 14,
 ``--only options`` phases 1, 2, the kernel checks at the reducer's width
 and 15, ``--only mesh`` phases 1, 2 and 16, ``--only model`` phases 1, 2
-and 17, ``--only f32`` phases 1, 2, the f32 K1 and K4 checks of phase 3
-and 18, then each stops without either line: neither can pass for a full run.  Without a CUDA card, or without the rest of the repository
+and 17, ``--only f32`` phases 1, 2, the f32 K1, K2 and K4 checks of
+phase 3 and 18, then each stops without either line: neither can pass for a full run.  Without a CUDA card, or without the rest of the repository
 beside it, it exits non-zero before printing either.
 """
 
@@ -518,20 +520,30 @@ def check_nopf(tree, pairs, H, W, D, dtype, seed, timed=False, tau=1.0, baseline
     from pipnet_tpu_torch.ops.fused_head_nopf import (fused_head_nopf,
                                                       fused_head_nopf_reference)
     from pipnet_tpu_torch.losses.catalog import ALIGN_EPS
+    from pipnet_tpu_torch.ops.fused_head import head_plan, plan_launches
     f, k = _features_and_kernel(tree, 2 * pairs, H, W, D, dtype, seed)
     with torch.inference_mode():
+        before = fused_head_nopf.launches
         pooled, logsum = fused_head_nopf(f, k, tree, tau=tau, eps=ALIGN_EPS)
+        launches = fused_head_nopf.launches - before
+        again = fused_head_nopf(f, k, tree, tau=tau, eps=ALIGN_EPS)
         torch.cuda.synchronize()
         pooled_r, logsum_r = fused_head_nopf_reference(f, k, tree, tau=tau, eps=ALIGN_EPS)
     rec = {"shape": [2 * pairs, H, W, D, tree.num_protos_padded],
            "dtype": _dtype_name(dtype), "tau": tau,
            "pooled_max_abs_err": (pooled - pooled_r).abs().max().item(),
            "logsum_max_abs_err": (logsum - logsum_r).abs().max().item(),
-           "logsum_scale": logsum_r.abs().max().item()}
+           "logsum_scale": logsum_r.abs().max().item(), "launches_per_call": launches,
+           "two_calls_bitwise_equal": bool(torch.equal(pooled, again[0])
+                                           and torch.equal(logsum, again[1]))}
     if not (torch.isfinite(pooled).all() and torch.isfinite(logsum).all()) or \
             rec["pooled_max_abs_err"] > 1e-5 or \
             rec["logsum_max_abs_err"] > LOGSUM_REL * rec["logsum_scale"] + 1e-4:
         fail(f"no-pf head disagrees with its plain version: {rec}")
+    want = plan_launches(*head_plan(tree, dtype, f.device), 3)
+    if launches != want or not rec["two_calls_bitwise_equal"]:
+        fail(f"no-pf head: {launches} launches a call (expected {want}), or two calls "
+             f"differ: {rec}")
     if timed:
         with torch.inference_mode():
             rec["ms"] = time_ms(lambda: fused_head_nopf(f, k, tree, tau=tau, eps=ALIGN_EPS))
@@ -559,13 +571,17 @@ class Baseline:
     earlier kernel, which ran on the f32 SIMT column plan; whether its
     K1, K2 and K1b take split plans (``split_plan``: whole-node groups and
     parts of wide nodes, GF ints a group) or one plan of (col_start, ncols,
-    width) triples of whole nodes; and whether its f32 K4 is the earlier
+    width) triples of whole nodes; whether its f32 K4 is the earlier
     single fused launch (``pipnet_cnblock_f32``, timed through
-    ``_fused_f32_block``; its bf16 K4 is then not timed in turns)."""
+    ``_fused_f32_block``; its bf16 K4 is then not timed in turns); and
+    whether its K2 takes the f32 kernel's row-tile scratch (z, partial,
+    count) or only the parts' (stats, ip; called through
+    ``_nopf_parts_scratch``)."""
     libs: dict
     k1b_takes_sv: bool
     takes_split_plan: bool
     fused_f32_block: bool
+    nopf_takes_f32_scratch: bool
 
 
 def baseline_kernels(checkout: str) -> Baseline:
@@ -601,8 +617,11 @@ def baseline_kernels(checkout: str) -> Baseline:
         k1b_src = f.read()
     with open(os.path.join(src, "cnblock.cu")) as f:
         fused_f32 = "int pipnet_cnblock_f32(" in f.read()
+    with open(os.path.join(src, "fused_head_nopf.cu")) as f:
+        nopf_scratch = "void* z, void* partial, void* count" in f.read()
     takes_split = "const void* whole, int Gw" in k1b_src
-    return Baseline(libs, takes_split or "int G, int sv," in k1b_src, takes_split, fused_f32)
+    return Baseline(libs, takes_split or "int G, int sv," in k1b_src, takes_split, fused_f32,
+                    nopf_scratch)
 
 
 def _triples(tree, dtype, device, hw=None):
@@ -740,6 +759,18 @@ def _fused_f32_block(lib, forward):
     return launch
 
 
+def _nopf_parts_scratch(lib):
+    """The earlier K2's C entry (scratch for the parts only: stats and ip;
+    its f32 kernel one block per (column group, pair)) behind this
+    checkout's argument list: the f32 row-tile scratch (z, partial, count)
+    is dropped."""
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn = lib.pipnet_fused_head_nopf_forward
+    fn.argtypes = [vp] * 3 + [vp, ci] * 2 + [vp] * 5 + [ci] * 5 + [cf, cf, ci, vp]
+    fn.restype = ctypes.c_int
+    return lambda *args: fn(*args[:10], *args[13:])
+
+
 @contextlib.contextmanager
 def baseline_launches(baseline: Baseline):
     """The wrappers launch the baseline libraries."""
@@ -751,6 +782,8 @@ def baseline_launches(baseline: Baseline):
              fh._launch_backward, fh._launch, fn._launch, cb._forward)
 
     def entry(name, symbol, argtypes):
+        if name == "fused_head_nopf" and not baseline.nopf_takes_f32_scratch:
+            return baseline.libs[name], _nopf_parts_scratch(baseline.libs[name])
         fn_ = getattr(baseline.libs[name], symbol)
         fn_.argtypes, fn_.restype = list(argtypes), ctypes.c_int
         return baseline.libs[name], fn_
@@ -853,14 +886,12 @@ def kernel_phase(card: str, baseline=None):
                                                  seed=10 + len(backward), timed=True,
                                                  cotangents=cot)
             say(f"kernel head_backward {name}: {json.dumps(backward[name])} [{card}]")
-    nopf = {}
+    nopf = f32_nopf_checks(baseline)
     for name, tree, shape, dtype, timed in (
-            ("flagship_train_f32", flag, (64, 26, 26, 768), f32, True),
             ("flagship_train_bf16", flag, (64, 26, 26, 768), bf16, True),
             ("multi_bucket_f32", multi, (2, 9, 11, 72), f32, False),
             ("multi_bucket_bf16", multi, (2, 9, 11, 72), bf16, False),
-            ("flat_train_bf16", flat, (64, 26, 26, 768), bf16, True),
-            ("flat_train_f32", flat, (64, 26, 26, 768), f32, True)) + tuple(
+            ("flat_train_bf16", flat, (64, 26, 26, 768), bf16, True)) + tuple(
             (f"{name}_{_dtype_name(dt)}", tree, (2, 9, 11, 72), dt, False)
             for name, tree, dt in wide):
         flagship_bf16 = dtype == bf16 and not name.startswith(("flat", "mixed"))
@@ -889,6 +920,24 @@ def f32_head_checks(baseline=None) -> dict:
         records[name] = check_fused_head(tree, B, 26, 26, 768, torch.float32,
                                          seed=60 + len(records), timed=True,
                                          baseline=baseline if tree is flag else None)
+    return records
+
+
+def f32_nopf_checks(baseline=None) -> dict:
+    """K2 in f32 (TF32 off) at the train step's shapes, timed, each in
+    turns with an older checkout's K2 with ``baseline``: the flagship tree
+    and flat PIP-Net's node of 768 at 64 pairs of 26x26 patches, and the
+    flagship tree at ResNet-50's 28x28x2048 at 4 pairs."""
+    from torch_port_util import flat_tree_port
+    flag, _ = flagship_tree()
+    flat = flat_tree_port(FLAT_CLASSES, FLAT_FEATURES)
+    H, W, D = BACKBONE_SHAPES["resnet50"]
+    records = {}
+    for name, tree, shape in (("flagship_train_f32", flag, (64, 26, 26, 768)),
+                              ("flat_train_f32", flat, (64, 26, 26, 768)),
+                              ("resnet50_train_f32", flag, (4, H, W, D))):
+        records[name] = check_nopf(tree, *shape, torch.float32, seed=100 + len(records),
+                                   timed=True, baseline=baseline)
     return records
 
 
@@ -4293,7 +4342,9 @@ F32_FUSED_SERVED_TOL = {"pooled": 2.0 ** -10, "logits_rel": 2.0 ** -10}
 # path A's and path C's first-step losses from the same parameters and
 # batch: both f32 with TF32 off, the backbones differ only by summation
 # order (the fused one's depthwise taps, LayerNorm and products in K4), so
-# the loss, a mean over 128 images, within 1e-4 relative
+# the loss, a mean over 128 images, within 1e-4 relative; path B's against
+# path A's with align_eps unset likewise (K2's align_pf term sums the same
+# f32 pf products in another order)
 F32_PATH_LOSS_REL = 1e-4
 
 
@@ -4381,24 +4432,34 @@ def f32_serving(card: str, setup: Setup, fused: bool) -> dict:
 
 
 def f32_training(card: str, setup: Setup) -> dict:
-    """Paths A (K1, K1b) and C (A with the fused backbone: K4, K1, K1b) of
-    ``setup`` (the flagship config in f32) at full width, 64 images in two
-    views at epoch 20, from the same seeded parameters and batch: each
-    path's first-step loss (A and C within F32_PATH_LOSS_REL), then 3
-    warm-up and F32_TIMED_STEPS timed steps (CUDA events) with their exact
-    launches, the peak memory, and two profiled steps (busy share, the
-    largest kernels, the hand-written kernels' time a step)."""
+    """Paths A (K1, K1b), C (A with the fused backbone: K4, K1, K1b) and B
+    (K2, then K1 and K1b in its backward; align_eps unset) of ``setup`` (the
+    flagship config in f32) at full width, 64 images in two views at epoch
+    20, from the same seeded parameters and batch: each path's first-step
+    loss (C within F32_PATH_LOSS_REL of A, B within it of a path-A step from
+    B's own parameters with align_eps unset), then 3 warm-up and
+    F32_TIMED_STEPS timed steps (CUDA events) with their exact launches, the
+    peak memory, and two profiled steps (busy share, the largest kernels,
+    the hand-written kernels' time a step)."""
     from pipnet_tpu_torch.models.convnext import CONVNEXT_TINY_DEPTHS
+    from pipnet_tpu_torch.ops.fused_head import head_plan, plan_launches
     from pipnet_tpu_torch.train import init_train_state
     batch, recs, paths = None, {}, {}
     n = F32_TIMED_STEPS
-    for fused in (False, True):
-        name = "C" if fused else "A"
-        cfg = run_config(setup, fused_backbone=fused)
+    for name in ("A", "C", "B"):
+        fused, fuse = name == "C", name == "B"
+        cfg = run_config(setup, align_eps_unset=fuse, fused_backbone=fused)
         model, tree, _ = build_model(setup, cfg)
         if batch is None:
             batch = train_batch(cfg, tree)
-        step, scalars = train_step(cfg, model, tree, fuse=False)
+        if fuse:    # path A's first step from the same parameters, align_eps unset
+            snapshot = {k: v.clone() for k, v in model.state_dict().items()}
+            step_a, scalars = train_step(cfg, model, tree, fuse=False)
+            _, m = step_a(init_train_state(model, seed=0), *batch, scalars)
+            first_a = float(m["loss"])
+            model.load_state_dict(snapshot)
+            del step_a, snapshot, m
+        step, scalars = train_step(cfg, model, tree, fuse=fuse)
         state = init_train_state(model, seed=0)
         state, m = step(state, *batch, scalars)
         first = float(m["loss"])
@@ -4417,14 +4478,20 @@ def f32_training(card: str, setup: Setup) -> dict:
         launches = counts()
         paths[f"f32 training {name}"] = launches
         blocks = 3 * sum(CONVNEXT_TINY_DEPTHS) if fused else 0
+        # K2 launches as a call on the f32 plan does (one over whole nodes)
+        nopf = plan_launches(*head_plan(tree, torch.float32, torch.device("cpu")), 3) if fuse \
+            else 0
         check_launches(f"f32 training path {name}", launches, {
-            **NO_LAUNCHES, "fused_head": n, "head_backward": n, "cnblock": blocks * n})
+            **NO_LAUNCHES, "fused_head": n, "head_backward": n, "cnblock": blocks * n,
+            "fused_head_nopf": nopf * n})
         step_ms = start.elapsed_time(end) / n
         rec = {"path": name, "batch": TRAIN_BATCH, "views": 2, "timed_steps": n,
                "step_ms": step_ms, "images_per_s": TRAIN_BATCH * 1e3 / step_ms,
                "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
                "first_step_loss": first, "mean_loss": float(acc["loss"]) / n,
                "launches_per_step": {k: v / n for k, v in launches.items()}}
+        if fuse:
+            rec["first_step_loss_path_a_align_eps_unset"] = first_a
         if not all(np.isfinite([first, rec["mean_loss"]])):
             fail(f"f32 training path {name}: non-finite loss: {rec}")
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -4442,26 +4509,27 @@ def f32_training(card: str, setup: Setup) -> dict:
             rec["top_kernels_ms"] = {e.key[:60]: e.self_device_time_total / 1e3 / 2 for e in top}
             rec["hand_written_ms"] = {
                 k: sum(e.self_device_time_total for e in kernels if k in e.key) / 1e3 / 2
-                for k in ("fused_head_f32", "head_backward", "cnblock")}
+                for k in ("fused_head_f32", "head_backward", "cnblock", "fused_head_nopf")}
         else:
             rec["kernel_ms_per_step"] = "not measured"
         recs[name] = rec
         say(f"f32 training path {name}: {json.dumps(rec)} [{card}]")
         del model, state, step, acc
         torch.cuda.empty_cache()
-    rel = abs(recs["A"]["first_step_loss"] - recs["C"]["first_step_loss"]) / \
-        abs(recs["A"]["first_step_loss"])
-    say(f"f32 paths A and C, first-step loss: {json.dumps({'rel_diff': rel})} [{card}]")
-    if not rel <= F32_PATH_LOSS_REL:
-        fail(f"f32 paths A and C disagree on the first step's loss: {rel} relative "
-             f"(bar {F32_PATH_LOSS_REL})")
+    gaps = {"A_C": abs(recs["A"]["first_step_loss"] - recs["C"]["first_step_loss"])
+            / abs(recs["A"]["first_step_loss"]),
+            "A_B": abs(first_a - recs["B"]["first_step_loss"]) / abs(first_a)}
+    say(f"f32 paths, first-step loss: {json.dumps({'rel_diff': gaps})} [{card}]")
+    if not all(rel <= F32_PATH_LOSS_REL for rel in gaps.values()):
+        fail(f"f32 paths disagree on the first step's loss: {gaps} relative "
+             f"(bar {F32_PATH_LOSS_REL}; A-B with align_eps unset)")
     return paths
 
 
 def f32_phase(card: str) -> dict:
     """Phase 18: the flagship config in f32 (TF32 off) served with the head
-    kernel, then also with the fused backbone, and trained on paths A and
-    C; returns each path's launches."""
+    kernel, then also with the fused backbone, and trained on paths A, C
+    and B; returns each path's launches."""
     base = flagship_setup()
     setup = Setup("f32", dict(F32_MODEL), base.tree_json, base.classes)
     with tf32_off():
@@ -4512,8 +4580,8 @@ def main(argv=None) -> int:
                          "options: build, check and time K1, K1b and K2 at the reducer's "
                          "width, then run phase 15; mesh: build, then run phase 16 (the "
                          "train step on a data mesh); model: build, then run phase 17 (the "
-                         "train step on a model axis); f32: build, check and time K1 and K4 "
-                         "in f32, then run phase 18 (the f32 kernel configuration); each "
+                         "train step on a model axis); f32: build, check and time K1, K2 and "
+                         "K4 in f32, then run phase 18 (the f32 kernel configuration); each "
                          "stops without the kernels record or the ok line")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
@@ -4591,6 +4659,8 @@ def main(argv=None) -> int:
         with tf32_off():
             for name, rec in f32_head_checks(baseline).items():
                 say(f"kernel fused_head {name}: {json.dumps(rec)} [{card}]")
+            for name, rec in f32_nopf_checks(baseline).items():
+                say(f"kernel fused_head_nopf {name}: {json.dumps(rec)} [{card}]")
             for name, rec in f32_block_checks(baseline).items():
                 say(f"kernel cnblock {name}: {json.dumps(rec)} [{card}]")
         f32_phase(card)

@@ -34,126 +34,210 @@
 // 32-deep step waited on, with a serial shared-memory softmax and inner
 // product, ran 27x this bound.
 //
-// f32 keeps the SIMT tile of head_tile.cuh: one block per (column group
-// <= 128 columns, pair), both views' softmaxed tiles in 66 KB of dynamic
-// shared memory.
+// f32 design (simt_tile.cuh, shared with K1 and K4).  The products run on
+// the SIMT FMA units (TF32 would miss 1e-5): 502 GFLOP at the flagship
+// train step, 7.5 ms at 67 TFLOP/s; operations bound it.  One block per
+// (column group <= 128 columns, row tile of PAIR_ROWS = 64 of the B * HW
+// pair rows), column groups the fastest grid index (the blocks of a row
+// tile share its F rows in L2), so ResNet-50's 4 pairs still make 49 row
+// tiles.  The tile's 128 A rows are its 64 pair rows of view 1 over the
+// same rows of view 2 (simt::product's two bases): one load of each K
+// slice serves both views, and a pair row's two z rows meet in one
+// shared-memory tile (128 x ZLD, over the ring; two blocks an SM).  The
+// block takes the per-node softmax of all 128 rows, meets the other row
+// tiles' column max in pooled by an atomicMax on the float's bits, one for
+// each image its rows hold (pf >= 0; pooled is zeroed before the launch),
+// and forms each (pair row, node)'s log(inner product + eps).  A tile may
+// hold the end of one image and the start of the next (676 = 10 * 64 + 36):
+// the log terms of each image's run of rows go, summed in row order, to
+// partial[(row tile + image) * N + node] (runs of one tile hold other
+// images, runs of one image other tiles, so no two runs share an index),
+// and the block that counts last for an (image, group) adds that image's
+// partials in row-tile order into logsum.  So logsum is the same on every
+// run, and a call is one launch.  The design it replaces ran one block per
+// (column group, pair) over all 676 rows on a synchronous 64-row SIMT tile:
+// 120 blocks at 4 pairs, and twice the products on wide nodes.
 //
 // Nodes wider than the tile (flat PIP-Net's 768 prototypes) come as parts
 // (head_tile.cuh).  A STATS launch writes both views' (max, sum) a row and
-// part; a FINAL launch recomputes the products, normalises both views by the
-// merged node statistics, takes the column maxima and writes each row's
-// inner product over the part to `ip` (B * HW, G); a third launch
-// (nopf_wide_logsum) adds a row's parts, takes the log and sums the rows in
-// a fixed order.  Groups of whole nodes take the WHOLE launch.
+// part; a FINAL launch normalises both views by the merged node statistics,
+// takes the column maxima and writes each pair row's inner product over the
+// part to `ip` (B * HW, G); a third launch (nopf_wide_logsum) adds a row's
+// parts, takes the log and sums the rows in a fixed order.  In bf16 FINAL
+// recomputes the products; in f32 STATS stores its tile's z in a scratch
+// (row tiles x parts x 128 x 128 f32: 266 MB at flat's 64 pairs) and FINAL
+// reads it back.  Groups of whole nodes take the WHOLE launch.
 
 #include "head_tile.cuh"
+#include "simt_tile.cuh"
 
 namespace {
 
 // K2's wgmma width: one column group of up to 128 columns, per view
 using K2Plan = hopper::Plan<hopper::HALF, 2>;
 
-constexpr int F32_SMEM = head_tile::Z_BYTES + (head_tile::STAGE_BYTES > head_tile::Z_BYTES
-                                                   ? head_tile::STAGE_BYTES
-                                                   : head_tile::Z_BYTES);
+// f32: a row tile holds PAIR_ROWS pair rows, view 1's above the same rows of
+// view 2; the z tile (BM x ZLD) and the log terms (PAIR_ROWS x at most TN
+// nodes) lie over the product's ring, dead by then
+constexpr int PAIR_ROWS = simt::BM / 2;
+using F32Ring = simt::Ring<simt::B_NMAJOR>;
+static_assert((simt::BM * head_tile::ZLD + PAIR_ROWS * head_tile::TN) * 4 <= F32Ring::BYTES,
+              "the z tile and the log terms lie over the ring");
 
-// groups: G records of GF ints (head_tile.cuh); width 0 marks the padded
-// tail.  STATS and FINAL run over parts of wide nodes: stats (2B * HW, G)
-// holds each view-image row's (max, sum) a part, ip (B * HW, G) each pair
-// row's inner product over a part.
+// float4 `i` of a z tile of BM rows of TN floats, in the shared tile (ZLD a row)
+__device__ __forceinline__ float4* z4(float* Z, int i) {
+  return reinterpret_cast<float4*>(Z + (i / (head_tile::TN / 4)) * head_tile::ZLD +
+                                   (i % (head_tile::TN / 4)) * 4);
+}
+
+// groups: G records of GF ints (head_tile.cuh), each fitting simt::BN
+// columns from c0 & ~3; width 0 marks the padded tail.  Block (g, rt): group
+// g, pair rows [rt * PAIR_ROWS, (rt + 1) * PAIR_ROWS) of the B * HW.  STATS
+// and FINAL run over parts of wide nodes: stats (2B * HW, G) holds each
+// view-image row's (max, sum) a part, zs (row tiles, G, BM, TN) the tiles' z
+// (STATS stores, FINAL reads), ip (B * HW, G) each pair row's inner product
+// over a part.  WHOLE: partial (row tiles + B - 1, N) the per-node log sums
+// of each (row tile, image) run, count (G, B) zero before the launch.
+// pooled must be zero before the first launch.
 template <int MODE>
-__global__ void __launch_bounds__(head_tile::THREADS)
+__global__ void __launch_bounds__(simt::THREADS, simt::MIN_BLOCKS)
 fused_head_nopf_f32(const float* __restrict__ F, const float* __restrict__ K,
                     const uint8_t* __restrict__ valid, const int* __restrict__ groups,
                     const int* __restrict__ proto_node, float2* __restrict__ stats,
-                    float* __restrict__ ip_parts, float* __restrict__ pooled,
-                    float* __restrict__ logsum, int B, int HW, int D, int P, int N, int G,
-                    float tau, float eps) {
+                    float* __restrict__ zs, float* __restrict__ ip_parts,
+                    float* __restrict__ partial, int* __restrict__ count,
+                    float* __restrict__ pooled, float* __restrict__ logsum, int B, int HW, int D,
+                    int P, int N, int G, float tau, float eps) {
   using namespace head_tile;
-  extern __shared__ __align__(16) unsigned char dyn[];
-  float* Z1 = reinterpret_cast<float*>(dyn);        // view 1's softmaxed tile
-  unsigned char* stage = dyn + Z_BYTES;             // the product's staging tiles
-  float* Z2 = reinterpret_cast<float*>(stage);      // view 2's tile aliases them
+  static_assert(THREADS == simt::THREADS && TN == simt::BN && THREADS == 2 * TN,
+                "a thread per (view, column) takes the column maxima");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ uint8_t valid_s[TN];
+  __shared__ int last_s;
+  float* Z = reinterpret_cast<float*>(smem_raw);   // [BM][ZLD]: view 1's rows, then view 2's
+  float* L = Z + simt::BM * ZLD;                   // [rows][nodes]: the log terms
 
-  const int tid = threadIdx.x, g = blockIdx.x;
+  const int tid = threadIdx.x, g = blockIdx.x, rt = blockIdx.y;
+  const int pair_rows = B * HW, r0 = rt * PAIR_ROWS;
   const int* rec = groups + GF * g;
   const int c0 = rec[0], ncols = rec[1];
   const int width = MODE == WHOLE ? rec[2] : rec[2] ? ncols : 0;   // a part: one segment
-  const int b = blockIdx.y;
-  float* pooled1 = pooled + (size_t)b * P + c0;
-  float* pooled2 = pooled + (size_t)(B + b) * P + c0;
-
-  if (width == 0) {   // padded tail beyond the last bucket
-    if (MODE != STATS && tid < ncols) pooled1[tid] = pooled2[tid] = 0.f;
-    return;
-  }
-  // a part's statistics: view 1's rows of image b, view 2's of image B + b
-  const int g0 = g - rec[4], parts = rec[5];
+  if (width == 0) return;   // padded tail beyond the last bucket (pooled is already 0)
+  const int rows = min(PAIR_ROWS, pair_rows - r0);
 
   if (tid < TN) valid_s[tid] = tid < ncols ? valid[c0 + tid] : 0;
-  const int nodes = ncols / width;
-  const float* F1 = F + (size_t)b * HW * D;
-  const float* F2 = F + (size_t)(B + b) * HW * D;
-  float colmax1 = 0.f, colmax2 = 0.f;   // pf >= 0, every column sees a row
-  float node_log = 0.f;                 // thread n < nodes: node n's sum
-
-  for (int r0 = 0; r0 < HW; r0 += TM) {
-    const int rows = min(TM, HW - r0);
-    z_tile(F1, K, r0, HW, D, P, c0, ncols, tau, stage, Z1);
-    __syncthreads();
-    if (MODE == WHOLE)
-      softmax_rows(Z1, valid_s, rows, nodes, width);
-    else
-      wide_rows<MODE>(Z1, valid_s, rows, ncols, stats + ((size_t)b * HW + r0) * G, G, g, g0,
-                      parts);
-    z_tile(F2, K, r0, HW, D, P, c0, ncols, tau, stage, Z2);   // syncs inside
-    __syncthreads();
-    if (MODE == WHOLE)
-      softmax_rows(Z2, valid_s, rows, nodes, width);
-    else
-      wide_rows<MODE>(Z2, valid_s, rows, ncols, stats + ((size_t)(B + b) * HW + r0) * G, G, g,
-                      g0, parts);
-    __syncthreads();
-    if (MODE == STATS) continue;   // the next tile's staging overwrites Z2 after this barrier
-
-    if (tid < ncols)
-      for (int r = 0; r < rows; ++r) {
-        colmax1 = fmaxf(colmax1, Z1[r * ZLD + tid]);
-        colmax2 = fmaxf(colmax2, Z2[r * ZLD + tid]);
+  const int shift = c0 & 3;   // the group's first column in the tile
+  float* Zg = Z + shift;
+  constexpr int ZT4 = simt::BM * TN / 4;   // float4 of a stored z tile
+  float4* zt =
+      MODE == WHOLE ? nullptr : reinterpret_cast<float4*>(zs) + ((size_t)rt * G + g) * ZT4;
+  if (MODE == FINAL) {        // z, as STATS stored it
+    for (int i = tid; i < ZT4; i += THREADS) *z4(Z, i) = zt[i];
+  } else {
+    float acc[simt::TR][simt::TC];
+    simt::product<simt::B_NMAJOR>(Z, F + (size_t)r0 * D, F + ((size_t)pair_rows + r0) * D, D,
+                                  rows, rows, K + (c0 - shift), P, P - (c0 - shift), D, acc);
+#pragma unroll
+    for (int i = 0; i < simt::TR; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float* a = acc[i] + 4 * h;
+        float* z = Z + simt::frag_row(i) * ZLD + simt::frag_col<simt::B_NMAJOR>(4 * h);
+        *reinterpret_cast<float4*>(z) = make_float4(a[0] / tau, a[1] / tau, a[2] / tau,
+                                                    a[3] / tau);
       }
-    __syncthreads();   // the log terms below overwrite Z1
+  }
+  __syncthreads();
 
-    if (MODE == FINAL) {   // each row's inner product over the part
-      for (int r = tid; r < rows; r += THREADS) {
-        float ip = 0.f;
-        for (int s = 0; s < ncols; ++s) ip += Z1[r * ZLD + s] * Z2[r * ZLD + s];
-        ip_parts[((size_t)b * HW + r0 + r) * G + g] = ip;
-      }
-      __syncthreads();
-      continue;
+  // rows past `rows` in either half hold zeros (or STATS's copy of them):
+  // softmaxed with the others, never read
+  if (MODE == WHOLE) {
+    softmax_rows(Zg, valid_s, simt::BM, ncols / width, width);
+  } else {
+    for (int r = tid; r < simt::BM; r += THREADS) {
+      const int half = r / PAIR_ROWS, pr = r - half * PAIR_ROWS;   // view, pair row
+      if (pr < rows)
+        wide_row<MODE>(Zg + r * ZLD, valid_s, ncols,
+                       stats + ((size_t)half * pair_rows + r0 + pr) * G, g, g - rec[4], rec[5]);
     }
-    for (int q = tid; q < rows * nodes; q += THREADS) {
-      const int off = (q / nodes) * ZLD + (q % nodes) * width;
+  }
+  __syncthreads();
+  if (MODE == STATS) {        // z for the FINAL launch
+    for (int i = tid; i < ZT4; i += THREADS) zt[i] = *z4(Z, i);
+    return;
+  }
+
+  {  // each view's column max over each image's run of the tile's rows
+    const int half = tid / TN, col = tid - half * TN;
+    if (col < ncols) {
+      const float* zc = Zg + half * PAIR_ROWS * ZLD + col;
+      for (int r = 0; r < rows;) {
+        const int img = (r0 + r) / HW, end = min(rows, (img + 1) * HW - r0);
+        float m = 0.f;
+        for (; r < end; ++r) m = fmaxf(m, zc[r * ZLD]);
+        atomicMax(reinterpret_cast<int*>(pooled) + (size_t)(half * B + img) * P + c0 + col,
+                  __float_as_int(m));
+      }
+    }
+  }
+
+  if (MODE == FINAL) {        // each pair row's inner product over the part
+    for (int r = tid; r < rows; r += THREADS) {
+      const float* z1 = Zg + r * ZLD;
+      const float* z2 = z1 + PAIR_ROWS * ZLD;
       float ip = 0.f;
-      for (int s = 0; s < width; ++s) ip += Z1[off + s] * Z2[off + s];
-      Z1[off] = logf(ip + eps);   // only this thread touches the node's segment
+      for (int s = 0; s < ncols; ++s) ip += z1[s] * z2[s];
+      ip_parts[((size_t)r0 + r) * G + g] = ip;
+    }
+    return;
+  }
+
+  // each (pair row, node)'s log term
+  const int nodes = ncols / width;
+  for (int q = tid; q < rows * nodes; q += THREADS) {
+    const int r = q / nodes, n = q - r * nodes;
+    const float* z1 = Zg + r * ZLD + n * width;
+    const float* z2 = z1 + PAIR_ROWS * ZLD;
+    float ip = 0.f;
+    for (int s = 0; s < width; ++s) ip += z1[s] * z2[s];
+    L[q] = logf(ip + eps);
+  }
+  __syncthreads();
+  // each image run's per-node sums, in row order, to its partial
+  const int img0 = r0 / HW, img1 = (r0 + rows - 1) / HW;
+  const int node = tid < nodes ? proto_node[c0 + tid * width] : 0;
+  if (tid < nodes)
+    for (int img = img0; img <= img1; ++img) {
+      const int end = min(rows, (img + 1) * HW - r0);
+      float s = 0.f;
+      for (int r = max(img * HW - r0, 0); r < end; ++r) s += L[r * nodes + tid];
+      partial[((size_t)rt + img) * N + node] = s;
+    }
+  __threadfence();            // the partials are seen before the count that follows
+  __syncthreads();
+  // the last of an image's row tiles to count adds its partials in tile order
+  for (int img = img0; img <= img1; ++img) {
+    const int first = img * HW / PAIR_ROWS, tiles = (img * HW + HW - 1) / PAIR_ROWS - first + 1;
+    if (tid == 0) {
+      last_s = atomicAdd(count + (size_t)g * B + img, 1) == tiles - 1;
+      __threadfence();
     }
     __syncthreads();
-    if (tid < nodes)
-      for (int r = 0; r < rows; ++r) node_log += Z1[r * ZLD + tid * width];
-    __syncthreads();   // Z1 and Z2 are refilled by the next row tile
+    if (last_s && tid < nodes) {
+      float s = 0.f;
+      for (int t = first; t < first + tiles; ++t)
+        s += __ldcg(partial + ((size_t)t + img) * N + node);
+      logsum[(size_t)img * N + node] = s;
+    }
+    __syncthreads();          // last_s is rewritten for the next image
   }
-  if (MODE != STATS && tid < ncols) {
-    pooled1[tid] = colmax1;
-    pooled2[tid] = colmax2;
-  }
-  if (MODE == WHOLE && tid < nodes) logsum[(size_t)b * N + proto_node[c0 + tid * width]] = node_log;
 }
 
 // groups: G records of GF ints (head_tile.cuh), each inside a 128-column
 // tile that starts on a multiple of 8 columns, at most NMAX nodes.  STATS
-// and FINAL run over parts of wide nodes (stats, ip as in fused_head_nopf_f32).
+// and FINAL run over parts of wide nodes: stats (2B * HW, G) holds each
+// view-image row's (max, sum) a part, ip (B * HW, G) each pair row's inner
+// product over a part.
 template <int MODE>
 __global__ void __launch_bounds__(hopper::THREADS, 1)
 fused_head_nopf_bf16(const __grid_constant__ CUtensorMap tmF,
@@ -358,18 +442,29 @@ nopf_wide_logsum(const int* __restrict__ groups, const int* __restrict__ proto_n
   if (tid == 0) logsum[(size_t)b * N + proto_node[rec[0]]] = red[0];
 }
 
+// the f32 kernels' scratch (fused_head_nopf_f32)
+struct F32Scratch {
+  float2* stats;
+  float* zs;
+  float* ip;
+  float* partial;
+  int* count;
+};
+
 template <int MODE>
 cudaError_t launch_f32(const void* features, const void* kernel, const void* valid,
-                       const int* groups, int G, const int* proto_node, float2* stats, float* ip,
+                       const int* groups, int G, const int* proto_node, const F32Scratch& w,
                        void* pooled, void* logsum, int B, int HW, int D, int P, int N, float tau,
                        float eps, cudaStream_t s) {
-  auto k = fused_head_nopf_f32<MODE>;
-  cudaError_t err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, F32_SMEM);
+  constexpr int BYTES = F32Ring::BYTES;
+  const cudaError_t err = simt::raise_smem<fused_head_nopf_f32<MODE>>(BYTES);
   if (err != cudaSuccess) return err;
-  k<<<dim3(G, B), head_tile::THREADS, F32_SMEM, s>>>(
+  const int tiles = (B * HW + PAIR_ROWS - 1) / PAIR_ROWS;
+  fused_head_nopf_f32<MODE><<<dim3(G, tiles), simt::THREADS, BYTES, s>>>(
       static_cast<const float*>(features), static_cast<const float*>(kernel),
-      static_cast<const uint8_t*>(valid), groups, proto_node, stats, ip,
-      static_cast<float*>(pooled), static_cast<float*>(logsum), B, HW, D, P, N, G, tau, eps);
+      static_cast<const uint8_t*>(valid), groups, proto_node, w.stats, w.zs, w.ip, w.partial,
+      w.count, static_cast<float*>(pooled), static_cast<float*>(logsum), B, HW, D, P, N, G, tau,
+      eps);
   return cudaGetLastError();
 }
 
@@ -396,9 +491,13 @@ extern "C" {
 // B is the number of image pairs (features hold 2B images).  whole (Gw
 // groups of whole nodes, maybe the padded tail) and wide (Gp parts of wide
 // nodes, maybe the tail) are plans of GF ints a group (ops/fused_head.py::
-// split_plan); either may be empty.  stats (2B * HW, Gp) float2 and ip
-// (B * HW, Gp) f32 are scratch for the parts.  dtype: 0 = float32 (groups
-// of <= 128 columns), 1 = bfloat16 (groups of <= 16 nodes, each inside a
+// split_plan); either may be empty.  Scratch for the parts: stats (2B * HW,
+// Gp) float2 and ip (B * HW, Gp) f32; in f32 also z (row tiles, Gp, 128,
+// 128) f32, and for the whole-node groups partial (row tiles + B - 1, N) f32
+// and count (Gw, B) int32 (ops/fused_head_nopf.py::f32_scratch_shapes; row
+// tiles of 64 pair rows).  dtype: 0 = float32 (groups fitting 128 columns
+// from c0 & ~3; D and P multiples of 4, 16-byte aligned features and kernel,
+// for cp.async), 1 = bfloat16 (groups of <= 16 nodes, each inside a
 // 128-column tile that starts on a multiple of 8 columns; D and P multiples
 // of 8, 16-byte aligned features and kernel, for TMA).  Launches on `stream`
 // (STATS, FINAL and the log sums over the parts, then WHOLE); returns the
@@ -406,9 +505,9 @@ extern "C" {
 int pipnet_fused_head_nopf_forward(const void* features, const void* kernel,
                                    const void* valid, const void* whole, int Gw,
                                    const void* wide, int Gp, const void* proto_node,
-                                   void* stats, void* ip, void* pooled, void* logsum, int B,
-                                   int HW, int D, int P, int N, float tau, float eps, int dtype,
-                                   void* stream) {
+                                   void* stats, void* ip, void* z, void* partial, void* count,
+                                   void* pooled, void* logsum, int B, int HW, int D, int P,
+                                   int N, float tau, float eps, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* gw = static_cast<const int*>(whole);
   const int* gp = static_cast<const int*>(wide);
@@ -417,15 +516,25 @@ int pipnet_fused_head_nopf_forward(const void* features, const void* kernel,
   float* ipp = static_cast<float*>(ip);
   cudaError_t err = cudaSuccess;
   if (dtype == 0) {
-    if (Gp)
-      err = launch_f32<STATS>(features, kernel, valid, gp, Gp, pn, st, ipp, pooled, logsum, B,
-                              HW, D, P, N, tau, eps, s);
+    if (D % 4 || P % 4 || reinterpret_cast<uintptr_t>(features) % 16 ||
+        reinterpret_cast<uintptr_t>(kernel) % 16 || HW <= 0 ||
+        (long long)B * HW > 65535LL * PAIR_ROWS)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const F32Scratch w{st, static_cast<float*>(z), ipp, static_cast<float*>(partial),
+                       static_cast<int*>(count)};
+    // the row tiles meet in pooled by atomicMax over zeros, and count to
+    // find each image's last tile
+    err = cudaMemsetAsync(pooled, 0, (size_t)2 * B * P * sizeof(float), s);
+    if (Gw && err == cudaSuccess) err = cudaMemsetAsync(count, 0, (size_t)Gw * B * sizeof(int), s);
     if (Gp && err == cudaSuccess)
-      err = launch_f32<FINAL>(features, kernel, valid, gp, Gp, pn, st, ipp, pooled, logsum, B,
-                              HW, D, P, N, tau, eps, s);
+      err = launch_f32<STATS>(features, kernel, valid, gp, Gp, pn, w, pooled, logsum, B, HW, D,
+                              P, N, tau, eps, s);
+    if (Gp && err == cudaSuccess)
+      err = launch_f32<FINAL>(features, kernel, valid, gp, Gp, pn, w, pooled, logsum, B, HW, D,
+                              P, N, tau, eps, s);
     if (Gw && err == cudaSuccess)
-      err = launch_f32<WHOLE>(features, kernel, valid, gw, Gw, pn, st, ipp, pooled, logsum, B,
-                              HW, D, P, N, tau, eps, s);
+      err = launch_f32<WHOLE>(features, kernel, valid, gw, Gw, pn, w, pooled, logsum, B, HW, D,
+                              P, N, tau, eps, s);
   } else if (dtype == 1) {
     CUtensorMap tmF, tmK;
     err = hopper::bf16_map(&tmF, features, D, (uint64_t)2 * B * HW, hopper::BK, hopper::BM);

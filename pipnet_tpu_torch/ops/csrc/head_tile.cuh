@@ -8,13 +8,12 @@
 //
 // Two cores live here.
 //
-// 1. head_tile: the f32 SIMT tile.  One block owns one column group (whole
-//    nodes of one bucket, <= TN columns) of one image and loops over the
-//    rows in tiles of TM; the product is SIMT FMA (TF32 would miss the f32
-//    tolerance of 1e-5) and the softmax runs in shared memory.  K2's f32
-//    instantiation runs all of it; K1's f32 kernel runs its product on
-//    simt_tile.cuh's tile and takes the softmax steps from here
-//    (softmax_rows, wide_rows, on a z tile of TN columns and ZLD a row).
+// 1. head_tile: the f32 epilogue steps.  The f32 kernels (K1's
+//    fused_head_f32, K2's fused_head_nopf_f32) run their products on
+//    simt_tile.cuh's tile (the SIMT FMA units: TF32 would miss the f32
+//    tolerance of 1e-5), write z / tau into a shared-memory tile of TN
+//    columns and ZLD a row over the product's ring, and take the per-node
+//    softmax there (softmax_rows; over the parts of a wide node wide_row).
 //
 // 2. hopper: the bf16 core for Hopper (sm_90a).  At the flagship shapes the
 //    bf16 head is bound by its product (K1 at B=128: 502 GFLOP, 0.51 ms at
@@ -45,8 +44,9 @@
 // STATS writes each row's max and sum over each part, FINAL merges them into
 // the node's max and sum (merge_parts) and normalises by those, so every
 // value is the node-wide softmax and the column max is taken on it.  The
-// product is computed in both launches; groups of whole nodes take the
-// WHOLE instantiation in a launch of their own.
+// bf16 kernels compute the product in both launches; the f32 kernels' STATS
+// stores z (K1 in pf, K2 in a scratch) and FINAL reads it back.  Groups of
+// whole nodes take the WHOLE instantiation in a launch of their own.
 #pragma once
 
 #include <cuda.h>
@@ -89,16 +89,9 @@ __device__ __forceinline__ float2 merge_parts(const float2* row, int parts, floa
 
 namespace head_tile {
 
-constexpr int TM = 64;        // rows (patches) per row tile
 constexpr int TN = 128;       // prototype columns per block
-constexpr int TK = 32;        // depth per shared-memory stage
 constexpr int THREADS = 256;  // 8 warps
 constexpr int ZLD = TN + 4;   // row stride of the f32 z tile in shared memory
-constexpr int ALD_F32 = TM + 1;   // [TK][TM+1] f32 A tile (conflict-free stores)
-
-// bytes of the f32 product's staging tiles, and of one f32 z tile
-constexpr int STAGE_BYTES = (TK * ALD_F32 + TK * TN) * 4;
-constexpr int Z_BYTES = TM * ZLD * 4;
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
@@ -108,56 +101,6 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-// f32 z tile (rows r0..r0+TM-1, columns c0..c0+TN-1) / tau into Z[TM][ZLD].
-// Rows >= HW, columns >= ncols and depth >= D enter as zeros.  `smem` holds
-// the staging tiles (STAGE_BYTES); Z may alias it, since the staging tiles
-// are dead once the depth loop has ended.
-__device__ __forceinline__ void z_tile(const float* __restrict__ Fb, const float* __restrict__ K,
-                                       int r0, int HW, int D, int P, int c0, int ncols,
-                                       float tau, unsigned char* smem, float* Z) {
-  const int tid = threadIdx.x;
-  float* As = reinterpret_cast<float*>(smem);            // [TK][ALD_F32]
-  float* Bs = As + TK * ALD_F32;                         // [TK][TN]
-  const int tx = tid % 16, ty = tid / 16;                // cols tx+16j, rows ty+16i
-  float acc[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  for (int k0 = 0; k0 < D; k0 += TK) {
-#pragma unroll
-    for (int l = 0; l < (TM * TK) / THREADS; ++l) {
-      const int idx = tid + l * THREADS, kk = idx % TK, r = idx / TK;
-      const int row = r0 + r, k = k0 + kk;
-      As[kk * ALD_F32 + r] = (row < HW && k < D) ? Fb[(size_t)row * D + k] : 0.f;
-    }
-#pragma unroll
-    for (int l = 0; l < (TK * TN) / THREADS; ++l) {
-      const int idx = tid + l * THREADS, c = idx % TN, kk = idx / TN;
-      const int k = k0 + kk;
-      Bs[kk * TN + c] = (c < ncols && k < D) ? K[(size_t)k * P + c0 + c] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < TK; ++kk) {
-      float a[4], b[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk * ALD_F32 + ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) b[j] = Bs[kk * TN + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) Z[(ty + 16 * i) * ZLD + tx + 16 * j] = acc[i][j] / tau;
-}
 
 // Per-(row, node) softmax in place over the node's valid slots, for `rows`
 // rows of Z holding `nodes` nodes of `width` columns each.  Shifts by the
@@ -184,32 +127,36 @@ __device__ __forceinline__ void softmax_rows(float* Z, const uint8_t* valid_s, i
   }
 }
 
-// The STATS and FINAL steps of the f32 tile for a part of a wide node: for
-// each of `rows` rows of Z (z = acc / tau) over the part's `ncols` columns,
-// STATS writes (max, sum of exp(clip(z - max, -80, 60))) over the valid
-// slots to stats[r * ld + gi]; FINAL replaces z by the node-wide softmax from
-// the node's parts' statistics stats[r * ld + g0 .. g0 + parts), invalid
-// slots 0.  One thread a row.
+// The STATS and FINAL steps of the f32 tile for a part of a wide node, on
+// one row zr of Z (z = acc / tau) over the part's `ncols` columns: STATS
+// writes (max, sum of exp(clip(z - max, -80, 60))) over the valid slots to
+// srow[gi]; FINAL replaces z by the node-wide softmax from the node's parts'
+// statistics srow[g0 .. g0 + parts), invalid slots 0.
+template <int MODE>
+__device__ __forceinline__ void wide_row(float* zr, const uint8_t* valid_s, int ncols,
+                                         float2* srow, int gi, int g0, int parts) {
+  if (MODE == STATS) {
+    float m = -INFINITY;
+    for (int s = 0; s < ncols; ++s)
+      if (valid_s[s]) m = fmaxf(m, zr[s]);
+    float sum = 0.f;
+    for (int s = 0; s < ncols; ++s)
+      if (valid_s[s]) sum += expf(fminf(fmaxf(zr[s] - m, -80.f), 60.f));
+    srow[gi] = make_float2(m, sum);
+  } else {
+    const float2 st = merge_parts(srow + g0, parts, 1.f);
+    for (int s = 0; s < ncols; ++s)
+      zr[s] = valid_s[s] ? expf(fminf(fmaxf(zr[s] - st.x, -80.f), 60.f)) / st.y : 0.f;
+  }
+}
+
+// wide_row over `rows` rows of Z, row r's statistics at stats + r * ld; one
+// thread a row.
 template <int MODE>
 __device__ __forceinline__ void wide_rows(float* Z, const uint8_t* valid_s, int rows, int ncols,
                                           float2* stats, int ld, int gi, int g0, int parts) {
-  for (int r = threadIdx.x; r < rows; r += THREADS) {
-    float* zr = Z + r * ZLD;
-    float2* srow = stats + (size_t)r * ld;
-    if (MODE == STATS) {
-      float m = -INFINITY;
-      for (int s = 0; s < ncols; ++s)
-        if (valid_s[s]) m = fmaxf(m, zr[s]);
-      float sum = 0.f;
-      for (int s = 0; s < ncols; ++s)
-        if (valid_s[s]) sum += expf(fminf(fmaxf(zr[s] - m, -80.f), 60.f));
-      srow[gi] = make_float2(m, sum);
-    } else {
-      const float2 st = merge_parts(srow + g0, parts, 1.f);
-      for (int s = 0; s < ncols; ++s)
-        zr[s] = valid_s[s] ? expf(fminf(fmaxf(zr[s] - st.x, -80.f), 60.f)) / st.y : 0.f;
-    }
-  }
+  for (int r = threadIdx.x; r < rows; r += THREADS)
+    wide_row<MODE>(Z + r * ZLD, valid_s, ncols, stats + (size_t)r * ld, gi, g0, parts);
 }
 
 }  // namespace head_tile

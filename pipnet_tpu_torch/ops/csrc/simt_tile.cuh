@@ -1,8 +1,11 @@
-// The f32 product tile shared by K1 (fused_head.cu, fused_head_f32) and K4
-// (cnblock.cu, cnblock_gemm_f32): a block computes one BM x BN tile of
-// A (rows x K, K contiguous) times B, with B either K-major (N rows of K,
-// nn.Linear's weight layout: K4's w1t and w2t) or N-major (K rows of N: K1's
-// prototype kernel (D, P)).
+// The f32 product tile shared by K1 (fused_head.cu, fused_head_f32), K2
+// (fused_head_nopf.cu, fused_head_nopf_f32) and K4 (cnblock.cu,
+// cnblock_gemm_f32): a block computes one BM x BN tile of A (rows x K, K
+// contiguous) times B, with B either K-major (N rows of K, nn.Linear's
+// weight layout: K4's w1t and w2t) or N-major (K rows of N: the heads'
+// prototype kernel (D, P)).  The tile's A rows come from one base, or its
+// upper and lower halves from two (K2: a view-1 row tile above the same rows
+// of view 2, so one load of each K slice serves both views).
 //
 // What bounds it.  f32 products run on the SIMT FMA units (TF32 would miss
 // the 1e-5 bars against the plain versions), 67 TFLOP/s on an H100: every
@@ -106,23 +109,29 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Ring stage `st` <- depth slice kt: rows [0, a_rows) of A (row stride
-// lda) and of a K-major B (columns [0, b_cols), row stride ldb), or depth
-// rows of an N-major B (columns [0, b_cols)); zeros elsewhere.  One
-// 16-byte copy per thread and step, eight neighbouring threads on a row's
-// 128 bytes.
-template <int BL>
-__device__ __forceinline__ void load_stage(float* st, const float* __restrict__ A, size_t lda,
-                                           int a_rows, const float* __restrict__ B, size_t ldb,
-                                           int b_cols, int K, int kt) {
+// lda) or, with SPLIT, the tile's upper half from rows [0, a_rows) of A over
+// its lower half from rows [0, hi_rows) of A_hi; rows [0, b_cols) of a
+// K-major B (row stride ldb), or depth rows of an N-major B (columns [0,
+// b_cols)); zeros elsewhere.  One 16-byte copy per thread and step, eight
+// neighbouring threads on a row's 128 bytes.
+template <int BL, bool SPLIT>
+__device__ __forceinline__ void load_stage(float* st, const float* __restrict__ A,
+                                           const float* __restrict__ A_hi, size_t lda,
+                                           int a_rows, int hi_rows, const float* __restrict__ B,
+                                           size_t ldb, int b_cols, int K, int kt) {
   constexpr int CHUNKS = BK / 4;   // 16-byte chunks of a K-major row slice
+  constexpr int A_STEPS = BM * CHUNKS / THREADS;
+  static_assert(A_STEPS % 2 == 0, "each copy step stays within one half of the A tile");
   const int k0 = kt * BK;
   float* As = st;
   float* Bs = st + Ring<BL>::A_FLOATS;
 #pragma unroll
-  for (int l = 0; l < BM * CHUNKS / THREADS; ++l) {
+  for (int l = 0; l < A_STEPS; ++l) {
     const int idx = threadIdx.x + l * THREADS, r = idx / CHUNKS, c = (idx % CHUNKS) * 4;
-    const bool ok = r < a_rows && k0 + c < K;
-    cp_async16(As + r * KLD + c, ok ? A + (size_t)r * lda + k0 + c : A, ok);
+    const bool hi = SPLIT && l >= A_STEPS / 2;   // rows BM / 2 .. BM - 1
+    const int hr = hi ? r - BM / 2 : r;          // the row within its half's base
+    const bool ok = hr < (hi ? hi_rows : a_rows) && k0 + c < K;
+    cp_async16(As + r * KLD + c, ok ? (hi ? A_hi : A) + (size_t)hr * lda + k0 + c : A, ok);
   }
   if constexpr (BL == B_KMAJOR) {
 #pragma unroll
@@ -183,14 +192,17 @@ __device__ __forceinline__ void mma_stage(const float* st, float (&acc)[TR][TC])
   }
 }
 
-// acc (thread's 8 x 8 outputs, frag_row / frag_col) = the tile's rows of A
+// acc (thread's 8 x 8 outputs, frag_row / frag_col) = the tile's rows (of
+// A, or with SPLIT its halves from A and A_hi as load_stage takes them)
 // times its columns of B over the depth K, through the ring in `smem`
 // (Ring<BL>::BYTES).  Ends with every copy landed and a barrier: the caller
 // may reuse the ring's shared memory at once.
-template <int BL>
-__device__ __forceinline__ void product(float* smem, const float* __restrict__ A, size_t lda,
-                                        int a_rows, const float* __restrict__ B, size_t ldb,
-                                        int b_cols, int K, float (&acc)[TR][TC]) {
+template <int BL, bool SPLIT>
+__device__ __forceinline__ void product_rows(float* smem, const float* __restrict__ A,
+                                             const float* __restrict__ A_hi, size_t lda,
+                                             int a_rows, int hi_rows,
+                                             const float* __restrict__ B, size_t ldb, int b_cols,
+                                             int K, float (&acc)[TR][TC]) {
   constexpr int SF = Ring<BL>::STAGE_FLOATS;
 #pragma unroll
   for (int i = 0; i < TR; ++i)
@@ -199,20 +211,40 @@ __device__ __forceinline__ void product(float* smem, const float* __restrict__ A
   const int KT = (K + BK - 1) / BK;
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < KT) load_stage<BL>(smem + s * SF, A, lda, a_rows, B, ldb, b_cols, K, s);
+    if (s < KT)
+      load_stage<BL, SPLIT>(smem + s * SF, A, A_hi, lda, a_rows, hi_rows, B, ldb, b_cols, K, s);
     cp_async_commit();
   }
   for (int kt = 0; kt < KT; ++kt) {
     cp_async_wait<STAGES - 2>();   // slice kt has landed (this thread's copies)
     __syncthreads();               // ... everyone's, and slice kt - 1 is consumed
     const int next = kt + STAGES - 1;
-    if (next < KT) load_stage<BL>(smem + (next % STAGES) * SF, A, lda, a_rows, B, ldb, b_cols, K,
-                                  next);
+    if (next < KT)
+      load_stage<BL, SPLIT>(smem + (next % STAGES) * SF, A, A_hi, lda, a_rows, hi_rows, B, ldb,
+                            b_cols, K, next);
     cp_async_commit();             // an empty group keeps the count at the tail
     mma_stage<BL>(smem + (kt % STAGES) * SF, acc);
   }
   cp_async_wait<0>();
   __syncthreads();
+}
+
+// The tile's rows are rows [0, a_rows) of A.
+template <int BL>
+__device__ __forceinline__ void product(float* smem, const float* __restrict__ A, size_t lda,
+                                        int a_rows, const float* __restrict__ B, size_t ldb,
+                                        int b_cols, int K, float (&acc)[TR][TC]) {
+  product_rows<BL, false>(smem, A, A, lda, a_rows, a_rows, B, ldb, b_cols, K, acc);
+}
+
+// The tile's upper half is rows [0, a_rows) of A, its lower half rows [0,
+// hi_rows) of A_hi.
+template <int BL>
+__device__ __forceinline__ void product(float* smem, const float* __restrict__ A,
+                                        const float* __restrict__ A_hi, size_t lda, int a_rows,
+                                        int hi_rows, const float* __restrict__ B, size_t ldb,
+                                        int b_cols, int K, float (&acc)[TR][TC]) {
+  product_rows<BL, true>(smem, A, A_hi, lda, a_rows, hi_rows, B, ldb, b_cols, K, acc);
 }
 
 }  // namespace simt

@@ -269,6 +269,64 @@ def test_fused_head_nopf_kernel_matches_plain(card, dtype, tree_name, shape, tau
     assert (pooled[:, ~torch.from_numpy(tree.proto_valid).cuda()] == 0).all()
 
 
+# K2's f32 grid: row tiles of 64 pair rows (view 1's over view 2's) by
+# column groups.  (tree, shape (2B, H, W, D), K2 launches a call): tiles
+# holding the end of one image and the start of the next (676 and 99 rows
+# an image), one pair, B * H * W under one tile (9 rows), a tile holding
+# five images (5 rows each), an image of exactly one tile (64 rows), a
+# node of 300 (parts, then a padded tail) under one tile, a narrow bucket
+# beside a node of 300
+F32_TILE_CASES = [("flagship", (4, 26, 26, 768), 1), ("multi_bucket", (2, 9, 11, 72), 1),
+                  ("tiny", (2, 3, 3, 64), 1), ("tiny", (10, 1, 5, 64), 1),
+                  ("flat768", (2, 8, 8, 64), 3), ("flat300", (2, 3, 3, 72), 3),
+                  ("mixed", (6, 9, 11, 72), 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tree_name,shape,launches", F32_TILE_CASES)
+def test_fused_head_nopf_f32_row_tiles(card, tree_name, shape, launches):
+    """K2 in f32 at the edges of its row tiles against its plain version;
+    two calls give the same bits (the column maxima meet by atomicMax, the
+    log sums are added in a fixed order), and a call launches as many
+    kernels as its plan says."""
+    from pipnet_tpu_torch.ops.fused_head import head_plan, plan_launches
+    from pipnet_tpu_torch.ops.fused_head_nopf import (fused_head_nopf,
+                                                      fused_head_nopf_reference)
+    tree = _tree(tree_name)
+    f, k = _inputs(tree, *shape, seed=15, dtype=torch.float32)
+    with torch.inference_mode():
+        before = fused_head_nopf.launches
+        pooled, logsum = fused_head_nopf(f, k, tree, eps=1e-12)
+        assert fused_head_nopf.launches - before == launches
+        pooled2, logsum2 = fused_head_nopf(f, k, tree, eps=1e-12)
+        torch.cuda.synchronize()
+        pooled_r, logsum_r = fused_head_nopf_reference(f, k, tree, eps=1e-12)
+    assert plan_launches(*head_plan(tree, torch.float32, f.device), 3) == launches
+    torch.testing.assert_close(pooled, pooled_r, atol=1e-5, rtol=0)
+    torch.testing.assert_close(logsum, logsum_r, atol=1e-4, rtol=1e-5)
+    assert torch.equal(pooled, pooled2) and torch.equal(logsum, logsum2)
+    assert (pooled[:, ~torch.from_numpy(tree.proto_valid).cuda()] == 0).all()
+
+
+@pytest.mark.cuda
+def test_fused_head_nopf_f32_refuses_unaligned_inputs(card):
+    """The f32 kernel reads F and K by 16-byte copies: D not a multiple of 4,
+    or features off a 16-byte boundary, raise before any launch."""
+    from pipnet_tpu_torch.ops.fused_head_nopf import fused_head_nopf
+    tree = _tree("tiny")
+    f, k = _inputs(tree, 2, 3, 3, 66, seed=16, dtype=torch.float32)
+    before = fused_head_nopf.launches
+    with torch.inference_mode():
+        with pytest.raises(ValueError, match="multiples of 4"):
+            fused_head_nopf(f, k, tree)
+        f64, k64 = f[..., :64].contiguous(), k[:64].contiguous()
+        g = torch.empty(f64.numel() + 1, device="cuda")[1:].view(f64.shape)   # 4 bytes off
+        g.copy_(f64)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fused_head_nopf(g, k64, tree)
+    assert fused_head_nopf.launches == before
+
+
 @pytest.mark.cuda
 def test_training_heads_count_launches_and_check_inputs(card):
     """Autograd through K1 launches K1 then K1b; through K2 launches K2, then
