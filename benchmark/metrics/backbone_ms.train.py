@@ -1,0 +1,11 @@
+"""backbone_ms.train (ms): the forward and backward of the two views of one batch, alone, by CUDA events over five calls.
+Layer: the backbone (`models/convnext.py`).  Alone: the part runs outside the step, so the parts need
+not add up to the step."""
+
+from ..tracing import cuda_time_ms
+
+MOVES = "train_images_per_s"
+
+
+def read(ctx):
+    return cuda_time_ms(ctx.parts()["backbone"])
