@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..device import host_to_device, resolve_device
+from ..runtime.profiling import span
 from .augment import IMAGENET_MEAN, IMAGENET_STD
 from .loader import EvalDataset, Loader, TwoViewDataset
 
@@ -54,7 +55,8 @@ class DeviceDataCache:
         """The batch of dataset rows ``rows`` (host indices: a tiny
         host-to-device copy, then one gather on the device).  To a card the
         indices go from pinned memory without waiting for the card."""
-        return self.gather(host_to_device(np.ascontiguousarray(rows, np.int64), self.device))
+        with span("fetch"):
+            return self.gather(host_to_device(np.ascontiguousarray(rows, np.int64), self.device))
 
     def gather(self, rows_device: torch.Tensor) -> torch.Tensor:
         """The batch of an index vector already on the device."""

@@ -12,6 +12,8 @@ from typing import Union
 import numpy as np
 import torch
 
+from .runtime.profiling import span
+
 
 def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:
     """``device`` as a ``torch.device``; raises when it names CUDA and no card
@@ -29,7 +31,8 @@ def host_to_device(a: Union[np.ndarray, list], device: Union[str, torch.device])
     blocking copy to a card synchronizes its stream, which drains the queue
     the host has run ahead with; this one goes from pinned memory,
     asynchronously."""
-    t = torch.as_tensor(a)
-    if torch.device(device).type != "cuda":
-        return t.to(device)
-    return t.pin_memory().to(device, non_blocking=True)
+    with span("to_device"):
+        t = torch.as_tensor(a)
+        if torch.device(device).type != "cuda":
+            return t.to(device)
+        return t.pin_memory().to(device, non_blocking=True)

@@ -24,6 +24,7 @@ from ..config import ModelConfig
 from ..device import resolve_device
 from ..ops.segment import gumbel_noise, segment_hard_gumbel, tree_tensor
 from ..runtime.mesh import BatchShard
+from ..runtime.profiling import span
 from ..tree.compile import TreeArrays, compile_tree
 from ..tree.node import Node
 from .byol import TARGET_PREFIXES, PatchMLP
@@ -113,8 +114,9 @@ class PIPNet(nn.Module):
     def features(self, xs: torch.Tensor, *, train: bool = False,
                  generator: Optional[torch.Generator] = None,
                  shard: Optional[BatchShard] = None) -> torch.Tensor:
-        f = self.backbone(xs, train=train, generator=generator, shard=shard)
-        return self.reducer(f) if self.cfg.stage4_reducer else f
+        with span("backbone"):
+            f = self.backbone(xs, train=train, generator=generator, shard=shard)
+            return self.reducer(f) if self.cfg.stage4_reducer else f
 
     def forward(self, xs: torch.Tensor, *, train: bool = False,
                 generator: Optional[torch.Generator] = None,
@@ -144,9 +146,10 @@ class PIPNet(nn.Module):
         ``Mesh.to_model`` and every other reader directly, so their
         gradient counts the head's columns once each and the rest once."""
         f = self.features(xs, train=train, generator=generator, shard=shard)
-        out = self.head(f, inference=inference,
-                        apply_overspecificity_mask=apply_overspecificity_mask,
-                        keep=keep, fuse_align_pf=fuse_align_pf, gumbel_noise=gumbel_noise)
+        with span("head"):
+            out = self.head(f, inference=inference,
+                            apply_overspecificity_mask=apply_overspecificity_mask,
+                            keep=keep, fuse_align_pf=fuse_align_pf, gumbel_noise=gumbel_noise)
         out["features"] = f
         if with_byol:
             if not self.cfg.use_byol:

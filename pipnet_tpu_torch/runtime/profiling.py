@@ -1,22 +1,58 @@
-"""Profiling and throughput counters (the port's counterpart of the JAX
-package's ``runtime/profiling.py``; the reference has no tracing,
+"""Profiling (the port's counterpart of the JAX package's
+``runtime/profiling.py``; the reference has no tracing,
 ``main.py:59-64``).
 
 * ``trace(logdir)``: a ``torch.profiler`` trace of the CPU and, on a card,
   CUDA activity, written to ``logdir`` as a Chrome / Perfetto trace;
-* ``annotate(name)``: a named region in such a trace
-  (``torch.profiler.record_function``);
-* ``StepTimer``: images/s and images/s per card with warm-up steps excluded.
+* ``span(name)``: a named region of the program in such a trace, on the
+  clock of the kernels' timestamps; a no-op unless a profiler records.
+  ``SPANS`` holds every name the program gives a span.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-import time
-from typing import Dict, Optional
 
 import torch
+from torch._C._autograd import _profiler_enabled
+from torch._C._profiler import _RecordFunctionFast
+
+# Every span of the program.  A span's parent is the span that encloses it
+# on its thread; ``ROOTS`` are the outermost: one training step, one served
+# batch.
+#   fetch: a batch of the device data cache (the rows' copy, the gather)
+#   to_device: a small host array sent from pinned memory (the cache's
+#       rows, the labels, the augmentation's tables)
+#   step: the whole train step (train/step.py::make_train_step), in it
+#     augment: the draws and both views of a uint8 batch, in it
+#       augment.wait: the host blocked on the views' op counts (card only)
+#     backbone: PIPNet.features (the backbone forward and the reducer)
+#     head: the prototype head's forward (K1, K2, or the composed head)
+#     losses: compute_total_loss's forward
+#     backward: loss.backward(); kernels of the backward belong to the
+#       span of the forward operation whose gradient they compute
+#     clip: gradient clipping
+#     adamw: the AdamW update (and BYOL's EMA)
+#     metrics: the step's on-device metrics
+#   serve: one served batch (serve.py::Predictor.forward), in it
+#     backbone, head (as above) and decode: the joint leaf decode
+SPANS = ("fetch", "to_device", "step", "augment", "augment.wait", "backbone", "head",
+         "losses", "backward", "clip", "adamw", "metrics", "serve", "decode")
+ROOTS = ("step", "serve")
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """``with span('backbone'): ...``: a region named ``name`` (one of
+    ``SPANS``) while a ``torch.profiler`` records in the process, else a
+    shared no-op (one check, no allocation).  The region is a
+    function-scope record: a ``record_function`` region (user scope) would
+    also put a copy of itself among the device's events."""
+    if _profiler_enabled():
+        return _RecordFunctionFast(name)
+    return _OFF
 
 
 @contextlib.contextmanager
@@ -35,42 +71,3 @@ def trace(logdir: str):
             if torch.cuda.is_available():
                 torch.cuda.synchronize()
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
-
-
-def annotate(name: str):
-    """Named region for traces: ``with annotate('train_step'): ...``."""
-    return torch.profiler.record_function(name)
-
-
-class StepTimer:
-    """Throughput counters: images/s per card with warm-up steps excluded.
-    The host clock times what was issued; a caller timing device work
-    synchronizes before reading ``stats``."""
-
-    def __init__(self, warmup_steps: int = 2, num_chips: Optional[int] = None):
-        self.warmup_steps = warmup_steps
-        self.num_chips = num_chips or torch.cuda.device_count() or 1
-        self.reset()
-
-    def reset(self):
-        self._steps = 0
-        self._images = 0
-        self._t0 = None
-
-    def step(self, batch_images: int):
-        self._steps += 1
-        if self._steps == self.warmup_steps:
-            self._t0 = time.perf_counter()
-            self._images = 0
-        elif self._steps > self.warmup_steps:
-            self._images += batch_images
-
-    def stats(self) -> Dict[str, float]:
-        if self._t0 is None or self._steps <= self.warmup_steps:
-            return {"steps": self._steps, "images_per_sec": 0.0,
-                    "images_per_sec_per_chip": 0.0}
-        dt = time.perf_counter() - self._t0
-        ips = self._images / max(dt, 1e-9)
-        return {"steps": self._steps, "images_per_sec": ips,
-                "images_per_sec_per_chip": ips / self.num_chips,
-                "steps_per_sec": (self._steps - self.warmup_steps) / max(dt, 1e-9)}

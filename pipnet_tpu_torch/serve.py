@@ -33,6 +33,7 @@ from .data.augment import EvalTransform
 from .device import resolve_device
 from .models.pipnet import joint_leaf_log_distribution, masked_decode_degenerates, presence_keep
 from .run_io import load_run
+from .runtime.profiling import span
 
 
 class Predictor:
@@ -75,11 +76,13 @@ class Predictor:
     def forward(self, xs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """xs (B, S, S, 3) normalized images on the device -> (logits,
         pooled, log joint leaf distribution)."""
-        out = self.model(xs, inference=True, apply_overspecificity_mask=self.keep is not None,
-                         keep=self.keep)
-        logp = joint_leaf_log_distribution(
-            out["logits"], self.tree, softmax_tau=self.path_prob_softmax_tau,
-            degenerate_nodes=self.degenerate)
+        with span("serve"):
+            out = self.model(xs, inference=True,
+                             apply_overspecificity_mask=self.keep is not None, keep=self.keep)
+            with span("decode"):
+                logp = joint_leaf_log_distribution(
+                    out["logits"], self.tree, softmax_tau=self.path_prob_softmax_tau,
+                    degenerate_nodes=self.degenerate)
         return out["logits"], out["pooled"], logp
 
     # -- input handling ------------------------------------------------------

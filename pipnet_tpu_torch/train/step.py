@@ -67,6 +67,7 @@ from ..ops.device_augment import ViewDraws, op_counts, sample_view, two_view_tra
 from ..ops.device_geometric import GeometricDraws, sample_transform1, transform1_batch
 from ..runtime.mesh import (PROTO_AXIS_PARAMS, BatchShard, Mesh, on_axis, split_of,
                             state_shardings, whole_of)
+from ..runtime.profiling import span
 from ..tree.compile import TreeArrays
 from .optimizer import (AdamState, Phase, adam_init, adam_update, clip_gradients,
                         cosine_annealing, cosine_warm_restarts, group_trainable,
@@ -164,7 +165,8 @@ def sample_augment(batch: int, size: int, image_size: int, generator: torch.Gene
         host.copy_(counts, non_blocking=True)
         done = torch.cuda.Event()
         done.record(side)
-    done.synchronize()
+    with span("augment.wait"):
+        done.synchronize()
     main.wait_stream(side)
     for t in draws.tensors():
         t.record_stream(main)       # made on the side stream, used on this one
@@ -282,95 +284,103 @@ def make_train_step(model: PIPNet, tree: TreeArrays, cfg: RunConfig,
              scalars: Scalars, acc: Optional[Metrics] = None,
              presence_noise: Optional[torch.Tensor] = None,
              augment_draws: Optional[AugmentDraws] = None) -> Tuple[TrainState, Metrics]:
-        if xs1.dtype == torch.uint8:
-            if xs2 is not None:
-                raise ValueError("a uint8 batch is one shared view a sample: pass xs2=None")
-            S, cars = cfg.model.image_size, cfg.train.device_augment_cars
-            if augment_draws is not None:
-                draws = augment_draws if mesh is None else augment_draws.take(views1)
-            else:
-                n = xs1.shape[0] if mesh is None else views1.global_rows(xs1.shape[0])
-                draws = sample_augment(n, xs1.shape[1], S, state.generator, cars, views1)
-            xs1, xs2 = augment_views(xs1, S, draws, cars)
-        xs = torch.cat([xs1, xs2], dim=0)
-        ys2 = torch.cat([ys, ys], dim=0)
-        for n, p in state.params.items():
-            p.requires_grad_(trainable[n])
-            p.grad = None
+        # the body inside the span, not a wrapper around the step: a wrapper's
+        # frame would hold the uint8 batch until the step ends
+        with span("step"):
+            if xs1.dtype == torch.uint8:
+                if xs2 is not None:
+                    raise ValueError("a uint8 batch is one shared view a sample: pass xs2=None")
+                S, cars = cfg.model.image_size, cfg.train.device_augment_cars
+                with span("augment"):
+                    if augment_draws is not None:
+                        draws = augment_draws if mesh is None else augment_draws.take(views1)
+                    else:
+                        n = xs1.shape[0] if mesh is None else views1.global_rows(xs1.shape[0])
+                        draws = sample_augment(n, xs1.shape[1], S, state.generator, cars, views1)
+                    xs1, xs2 = augment_views(xs1, S, draws, cars)
+            xs = torch.cat([xs1, xs2], dim=0)
+            ys2 = torch.cat([ys, ys], dim=0)
+            for n, p in state.params.items():
+                p.requires_grad_(trainable[n])
+                p.grad = None
 
-        byol_target = model.byol_target_projection(xs, state.byol) if byol_active else None
-        out = model(xs, train=True, generator=state.generator, fuse_align_pf=fuse_align_pf,
-                    with_byol=byol_active, shard=rows)
-        weights = LossWeights(align_pf=scalars.align_pf_weight,
-                              byol=0.5 if ph.pretrain else 2.0,
-                              tanh=scalars.tanh_weight, cl=weights_cl,
-                              ood=0.0 if ph.pretrain else 0.2)
-        w_eff, kernel, presence = head.effective_cls_weight(), head.add_on_kernel, \
-            head.proto_presence
-        if mesh is not None:
-            out = global_outputs(out)
-            ys2 = rows.gather(ys2)
-            if byol_target is not None:
-                byol_target = rows.gather(byol_target)
-            if columns is not None:
-                w_eff, kernel = mesh.gather_columns(w_eff, 1), mesh.gather_columns(kernel, 1)
-                presence = mesh.gather_columns(presence, 0)
-            w_eff, kernel, presence = mesh.once(w_eff), mesh.once(kernel), mesh.once(presence)
-        loss, aux = compute_total_loss(
-            tc, out, ys2, w_eff, add_on_kernel=kernel, proto_presence=presence,
-            multiplier=head.multiplier[0].detach(), cfg=eff_lcfg, weights=weights,
-            tree=tree, pretrain=ph.pretrain, finetune=ph.finetune,
-            ood_present=statics.has_ood, generator=state.generator,
-            presence_noise=presence_noise, byol_online=out.get("byol_online"),
-            byol_target=byol_target, shard=rows)
-        loss.backward()       # .grad stays set (unclipped) until the next step
-        if mesh is not None:
-            mesh.all_reduce_grads(state.params)
-        grads = {n: p.grad for n, p in state.params.items()}
+            byol_target = model.byol_target_projection(xs, state.byol) if byol_active else None
+            out = model(xs, train=True, generator=state.generator, fuse_align_pf=fuse_align_pf,
+                        with_byol=byol_active, shard=rows)
+            weights = LossWeights(align_pf=scalars.align_pf_weight,
+                                  byol=0.5 if ph.pretrain else 2.0,
+                                  tanh=scalars.tanh_weight, cl=weights_cl,
+                                  ood=0.0 if ph.pretrain else 0.2)
+            w_eff, kernel, presence = head.effective_cls_weight(), head.add_on_kernel, \
+                head.proto_presence
+            if mesh is not None:
+                out = global_outputs(out)
+                ys2 = rows.gather(ys2)
+                if byol_target is not None:
+                    byol_target = rows.gather(byol_target)
+                if columns is not None:
+                    w_eff, kernel = mesh.gather_columns(w_eff, 1), mesh.gather_columns(kernel, 1)
+                    presence = mesh.gather_columns(presence, 0)
+                w_eff, kernel, presence = mesh.once(w_eff), mesh.once(kernel), mesh.once(presence)
+            with span("losses"):
+                loss, aux = compute_total_loss(
+                    tc, out, ys2, w_eff, add_on_kernel=kernel, proto_presence=presence,
+                    multiplier=head.multiplier[0].detach(), cfg=eff_lcfg, weights=weights,
+                    tree=tree, pretrain=ph.pretrain, finetune=ph.finetune,
+                    ood_present=statics.has_ood, generator=state.generator,
+                    presence_noise=presence_noise, byol_online=out.get("byol_online"),
+                    byol_target=byol_target, shard=rows)
+            with span("backward"):
+                loss.backward()       # .grad stays set (unclipped) until the next step
+            if mesh is not None:
+                mesh.all_reduce_grads(state.params)
+            grads = {n: p.grad for n, p in state.params.items()}
 
-        grad_norm = None
-        if ocfg.clip_grad > 0.0:
-            grads, grad_norm = clip_gradients(grads, labels, ocfg.clip_grad,
-                                              per_group=ocfg.clip_grad_per_group,
-                                              split=split, mesh=mesh)
+            grad_norm = None
+            if ocfg.clip_grad > 0.0:
+                with span("clip"):
+                    grads, grad_norm = clip_gradients(grads, labels, ocfg.clip_grad,
+                                                      per_group=ocfg.clip_grad_per_group,
+                                                      split=split, mesh=mesh)
 
-        def net_lr(base):
-            return cosine_annealing(base, statics.eta_min_net, scalars.net_t, scalars.net_T)
+            def net_lr(base):
+                return cosine_annealing(base, statics.eta_min_net, scalars.net_t, scalars.net_T)
 
-        def cls_lr(base):
-            return cosine_warm_restarts(base, 1e-3, scalars.epoch_frac, statics.t0_cls)
+            def cls_lr(base):
+                return cosine_warm_restarts(base, 1e-3, scalars.epoch_frac, statics.t0_cls)
 
-        backbone_lr = None
-        if statics.backbone_warmup_steps > 0:
-            ramp = min(max((scalars.net_t - statics.backbone_warmup_t0)
-                           / statics.backbone_warmup_steps, 0.0), 1.0)
-            backbone_lr = lambda base: net_lr(base) * ramp  # noqa: E731
-        masks, lrs = masks_and_lrs(labels, ph, ocfg, net_lr, cls_lr, backbone_lr)
-        if zero1:
-            zero1_update(state, grads, lrs, masks)
-        else:
-            adam_update(state.params, grads, state.opt, lrs, masks,
-                        weight_decay=ocfg.weight_decay)
-        if byol_active:
-            ema_update(state.byol, state.params,
-                       byol_tau_schedule(scalars.net_t, scalars.net_T, lcfg.byol_tau_base,
-                                         lcfg.byol_tau_max))
+            backbone_lr = None
+            if statics.backbone_warmup_steps > 0:
+                ramp = min(max((scalars.net_t - statics.backbone_warmup_t0)
+                               / statics.backbone_warmup_steps, 0.0), 1.0)
+                backbone_lr = lambda base: net_lr(base) * ramp  # noqa: E731
+            masks, lrs = masks_and_lrs(labels, ph, ocfg, net_lr, cls_lr, backbone_lr)
+            with span("adamw"):
+                if zero1:
+                    zero1_update(state, grads, lrs, masks)
+                else:
+                    adam_update(state.params, grads, state.opt, lrs, masks,
+                                weight_decay=ocfg.weight_decay)
+                if byol_active:
+                    ema_update(state.byol, state.params,
+                               byol_tau_schedule(scalars.net_t, scalars.net_T, lcfg.byol_tau_base,
+                                                 lcfg.byol_tau_max))
 
-        with torch.no_grad():
-            if statics.weight_reactivation and not ph.pretrain:
-                # the intended +0.01 to classifier weights <= 1e-3; a no-op in
-                # the reference through its name-matching bug (train.py:67-71)
-                w = head.cls_weight
-                w.copy_(torch.where(w <= 1e-3, w + 0.01, w))
-            metrics = _metrics(tc, tree, out["logits"].detach(), ys2)
-            metrics["loss"] = loss.detach()
-            if grad_norm is not None:
-                metrics["grad_norm"] = grad_norm           # pre-clip
-            for k, v in aux.items():
-                metrics[f"loss/{k}" if v.dim() == 0 else f"per_node/{k}"] = v.detach()
-            if acc is not None:
-                metrics = {k: acc[k] + m.to(acc[k].dtype) for k, m in metrics.items()}
-        return state, metrics
+            with torch.no_grad(), span("metrics"):
+                if statics.weight_reactivation and not ph.pretrain:
+                    # the intended +0.01 to classifier weights <= 1e-3; a no-op in
+                    # the reference through its name-matching bug (train.py:67-71)
+                    w = head.cls_weight
+                    w.copy_(torch.where(w <= 1e-3, w + 0.01, w))
+                metrics = _metrics(tc, tree, out["logits"].detach(), ys2)
+                metrics["loss"] = loss.detach()
+                if grad_norm is not None:
+                    metrics["grad_norm"] = grad_norm           # pre-clip
+                for k, v in aux.items():
+                    metrics[f"loss/{k}" if v.dim() == 0 else f"per_node/{k}"] = v.detach()
+                if acc is not None:
+                    metrics = {k: acc[k] + m.to(acc[k].dtype) for k, m in metrics.items()}
+            return state, metrics
 
     def global_outputs(out: Metrics) -> Metrics:
         """The whole batch's outputs that the losses read, gathered from

@@ -145,6 +145,8 @@ def test_short_run_serves_the_trainers_logits_and_resumes(tmp_path, port_small_b
     with open(trace) as f:
         events = json.load(f)["traceEvents"]
     assert sum(e.get("name") == "aten::conv2d" for e in events) > 0
+    regions = {e.get("name") for e in events}
+    assert {"step", "backbone"} <= regions      # the program's spans
 
     names = {os.path.relpath(os.path.join(p, f), run) for p, _, fs in os.walk(run) for f in fs}
     for name in ("metadata/config.json", "metadata/classes.json", "metadata/tree.json",

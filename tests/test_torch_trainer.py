@@ -18,8 +18,7 @@ size: a narrow ConvNeXt (``small_backbones``), 32^2 images and the
   bit for bit where the uninterrupted run does; a save cut between its
   writes leaves the previous checkpoint restorable; without a cut save,
   saving and finding checkpoints load and hash nothing;
-- the profiling helpers: an annotated region lands in the trace, and the
-  step timer leaves out its warm-up steps.
+- the profiling helpers: a span lands in the trace.
 
 No JAX ``fit`` takes a real step here (those tests are ``slow`` in
 ``tests/test_train.py``).
@@ -27,6 +26,7 @@ No JAX ``fit`` takes a real step here (those tests are ``slow`` in
 
 import dataclasses
 import filecmp
+import json
 import os
 import types
 
@@ -515,23 +515,15 @@ def test_uncut_checkpoints_are_found_without_loading_or_hashing(monkeypatch, tmp
 
 
 def test_trace_holds_annotated_regions(tmp_path):
-    from pipnet_tpu_torch.runtime import annotate, trace
+    """A span inside ``trace`` is a region of the written trace, around
+    the operations run in it."""
+    from pipnet_tpu_torch.runtime import span, trace
     with trace(str(tmp_path / "t")):
-        with annotate("pipnet_region"):
+        with span("backbone"):
             torch.ones(8).sum()
     with open(tmp_path / "t" / "trace.json") as f:
-        assert "pipnet_region" in f.read()
-
-
-def test_step_timer_leaves_out_warmup_steps(monkeypatch):
-    import pipnet_tpu_torch.runtime.profiling as profiling
-    clock = iter([10.0, 14.0])
-    monkeypatch.setattr(profiling.time, "perf_counter", lambda: next(clock))
-    timer = profiling.StepTimer(warmup_steps=2, num_chips=2)
-    assert timer.stats()["images_per_sec"] == 0.0
-    for _ in range(6):
-        timer.step(8)
-    # steps 3..6 after the clock starts at step 2: 32 images in 4 s
-    assert timer.stats() == {"steps": 6, "images_per_sec": 8.0,
-                             "images_per_sec_per_chip": 4.0, "steps_per_sec": 1.0}
-    assert profiling.StepTimer().num_chips == (torch.cuda.device_count() or 1)
+        events = json.load(f)["traceEvents"]
+    region = next(e for e in events if e.get("name") == "backbone")
+    inner = next(e for e in events if e.get("name") == "aten::sum")
+    assert region["ts"] <= inner["ts"] and \
+        inner["ts"] + inner["dur"] <= region["ts"] + region["dur"]
