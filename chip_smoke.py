@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch port (``pipnet_tpu_torch``) on one CUDA card.
 
     python3 chip_smoke.py [--baseline CHECKOUT]
-                          [--only blocks|data|trainer|eval|interp|backbones|options|mesh|model|f32]
+                          [--only blocks|uniform|data|trainer|eval|interp|backbones|options|
+                                  mesh|model|f32]
 
 Phases, each of which fails the run loudly:
 
@@ -32,7 +33,11 @@ Phases, each of which fails the run loudly:
    at the main-path shapes timed in turns with these (baseline, this, this,
    baseline): K1 on the flagship in both dtypes, K2 in bf16 and in f32
    (flagship and flat at 64 pairs, ResNet-50's shape at 4), K1b and K3 in
-   bf16, K4 in f32 at the four stage maps at both batches;
+   bf16, K4 in f32 at the four stage maps at both batches; the uniformity
+   loss's pair sum K5 and its gradient K5b at one view of the flagship
+   step (43,264 rows, D = 768) against the float64 value of the same bf16
+   rows and the plain version, bit for bit on a repeat, timed beside the
+   plain version and the bound, and on 4,097 rows at D = 768 and 2048;
 4. K3's own path: ``dwconv7x7`` forward and backward at the four stage
    maps (no model of either package runs K3), with its exact launches;
 5. serving: a run directory holding the flagship configuration and tree
@@ -199,7 +204,8 @@ Phases, each of which fails the run loudly:
 
 The last two lines of standard output are the ``{"kernels": [...]}``
 record and ``{"ok": true, "device": {...}}``.  ``--only blocks`` runs
-phases 1, 2 and the K3 and K4 checks of phase 3, ``--only data`` phases
+phases 1, 2 and the K3 and K4 checks of phase 3, ``--only uniform`` phases
+1, 2 and the K5 and K5b checks of phase 3, ``--only data`` phases
 1, 2 and 9, ``--only trainer`` phases 1, 2 and 11, ``--only eval`` phases
 1, 2 and 12, ``--only interp`` phases 1, 2 and 13, ``--only backbones``
 phases 1, 2, the kernel checks at the other backbones' shapes and 14,
@@ -246,7 +252,8 @@ FLAT_LOGIT_STD = 6.0
 # the test fixtures' trees (MULTI_NEWICK, MIXED_NEWICK, the flat trees) are
 # those of tests/torch_port_util.py, which imports no JAX until asked to
 FIXTURES = os.path.join(REPO, "tests")
-KERNEL_SOURCES = ["fused_head", "head_backward", "fused_head_nopf", "dwconv", "cnblock"]
+KERNEL_SOURCES = ["fused_head", "head_backward", "fused_head_nopf", "dwconv", "cnblock",
+                  "uniform_pairs"]
 
 # H100 SXM published peaks (dense): the bound of a kernel is the larger of
 # its bytes over the memory rate and its operations over the peak for their type
@@ -941,6 +948,103 @@ def f32_nopf_checks(baseline=None) -> dict:
     return records
 
 
+# K5 and K5b against the float64 value of the same rows (the sum relative,
+# the gradient relative to each value plus a share of the largest): bf16
+# rows, the sum within 1e-4 (distances from f32 accumulators, ~1e-6 off,
+# and the tiles' f32 partials), the gradient within 2^-8 (one rounding to
+# bf16) plus 1e-3 (m rounded to bf16 before its product, as in the plain
+# version); f32 rows, nothing rounded below f32: 1e-5, 1e-5 and 1e-5;
+# tests/test_torch_cuda.py gives the same bars
+UNIFORM_BARS = {torch.bfloat16: (1e-4, 2.0 ** -8, 1e-3), torch.float32: (1e-5, 1e-5, 1e-5)}
+
+
+def check_uniform_pairs(n: int, D: int, seed: int, dtype=torch.bfloat16,
+                        timed: bool = False) -> dict:
+    """K5 and K5b on n unit rows of width D in ``dtype`` (one view of the
+    flagship step at n = 43,264, D = 768) against the float64 value of the
+    same rows and against the plain version in ``dtype``, repeated bit for
+    bit; timed, beside the plain version's time and the bound: the
+    products that ``benchmark/flops.py::uniformity_flops`` counts for one
+    view (the forward's pairs i < j and m X, not K5b's recomputed Gram)
+    over the dtype's peak, and the same with the recomputed Gram
+    (``work_bound_ms``)."""
+    from pipnet_tpu_torch.ops.uniform_pairs import (UNIFORM_BLOCK, pair_sum_backward_reference,
+                                                    pair_sum_reference, uniform_pairs,
+                                                    uniform_pairs_backward)
+    r = np.random.default_rng(seed)
+    x = r.standard_normal((n, D))
+    x = torch.from_numpy((x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32))
+    x = x.to("cuda", dtype)
+    g = torch.tensor(0.37, device="cuda")
+    rec = {"rows": n, "dim": D, "dtype": str(dtype).replace("torch.", "")}
+    sum_rel, dx_rel, dx_floor = UNIFORM_BARS[dtype]
+    with torch.inference_mode():
+        zero_counts()
+        s = uniform_pairs(x, 2.0)
+        dx = uniform_pairs_backward(x, g, 2.0)
+        rec["launches"] = {k: v for k, v in counts().items() if k.startswith("uniform")}
+        s2 = uniform_pairs(x, 2.0)
+        dx2 = uniform_pairs_backward(x, g, 2.0)
+        torch.cuda.synchronize()
+        rec["bit_identical_repeat"] = bool(torch.equal(s, s2) and torch.equal(dx, dx2))
+        x64 = x.double()
+        want = float(pair_sum_reference(x64, 2.0, 1024))
+        want_dx = pair_sum_backward_reference(x64, g.double(), 2.0, 1024)
+        plain = float(pair_sum_reference(x, 2.0, UNIFORM_BLOCK))
+        plain_dx = pair_sum_backward_reference(x, g, 2.0, UNIFORM_BLOCK)
+        err = (dx.double() - want_dx).abs()
+        scale = want_dx.abs().max().item()
+        rec.update(sum=float(s), exact_sum=want, sum_rel_err=abs(float(s) - want) / want,
+                   plain_sum_rel_err=abs(plain - want) / want, max_abs_err=err.max().item(),
+                   plain_dx_max_abs_err=(plain_dx.double() - want_dx).abs().max().item(),
+                   dx_scale=scale)
+        within = bool((err <= dx_rel * want_dx.abs() + dx_floor * scale).all())
+        del x64, want_dx, plain_dx, err
+        if not (within and rec["bit_identical_repeat"] and rec["sum_rel_err"] <= sum_rel
+                and rec["launches"] == {"uniform_pairs": 1, "uniform_pairs_backward": 1}
+                and bool(torch.isfinite(dx.float()).all())):
+            fail(f"K5/K5b disagree with the exact pair sum: {rec}")
+        if timed:
+            rec["forward_ms"] = time_ms(lambda: uniform_pairs(x, 2.0), iters=5, warmup=1)
+            rec["backward_ms"] = time_ms(lambda: uniform_pairs_backward(x, g, 2.0), iters=5,
+                                         warmup=1)
+            rec["ms"] = rec["forward_ms"] + rec["backward_ms"]
+            rec["plain_forward_ms"] = time_ms(lambda: pair_sum_reference(x, 2.0, UNIFORM_BLOCK),
+                                              iters=2, warmup=1)
+            rec["plain_backward_ms"] = time_ms(
+                lambda: pair_sum_backward_reference(x, g, 2.0, UNIFORM_BLOCK), iters=2, warmup=1)
+            rec["plain_ms"] = rec["plain_forward_ms"] + rec["plain_backward_ms"]
+            rec["library_ms"] = None
+            ops = 2.0 * D * (n * (n - 1) / 2.0 + n * n)
+            peak = PEAK_FLOPS[dtype]
+            rec.update(bound(0.0, ops, dtype))
+            rec["work_bound_ms"] = (ops + 2.0 * D * n * n) / peak * 1e3
+            rec["forward_bound_ms"] = D * n * (n - 1) / peak * 1e3
+            rec["backward_work_bound_ms"] = 4.0 * D * n * n / peak * 1e3
+            rec["roofline_pct"] = 100.0 * rec["bound_ms"] / rec["ms"]
+            rec["profile"] = profile_ms(lambda: (uniform_pairs(x, 2.0),
+                                                 uniform_pairs_backward(x, g, 2.0)), n=2)
+    torch.cuda.empty_cache()
+    return rec
+
+
+def uniform_kernel_checks(card: str) -> dict:
+    """K5 and K5b at one view of the flagship step (timed) and on 4,097
+    rows (two chunks of K5b, the last ragged) at D = 768 and 2048, in bf16
+    and in f32 (the f32 configuration's SIMT tiles)."""
+    recs = {}
+    bf16, f32 = torch.bfloat16, torch.float32
+    for name, n, D, dtype, timed in (("flagship_bf16", 43264, 768, bf16, True),
+                                     ("ragged4097_bf16", 4097, 768, bf16, False),
+                                     ("ragged4097_d2048_bf16", 4097, 2048, bf16, False),
+                                     ("flagship_f32", 43264, 768, f32, True),
+                                     ("ragged4097_f32", 4097, 768, f32, False),
+                                     ("ragged4097_d2048_f32", 4097, 2048, f32, False)):
+        recs[name] = check_uniform_pairs(n, D, seed=40 + len(recs), dtype=dtype, timed=timed)
+        say(f"kernel uniform_pairs {name}: {json.dumps(recs[name])} [{card}]")
+    return recs
+
+
 def _dw_inputs(shape, dtype, seed):
     r = np.random.default_rng(seed)
     x = torch.from_numpy(r.standard_normal(shape).astype(np.float32))
@@ -1470,8 +1574,10 @@ def _wrappers() -> dict:
     from pipnet_tpu_torch.ops.dwconv import dwconv7x7
     from pipnet_tpu_torch.ops.fused_head import fused_head, head_backward
     from pipnet_tpu_torch.ops.fused_head_nopf import fused_head_nopf
+    from pipnet_tpu_torch.ops.uniform_pairs import uniform_pairs, uniform_pairs_backward
     return {"fused_head": fused_head, "head_backward": head_backward,
-            "fused_head_nopf": fused_head_nopf, "dwconv": dwconv7x7, "cnblock": cnblock_branch}
+            "fused_head_nopf": fused_head_nopf, "dwconv": dwconv7x7, "cnblock": cnblock_branch,
+            "uniform_pairs": uniform_pairs, "uniform_pairs_backward": uniform_pairs_backward}
 
 
 def counts() -> dict:
@@ -1889,14 +1995,30 @@ def upstream_trains(trainer, phase) -> bool:
                if lab not in ("classifier", "presence"))
 
 
+def uniform_on_kernels(trainer, phase) -> tuple:
+    """Whether the steps of ``phase`` run K5 (the uniformity loss: ``--uni
+    y`` outside the fine-tuning phases, bf16 or f32 features) and K5b (K5
+    where a backbone parameter trains, so the features take a gradient)."""
+    from pipnet_tpu_torch.train import group_trainable, label_params
+    cfg = trainer.cfg
+    k5 = cfg.train.loss.uni and not phase.finetune
+    labels = label_params([n for n, _ in trainer.model.named_parameters()],
+                          cfg.model.backbone)
+    return k5, k5 and any(group_trainable(lab, phase) for n, lab in labels.items()
+                          if n.startswith("backbone."))
+
+
 def expected_launches(rec: dict) -> dict:
     """The kernel launches of one recorded epoch or evaluation: K1 once a
     forward (the flagship tree has no node wider than a tile), K1b once a
-    step where the backward reaches the head."""
+    step where the backward reaches the head, K5 and K5b once a view and
+    step where the step runs them."""
     if rec["call"] == "evaluate":
         return {**NO_LAUNCHES, "fused_head": rec["batches"]}
     return {**NO_LAUNCHES, "fused_head": rec["steps"],
-            "head_backward": rec["steps"] if rec["k1b"] else 0}
+            "head_backward": rec["steps"] if rec["k1b"] else 0,
+            "uniform_pairs": 2 * rec["steps"] if rec["k5"] else 0,
+            "uniform_pairs_backward": 2 * rec["steps"] if rec["k5b"] else 0}
 
 
 @contextlib.contextmanager
@@ -1917,9 +2039,11 @@ def recorded_trainer(calls: list, trainers: list):
         zero_counts()
         info = run_epoch(self, epoch, pretrain=pretrain, loader=loader, **kw)
         losses = {k: v for k, v in info.items() if k == "loss" or k.startswith("loss/")}
+        k5, k5b = uniform_on_kernels(self, phase)
         calls.append({"call": "run_epoch", "epoch": epoch, "phase": phase.name,
                       "batch": loader.batch_size, "steps": len(loader),
-                      "k1b": upstream_trains(self, phase), "launches": counts(),
+                      "k1b": upstream_trains(self, phase), "k5": k5, "k5b": k5b,
+                      "launches": counts(),
                       "epoch_s": info["epoch_seconds"], "images_per_s": info["images_per_sec"],
                       "loss": info["loss"], "finite": all(np.isfinite(list(losses.values()))),
                       "nonzero_protos": info["nonzero_protos"]})
@@ -3267,12 +3391,16 @@ def align_uniform_parts(card: str, model, image_size: int) -> dict:
         (0.5 * a + 3.0 * u).backward()
         return a, u
 
+    zero_counts()
     a, u = run()
+    launches = {k: v for k, v in counts().items() if v}
+    if launches != {"uniform_pairs": 2, "uniform_pairs_backward": 2}:
+        fail(f"the align/uniform losses alone launched {launches}: K5 and K5b once a view")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     n = TRAIN_BATCH * H * W
-    rec = {"rows_per_view": n, "align": float(a), "uniform": float(u),
+    rec = {"rows_per_view": n, "align": float(a), "uniform": float(u), "launches": launches,
            "ms": time_ms(run, iters=3, warmup=1),
            "peak_extra_gb": (torch.cuda.max_memory_allocated() - base) / 1e9}
     rec["profile"] = profile_ms(run, n=2)
@@ -3406,8 +3534,10 @@ def option_cross_check(card: str) -> dict:
     if set(card_l) != set(cpu_l) or max(errs.values()) > OPTION_LOSS_REL or \
             not {"loss/align", "loss/uniform", "loss/ood_bce"} <= set(card_l):
         fail(f"the options' f32 step disagrees between the card and the CPU: {rec}")
+    # the joint phase trains the backbone: K5 and K5b once a view in f32
     check_launches("phase 15 cross-check", out["cuda"][2],
-                   {**NO_LAUNCHES, "fused_head": 1, "head_backward": 1})
+                   {**NO_LAUNCHES, "fused_head": 1, "head_backward": 1, "uniform_pairs": 2,
+                    "uniform_pairs_backward": 2})
     torch.cuda.empty_cache()
     return rec
 
@@ -3486,8 +3616,10 @@ def options_phase(card: str) -> dict:
             ("align/uniform, joint", JOINT_EPOCH, False, cfg),
             ("path A without them, joint", JOINT_EPOCH, False, run_config(flagship))):
         step, scalars = option_step(c, model, tree, epoch, pretrain)
+        # K5 and K5b once a view and step where the uniformity loss is on
+        k5 = {"uniform_pairs": 2, "uniform_pairs_backward": 2} if c.train.loss.uni else {}
         state, recs[label] = timed_steps(card, label, step, state, batch, scalars,
-                                         {"fused_head": 1, "head_backward": 1})
+                                         {"fused_head": 1, "head_backward": 1, **k5})
         paths[label] = recs[label]["launches"]
     recs["align/uniform alone"] = align_uniform_parts(card, model, cfg.model.image_size)
     seconds["align/uniform"] = time.perf_counter() - t
@@ -4542,7 +4674,7 @@ def f32_phase(card: str) -> dict:
 
 
 NO_LAUNCHES = {"fused_head": 0, "head_backward": 0, "fused_head_nopf": 0, "dwconv": 0,
-               "cnblock": 0}
+               "cnblock": 0, "uniform_pairs": 0, "uniform_pairs_backward": 0}
 
 
 class Laps:
@@ -4568,9 +4700,10 @@ def main(argv=None) -> int:
     ap.add_argument("--baseline", metavar="CHECKOUT",
                     help="an older checkout of this repository whose K1 and K2 are timed "
                          "in turns with this one's in the kernel phase")
-    ap.add_argument("--only", choices=["blocks", "data", "trainer", "eval", "interp",
-                                       "backbones", "options", "mesh", "model", "f32"],
-                    help="blocks: build, check and time K3 and K4 only; data: build, then "
+    ap.add_argument("--only", choices=["blocks", "uniform", "data", "trainer", "eval",
+                                       "interp", "backbones", "options", "mesh", "model", "f32"],
+                    help="blocks: build, check and time K3 and K4 only; uniform: build, "
+                         "check and time K5 and K5b only; data: build, then "
                          "run the training-from-data phase only; trainer: build, then run "
                          "the training-through-the-CLI phase only; eval: build, then "
                          "evaluate a run directory of seeded weights on the data phase's "
@@ -4614,6 +4747,10 @@ def main(argv=None) -> int:
     if args.only == "blocks":
         block_kernel_phase(card, baseline)
         say(f"--only blocks: done in {time.perf_counter() - t_start:.1f} s; no full run")
+        return 0
+    if args.only == "uniform":
+        uniform_kernel_checks(card)
+        say(f"--only uniform: done in {time.perf_counter() - t_start:.1f} s; no full run")
         return 0
     if args.only == "data":
         check_launches("training from data", data_phase(card)["launches"], {
@@ -4672,6 +4809,7 @@ def main(argv=None) -> int:
         for into, got in zip((records, backward, nopf), checks(card)):
             into.update(got)
     dw, blocks = block_kernel_phase(card, baseline)
+    pairs = uniform_kernel_checks(card)
     laps.lap("build and kernels")
 
     paths = {"depthwise conv op": dwconv_op_path(card),
@@ -4754,7 +4892,11 @@ def main(argv=None) -> int:
               ("max_abs_err",)),
         entry("cnblock", "cnblock.cu", "pipnet_tpu/ops/pallas_convnext.py:54", blocks,
               "stage3_bf16", ("max_abs_err",)),
+        entry("uniform_pairs", "uniform_pairs.cu",
+              "none (pipnet_tpu/losses/catalog.py:137, a lax.scan)", pairs, "flagship_bf16",
+              ("max_abs_err",)),
     ]
+    kernels[-1]["launches_backward"] = total["uniform_pairs_backward"]
     jax_modules = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "pipnet_tpu"))
     if jax_modules:
         fail(f"the run loaded JAX or the JAX package: {jax_modules}")

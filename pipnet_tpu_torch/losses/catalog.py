@@ -21,11 +21,12 @@ patch features, ref pipnet/train.py:898-928,1376-1396) and the OOD losses
 (``ood_bce_loss``, and ``ood_entropy_loss``, which no loss total reads, as
 in the JAX package) come after the per-node ones.  ``uniform_loss`` sums
 over every pair of a view's patch rows (43,264 of them at the flagship
-size) in row blocks, and recomputes each block in its backward, so no
-(n, n) matrix and no block's intermediates outlive the block.  It
-accumulates the pair sum in float32 whatever the input's dtype (the JAX
-package carries it in the input's dtype, bf16 on the flagship): a
-deliberate difference.  On a mesh (``shard``, ``runtime/mesh.py``) each
+size): CUDA rows through the hand-written K5 and K5b
+(``ops/uniform_pairs.py``), which keep the distances in registers, CPU
+rows in row blocks that the backward recomputes, so no (n, n) matrix
+outlives a block.  It accumulates the pair sum in float32 whatever the
+input's dtype (the JAX package carries it in the input's dtype, bf16 on
+the flagship): a deliberate difference.  On a mesh (``shard``, ``runtime/mesh.py``) each
 rank holds its own rows' features: the alignment is the ranks' sums of
 squares summed, and each rank sums the pairs of its own rows against every
 rank's (``_UniformRowPairs``), so the pair work is split over the ranks.
@@ -40,6 +41,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..ops.uniform_pairs import (UNIFORM_BLOCK, acc_dtype, row_pairs, uniform_pairs,
+                                 uniform_pairs_backward)
 from ..tree.compile import TreeArrays
 
 EPS = 1e-8           # calculate_loss is invoked with EPS=1e-8 (pipnet/train.py:238)
@@ -368,67 +371,26 @@ def align_loss_unit_space(x: torch.Tensor, y: torch.Tensor, shard=None) -> torch
     shard = _split_rows(shard)
     if shard is None:
         return ((x - y) ** 2).sum(dim=-1).mean()
-    part = ((x - y) ** 2).sum(dtype=_acc_dtype(x))
+    part = ((x - y) ** 2).sum(dtype=acc_dtype(x))
     return (shard.total(part) / shard.global_rows(x.shape[0])).to(x.dtype)
 
 
-UNIFORM_BLOCK = 2048
-
-
-def _pair_d2(xr: torch.Tensor, x: torch.Tensor, sqr: torch.Tensor,
-             sq: torch.Tensor) -> torch.Tensor:
-    """Squared distances (b, m) of the rows ``xr`` to the rows ``x``, as
-    ``|xr|^2 + |x|^2 - 2 xr x^T`` (products in the inputs' dtype, the rest
-    in ``sq``'s: f32, or float64 for float64 inputs), unclamped; one new
-    (b, m) tensor, the rest in place."""
-    d2 = (xr @ x.T).to(sq.dtype).mul_(-2.0)
-    return d2.add_(sqr[:, None]).add_(sq[None, :])
-
-
-def _acc_dtype(x: torch.Tensor) -> torch.dtype:
-    return torch.promote_types(x.dtype, torch.float32)
-
-
 class _UniformPairSum(torch.autograd.Function):
-    """S(x) = sum over i < j of exp(-t max(d2_ij, 0)) for the rows of x,
-    in f32 (float64 for float64 x), by row blocks; the backward recomputes
-    each block."""
+    """S(x) = sum over i < j of exp(-t max(d2_ij, 0)) for the rows of x, in
+    f32 (float64 for float64 x): K5 and K5b (``ops/uniform_pairs.py``) for
+    CUDA rows, else the plain version by row blocks, whose backward
+    recomputes each block."""
 
     @staticmethod
     def forward(ctx, x: torch.Tensor, t: float, block: int) -> torch.Tensor:
-        n = x.shape[0]
-        sq = (x.to(_acc_dtype(x)) ** 2).sum(dim=-1)
-        total = torch.zeros((), dtype=sq.dtype, device=x.device)
-        for r0 in range(0, n, block):
-            r1 = min(r0 + block, n)
-            # pairs i < j only: columns from the block's first row on
-            e = _pair_d2(x[r0:r1], x[r0:], sq[r0:r1], sq[r0:]).clamp_(min=0.0)
-            e.mul_(-t).exp_()
-            total += e[:, r1 - r0:].sum() + torch.triu(e[:, :r1 - r0], diagonal=1).sum()
         ctx.save_for_backward(x)
         ctx.t, ctx.block = t, block
-        return total
+        return uniform_pairs(x, t, block)
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
         (x,) = ctx.saved_tensors
-        t, block, n = ctx.t, ctx.block, x.shape[0]
-        sq = (x.to(_acc_dtype(x)) ** 2).sum(dim=-1)
-        dx = torch.empty(x.shape, dtype=sq.dtype, device=x.device)
-        for r0 in range(0, n, block):
-            r1 = min(r0 + block, n)
-            d2 = _pair_d2(x[r0:r1], x, sq[r0:r1], sq)
-            m = d2.clamp(min=0.0).mul_(-t).exp_()
-            # max(d2, 0)'s derivative, split evenly at a tie as jnp.maximum's:
-            # 1 where d2 > 0 (nearly every pair), 1/2 at 0, 0 below
-            m.masked_fill_(d2 < 0, 0.0).masked_fill_(d2 == 0, 0.5)
-            del d2
-            m.mul_(-t * g)
-            m[:, r0:r1].fill_diagonal_(0.0)
-            # each pair (i, j) adds m_ij (2 x_i - 2 x_j) to x_i
-            rows = m.sum(dim=1, keepdim=True)
-            dx[r0:r1] = 2.0 * (x[r0:r1].to(m.dtype) * rows - (m.to(x.dtype) @ x).to(m.dtype))
-        return dx.to(x.dtype), None, None
+        return uniform_pairs_backward(x, g, ctx.t, ctx.block), None, None
 
 
 class _UniformRowPairs(torch.autograd.Function):
@@ -438,34 +400,14 @@ class _UniformRowPairs(torch.autograd.Function):
     The ranks' shares add up to the pair sum, each for len(xr) * n pairs.
     The gradient for ``xr`` is the whole pair sum's (a pair's term counts
     for both its rows, where a share holds half of each); the forward
-    computes it block by block beside the sum, as it has each block at
-    hand."""
+    computes it beside the sum (``ops/uniform_pairs.py::row_pairs``)."""
 
     @staticmethod
     def forward(ctx, xr: torch.Tensor, x: torch.Tensor, at: int, t: float,
                 block: int) -> torch.Tensor:
-        acc = _acc_dtype(x)
-        sq = (x.to(acc) ** 2).sum(dim=-1)
-        sqr = sq[at:at + xr.shape[0]]
-        total = torch.zeros((), dtype=acc, device=x.device)
-        ctx.dtype, ctx.dx = xr.dtype, None
-        if ctx.needs_input_grad[0]:
-            ctx.dx = torch.empty(xr.shape, dtype=acc, device=x.device)
-        for r0 in range(0, xr.shape[0], block):
-            r1 = min(r0 + block, xr.shape[0])
-            d2 = _pair_d2(xr[r0:r1], x, sqr[r0:r1], sq)
-            e = d2.clamp(min=0.0).mul_(-t).exp_()
-            e[:, at + r0:at + r1].fill_diagonal_(0.0)
-            total += e.sum()
-            if ctx.dx is not None:
-                # as _UniformPairSum.backward: max(d2, 0)'s derivative
-                m = e.masked_fill_(d2 < 0, 0.0).masked_fill_(d2 == 0, 0.5).mul_(-t)
-                del d2
-                m[:, at + r0:at + r1].fill_diagonal_(0.0)
-                rows = m.sum(dim=1, keepdim=True)
-                ctx.dx[r0:r1] = 2.0 * (xr[r0:r1].to(acc) * rows
-                                       - (m.to(x.dtype) @ x).to(acc))
-        return 0.5 * total
+        ctx.dtype = xr.dtype
+        share, ctx.dx = row_pairs(xr, x, at, t, block, ctx.needs_input_grad[0])
+        return share
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
@@ -476,8 +418,8 @@ def uniform_loss(x: torch.Tensor, t: float = 2.0, block: int = UNIFORM_BLOCK,
                  shard=None) -> torch.Tensor:
     """log(mean over i < j of exp(-t ||x_i - x_j||^2) + 1e-10) over the rows
     of ``x`` (n, D) (ref pipnet/train.py:1376-1386), in f32 (float64 for
-    float64 ``x``): the pair sum
-    by blocks of ``block`` rows (``_UniformPairSum``), so the n^2 distance
+    float64 ``x``): the pair sum by K5 and K5b for CUDA rows, else by
+    blocks of ``block`` rows (``_UniformPairSum``), so the n^2 distance
     matrix never exists at once.  With ``shard`` (one view's
     ``BatchShard``) the rows are this rank's, the pairs every rank's: the
     rank sums its rows' pairs against the gathered rows

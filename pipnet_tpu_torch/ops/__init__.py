@@ -1,6 +1,7 @@
 """Compute ops: segment ops (plain PyTorch) and the hand-written CUDA
 kernels with their plain versions (``fused_head``: K1 and its adjoint K1b;
-``fused_head_nopf``: K2; ``dwconv``: K3; ``cnblock``: K4)."""
+``fused_head_nopf``: K2; ``dwconv``: K3; ``cnblock``: K4; ``uniform_pairs``:
+K5 and its gradient K5b, the uniformity loss's pair sum)."""
 
 from .cnblock import (FusedCNBlock, cnblock_branch, cnblock_branch_reference,
                       cnblock_branch_unfused)

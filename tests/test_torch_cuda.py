@@ -991,3 +991,173 @@ def test_options_step_on_card_matches_cpu(card, monkeypatch):
     assert {"loss/align", "loss/uniform", "loss/ood_bce"} <= set(out["cpu"])
     for k, v in out["cpu"].items():
         assert abs(out["cuda"][k] - v) <= 1e-5 * max(abs(v), 1e-6), k
+
+
+# ---- K5 and K5b: the uniformity loss's pair sum and its gradient ----------
+
+def _unit_rows(n, D, seed, repeat=0, dtype=torch.bfloat16):
+    """n unit rows of width D in ``dtype`` on the card; with ``repeat``
+    every ``repeat``-th row copies the row before it, so those pairs' d2 is
+    0 in exact arithmetic and 0 or a rounding either side of it in f32: the
+    clamp's cases, whose e is 1 in the sum.  (The tie rule's weight for
+    such a pair multiplies x_i - x_j = 0 in the gradient, so no gradient
+    shows it.)"""
+    x = np.random.default_rng(seed).standard_normal((n, D))
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    if repeat:
+        x[repeat::repeat] = x[repeat - 1:-1:repeat][:len(x[repeat::repeat])]
+    return torch.from_numpy(x.astype(np.float32)).to("cuda", dtype)
+
+
+# The bars, against the float64 value of the same rows.  bf16 rows: the sum
+# within 1e-4, relative (a pair's distance comes from f32 accumulators,
+# ~1e-6 off, and the tiles' f32 partials add as much again; 1e-4 is two
+# decades above), the plain bf16 version within 1e-3 (it rounds each
+# product to bf16, which moves a pair's term by up to ~1.6%, averaged over
+# the pairs; the CPU test's bar); the gradient within 2^-8 of each value (it
+# is rounded once to bf16, as the plain version's is) plus 1e-3 of the
+# largest (m is rounded to bf16 before its product, as in the plain
+# version: 2^-9 of a term, ~1e-5 of the largest summed over the pairs'
+# signs).  f32 rows: nothing is rounded below f32, so the sum within 1e-5
+# (f32 distances ~1e-7 off, ex2.approx 2^-22, the f32 partials of 256
+# terms a thread) and the gradient within 1e-5 of each value plus 1e-5 of
+# the largest (f32 sums over the n pairs, ~1e-6 of the largest at 4,097
+# rows); the plain f32 version is held to the same bars.
+_PAIR_BARS = {torch.bfloat16: (1e-4, 1e-3, 2.0 ** -8, 1e-3),
+              torch.float32: (1e-5, 1e-5, 1e-5, 1e-5)}
+
+
+def _check_pairs_against_exact(x, g, at=0, rows=None):
+    """K5 and K5b (whole sum with the cotangent ``g``, or with ``rows`` a
+    rank's share and its rows' gradient through ``row_pairs``) against the
+    float64 value of the same rows and against the plain version in x's
+    dtype, and repeated bit for bit, with the bars above."""
+    from pipnet_tpu_torch.ops.uniform_pairs import (UNIFORM_BLOCK, pair_sum_backward_reference,
+                                                    pair_sum_reference, row_pairs,
+                                                    row_pairs_reference, uniform_pairs,
+                                                    uniform_pairs_backward)
+    share = rows is not None
+
+    def kernels():
+        if share:
+            return row_pairs(x[at:at + rows], x, at, 2.0, UNIFORM_BLOCK, True)
+        return uniform_pairs(x, 2.0), uniform_pairs_backward(x, g, 2.0)
+
+    s, dx = kernels()
+    s2, dx2 = kernels()
+    torch.cuda.synchronize()
+    assert torch.equal(s, s2) and torch.equal(dx, dx2)
+    x64 = x.double()
+    if share:
+        want, want_dx = row_pairs_reference(x64[at:at + rows], x64, at, 2.0, 1024, True)
+        plain = row_pairs_reference(x[at:at + rows], x, at, 2.0, UNIFORM_BLOCK, False)[0]
+        assert g is None and dx.dtype == torch.float32
+    else:
+        want = pair_sum_reference(x64, 2.0, 1024)
+        want_dx = pair_sum_backward_reference(x64, g.double(), 2.0, 1024)
+        plain = pair_sum_reference(x, 2.0, UNIFORM_BLOCK)
+        assert dx.dtype == x.dtype
+    sum_bar, plain_bar, dx_rel, dx_floor = _PAIR_BARS[x.dtype]
+    assert s.dtype == torch.float32 and s.shape == ()
+    assert abs(float(s) - float(want)) <= sum_bar * abs(float(want))
+    assert abs(float(plain) - float(want)) <= plain_bar * abs(float(want))
+    assert dx.shape == want_dx.shape and torch.isfinite(dx.float()).all()
+    err = (dx.double() - want_dx).abs()
+    assert (err <= dx_rel * want_dx.abs() + dx_floor * want_dx.abs().max()).all(), err.max()
+    return s, dx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,D,repeat,dtype", [
+    (300, 768, 0, torch.bfloat16), (4097, 768, 0, torch.bfloat16),
+    (4097, 768, 7, torch.bfloat16), (2000, 128, 0, torch.bfloat16),
+    (2000, 384, 0, torch.bfloat16), (1500, 2048, 0, torch.bfloat16),
+    (1000, 72, 5, torch.bfloat16), (4093, 768, 0, torch.bfloat16),
+    (300, 768, 0, torch.float32), (4097, 768, 7, torch.float32),
+    (2000, 128, 0, torch.float32), (1500, 2048, 0, torch.float32),
+    (1000, 68, 5, torch.float32)])
+def test_uniform_pair_kernels_match_exact(card, n, D, repeat, dtype):
+    """K5 and K5b on ragged row counts (300 rows: one chunk of three row
+    tiles; 4097: two chunks of K5b, the last ragged) at the backbones'
+    widths (the reducer's 128, ViT-S's 384, ConvNeXt's 768, ResNet-50's
+    2048: five chunks of 1024 rows) and at D = 72 and 68 (a depth slab or
+    slice past D read as zeros), with repeated rows at some, in bf16 and
+    f32, against the exact value; one call each of the two wrappers counts
+    one launch."""
+    from pipnet_tpu_torch.ops.uniform_pairs import uniform_pairs, uniform_pairs_backward
+    x = _unit_rows(n, D, seed=n + D, repeat=repeat, dtype=dtype)
+    g = torch.tensor(0.37, device="cuda")
+    uniform_pairs.launches = uniform_pairs_backward.launches = 0
+    _check_pairs_against_exact(x, g)
+    assert uniform_pairs.launches == 2 and uniform_pairs_backward.launches == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,at,rows,dtype", [
+    (4097, 0, 1500, torch.bfloat16), (4097, 1000, 1500, torch.bfloat16),
+    (4097, 2600, 1497, torch.bfloat16), (300, 150, 150, torch.bfloat16),
+    (4097, 1000, 1500, torch.float32), (300, 150, 150, torch.float32)])
+def test_uniform_pair_kernels_on_a_row_range(card, n, at, rows, dtype):
+    """A mesh rank's rows (``at`` > 0, not a multiple of the 128-row tile;
+    the last rank's range ending at n): the share (half the sum over j != i)
+    and the whole sum's gradient for those rows in f32, against the exact
+    value; the shares of a partition add up to the whole sum; one
+    ``row_pairs`` call with its gradient counts one K5 and one K5b."""
+    from pipnet_tpu_torch.ops.uniform_pairs import row_pairs, uniform_pairs, uniform_pairs_backward
+    x = _unit_rows(n, 768, seed=at + rows, dtype=dtype)
+    uniform_pairs.launches = uniform_pairs_backward.launches = 0
+    _check_pairs_against_exact(x, None, at=at, rows=rows)
+    assert uniform_pairs.launches == 2 and uniform_pairs_backward.launches == 2
+    whole = float(uniform_pairs(x, 2.0))
+    cut = [0, at, at + rows, n]
+    parts = [row_pairs(x[a:b], x, a, 2.0, 2048, False)[0] for a, b in zip(cut, cut[1:]) if b > a]
+    assert abs(sum(float(p) for p in parts) - whole) <= 1e-5 * whole
+
+
+@pytest.mark.cuda
+def test_uniform_loss_at_the_flagship_shape(card):
+    """Both views of the flagship's step (43,264 patch rows a view, D = 768)
+    through ``align_and_uniform``: each view's K5 and K5b against the exact
+    value with the bars above, bit for bit the same on a second call, and
+    the launches the design counts: one K5 and one K5b a view."""
+    from pipnet_tpu_torch.losses.catalog import align_and_uniform, flatten_patches, l2_normalize
+    from pipnet_tpu_torch.ops.uniform_pairs import uniform_pairs, uniform_pairs_backward
+    r = np.random.default_rng(3)
+    f0 = torch.from_numpy(r.standard_normal((128, 26, 26, 768)).astype(np.float32))
+    f0 = f0.to("cuda", torch.bfloat16)
+    grads, losses = [], []
+    for _ in range(2):
+        f = f0.clone().requires_grad_(True)
+        uniform_pairs.launches = uniform_pairs_backward.launches = 0
+        _, u = align_and_uniform(f, align=True, uni=True)
+        (3.0 * u).backward()
+        assert uniform_pairs.launches == 2 and uniform_pairs_backward.launches == 2
+        losses.append(u.detach())
+        grads.append(f.grad)
+    assert torch.equal(losses[0], losses[1]) and torch.equal(grads[0], grads[1])
+    for view in f0.chunk(2, dim=0):
+        x = l2_normalize(flatten_patches(view))
+        _check_pairs_against_exact(x, torch.tensor(0.21, device="cuda"))
+
+
+@pytest.mark.cuda
+def test_uniform_loss_dispatch_on_the_card(card):
+    """bf16 and f32 rows on the card take the kernels, one K5 and one K5b
+    a loss and its backward, in the rows' dtype; float64 rows and rows
+    whose width the kernels cannot take (not a multiple of 16 bytes) raise
+    rather than fall back."""
+    from pipnet_tpu_torch.losses.catalog import uniform_loss
+    from pipnet_tpu_torch.ops.uniform_pairs import uniform_pairs, uniform_pairs_backward
+    x = _unit_rows(500, 64, seed=5)
+    for dt in (torch.bfloat16, torch.float32):
+        xr = x.to(dt).detach().requires_grad_(True)
+        uniform_pairs.launches = uniform_pairs_backward.launches = 0
+        v = uniform_loss(xr)
+        v.backward()
+        assert uniform_pairs.launches == 1 and uniform_pairs_backward.launches == 1
+        assert v.dtype == torch.float32 and xr.grad.dtype == dt
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        uniform_loss(x.double())
+    for dt, D in ((torch.bfloat16, 60), (torch.float32, 66)):
+        with pytest.raises(ValueError, match="multiple of"):
+            uniform_loss(_unit_rows(50, D, seed=6, dtype=dt))
